@@ -1,0 +1,229 @@
+"""Multi-codebook transformer LM and its autoregressive generation
+(counterpart of `audiocraft_tpu/models/lm.py`).
+
+Module attributes follow upstream audiocraft's state-dict keys (`emb.{k}`,
+`linears.{k}`, `out_norm`, `transformer.layers.{i}...`,
+`condition_provider.conditioners.{name}...`).
+
+`generate` runs one prefill forward, then one forward per pattern step in a
+Python loop. The KV cache is allocated once at the full sequence length and
+the decode-attention kernel reads only its valid prefix. The loop keeps every
+value it branches on on the host (step offsets, the pattern's index tables),
+so it never waits for the device.
+"""
+import dataclasses
+import math
+import typing as tp
+
+import torch
+import torch.nn as nn
+
+from ..modules.conditioners import (BaseConditioner,
+                                    ClassifierFreeGuidanceDropout,
+                                    ConditionFuser, ConditioningAttributes,
+                                    ConditioningProvider, ConditionType)
+from ..modules.patterns import CodebooksPatternProvider
+from ..modules.transformer import LayerCache, StreamingTransformer
+from ..utils.utils import check_module_device, resolve_device, sample_tokens
+
+ConditionTensors = tp.Dict[str, ConditionType]
+
+
+@dataclasses.dataclass(frozen=True)
+class GenParams:
+    """Sampling and classifier-free-guidance settings."""
+    use_sampling: bool = True
+    temp: float = 1.0
+    top_k: int = 250
+    top_p: float = 0.0
+    cfg_coef: tp.Optional[float] = None
+
+
+def _combine_cfg_logits(all_logits: torch.Tensor, B: int,
+                        cfg_coef: float) -> torch.Tensor:
+    """Conditional rows first, null rows second."""
+    cond_logits, uncond_logits = all_logits[:B], all_logits[B:]
+    return uncond_logits + (cond_logits - uncond_logits) * cfg_coef
+
+
+class LMModel(nn.Module):
+    """Transformer LM over `n_q` parallel code streams."""
+
+    def __init__(self, pattern_provider: CodebooksPatternProvider,
+                 conditioners: tp.Dict[str, BaseConditioner],
+                 fuser: ConditionFuser, n_q: int = 8, card: int = 1024,
+                 dim: int = 128, num_heads: int = 8, hidden_scale: int = 4,
+                 norm_first: bool = False, bias_proj: bool = True,
+                 cfg_coef: float = 1.0, num_layers: int = 8,
+                 bias_ff: bool = True, bias_attn: bool = True,
+                 causal: bool = True, past_context: tp.Optional[int] = None,
+                 cross_attention: bool = False, activation: str = "gelu",
+                 device=None, dtype=None):
+        super().__init__()
+        factory = dict(device=device, dtype=dtype)
+        self.pattern_provider = pattern_provider
+        self.fuser = fuser
+        self.n_q = n_q
+        self.card = card
+        self.dim = dim
+        self.num_heads = num_heads
+        self.num_layers = num_layers
+        self.cfg_coef = cfg_coef
+        self.cross_attention = cross_attention
+        self.condition_provider = ConditioningProvider(conditioners)
+        self.emb = nn.ModuleList([nn.Embedding(card + 1, dim, **factory)
+                                  for _ in range(n_q)])
+        self.transformer = StreamingTransformer(
+            d_model=dim, num_heads=num_heads, num_layers=num_layers,
+            dim_feedforward=int(hidden_scale * dim), bias_ff=bias_ff,
+            bias_attn=bias_attn, causal=causal, past_context=past_context,
+            cross_attention=cross_attention, norm_first=norm_first,
+            activation=activation, **factory)
+        self.out_norm = (nn.LayerNorm(dim, eps=1e-5, **factory)
+                         if norm_first else None)
+        self.linears = nn.ModuleList([nn.Linear(dim, card, bias=bias_proj,
+                                                **factory)
+                                      for _ in range(n_q)])
+
+    @property
+    def special_token_id(self) -> int:
+        return self.card
+
+    @torch.no_grad()
+    def reset_parameters(self, seed: int) -> None:
+        """Seeded random weights after upstream's 'gaussian' LM init with
+        depthwise scaling: every matrix (embeddings included) ~
+        N(0, 1/fan_in) truncated at 3 std; inside layer i (1-based) the std
+        is further divided by sqrt(2 i); biases zero; norms one/zero.
+        Conditioners keep their own init."""
+        g = torch.Generator(self.emb[0].weight.device).manual_seed(seed)
+
+        def trunc_normal_(t: torch.Tensor, std: float):
+            t.normal_(0.0, std, generator=g).clamp_(-3 * std, 3 * std)
+
+        for emb in self.emb:
+            trunc_normal_(emb.weight, 1 / math.sqrt(self.dim))
+        for lin in self.linears:
+            trunc_normal_(lin.weight, 1 / math.sqrt(self.dim))
+            if lin.bias is not None:
+                lin.bias.zero_()
+        for i, layer in enumerate(self.transformer.layers):
+            depth_scale = math.sqrt(2 * (i + 1))
+            for name, p in layer.named_parameters():
+                if "norm" in name:
+                    p.fill_(1.0) if name.endswith("weight") else p.zero_()
+                elif name.endswith("bias"):
+                    p.zero_()
+                else:  # [out, in] matrices
+                    trunc_normal_(p, 1 / math.sqrt(p.shape[1]) / depth_scale)
+        if self.out_norm is not None:
+            self.out_norm.reset_parameters()
+
+    def embed_codes(self, sequence: torch.Tensor) -> torch.Tensor:
+        """sum_k emb[k](sequence[:, k]): [B, K, S] -> [B, S, D]."""
+        return sum(self.emb[k](sequence[:, k]) for k in range(self.n_q))
+
+    def compute_conditions(self, tokenized: tp.Dict[str, tp.Any]
+                           ) -> ConditionTensors:
+        return self.condition_provider(tokenized)
+
+    def forward(self, sequence: torch.Tensor,
+                condition_tensors: ConditionTensors,
+                caches: tp.Optional[tp.List[LayerCache]] = None
+                ) -> torch.Tensor:
+        """sequence [B, K, S] -> logits [B, K, S, card]. With `caches`, the
+        steps are appended to them in place."""
+        B, K, S = sequence.shape
+        assert K == self.n_q
+        input_, cross_src = self.fuser(self.embed_codes(sequence),
+                                       condition_tensors)
+        out = self.transformer(input_, cross_attention_src=cross_src,
+                               caches=caches)
+        if self.out_norm is not None:
+            out = self.out_norm(out)
+        return torch.stack([lin(out) for lin in self.linears], dim=1)
+
+    def prepare_cfg_conditions(self, conditions: tp.List[ConditioningAttributes]
+                               ) -> ConditionTensors:
+        """Condition tensors for batched CFG: the conditional rows, then the
+        null rows (every attribute dropped), tokenized together."""
+        if not conditions:
+            return {}
+        null_conditions = ClassifierFreeGuidanceDropout(p=1.0)(conditions)
+        tokenized = self.condition_provider.tokenize(conditions + null_conditions)
+        return self.compute_conditions(tokenized)
+
+    @torch.no_grad()
+    def generate(self, prompt: tp.Optional[torch.Tensor] = None,
+                 conditions: tp.Sequence[ConditioningAttributes] = (),
+                 condition_tensors: tp.Optional[ConditionTensors] = None,
+                 num_samples: tp.Optional[int] = None, max_gen_len: int = 256,
+                 gen: GenParams = GenParams(), cache_dtype=None,
+                 generator: tp.Optional[torch.Generator] = None,
+                 device=None) -> torch.Tensor:
+        """Autoregressive generation; returns codes [B, K, max_gen_len] with
+        the prompt retained. `condition_tensors`, when given, already holds
+        the conditional and the null rows (2B of them). The model must be on
+        `device` (CUDA unless the caller names another)."""
+        device = resolve_device(device)
+        check_module_device(self, device)
+        conditions = list(conditions)
+        if num_samples is None:
+            num_samples = (prompt.shape[0] if prompt is not None
+                           else len(conditions) if conditions else 1)
+        cfg_coef = self.cfg_coef if gen.cfg_coef is None else gen.cfg_coef
+        if condition_tensors is None:
+            condition_tensors = self.prepare_cfg_conditions(conditions)
+
+        K = self.n_q
+        if prompt is None:
+            prompt = torch.zeros(num_samples, K, 0, dtype=torch.long)
+        B, _, T = prompt.shape
+        assert T < max_gen_len
+        pattern = self.pattern_provider.get_pattern(max_gen_len)
+        unknown, special = -1, self.special_token_id
+
+        gen_codes = torch.full((B, K, max_gen_len), unknown, dtype=torch.long,
+                               device=device)
+        gen_codes[..., :T] = prompt.to(device)
+        gen_sequence, _, _ = pattern.build_pattern_sequence(gen_codes, special)
+        S = gen_sequence.shape[-1]
+        start = pattern.get_first_step_with_timesteps(T)
+        assert start is not None
+        _, seq_mask_np = pattern._build_pattern_sequence_scatter_indexes(
+            max_gen_len, K, keep_only_valid_steps=False)
+        seq_mask = torch.from_numpy(seq_mask_np).to(device)  # [K, S]
+
+        cfg_mult = 2 if condition_tensors else 1
+        cache_dtype = cache_dtype or self.emb[0].weight.dtype
+        caches = self.transformer.init_cache(cfg_mult * B, S, cache_dtype,
+                                             device)
+        if self.cross_attention and condition_tensors:
+            cross_src = self.fuser.cross_source(condition_tensors)
+            # cross K/V stay bf16 under an int8 self-attention cache
+            cross_dt = torch.bfloat16 if cache_dtype == torch.int8 else cache_dtype
+            self.transformer.precompute_cross_kv(cross_src.to(cross_dt), caches)
+
+        def step(offset: int, tokens: torch.Tensor):
+            """Forward `tokens` [B, K, t], sample step `offset`, write it."""
+            seq_in = torch.cat([tokens] * cfg_mult) if cfg_mult > 1 else tokens
+            logits = self(seq_in, condition_tensors, caches=caches)
+            if cfg_mult > 1:
+                logits = _combine_cfg_logits(logits, B, cfg_coef)
+            next_token = sample_tokens(
+                logits[:, :, -1], use_sampling=gen.use_sampling, temp=gen.temp,
+                top_k=gen.top_k, top_p=gen.top_p, generator=generator)[..., 0]
+            next_token = next_token.masked_fill(~seq_mask[:, offset], special)
+            cur = gen_sequence[..., offset]
+            gen_sequence[..., offset] = torch.where(cur == unknown, next_token,
+                                                    cur)
+
+        step(start, gen_sequence[..., :start])
+        for offset in range(start + 1, S):
+            step(offset, gen_sequence[..., offset - 1:offset])
+
+        gen_sequence = torch.where(seq_mask[None], gen_sequence,
+                                   torch.full_like(gen_sequence, special))
+        out_codes, _, _ = pattern.revert_pattern_sequence(
+            gen_sequence, special_token=unknown)
+        return out_codes[..., :max_gen_len]

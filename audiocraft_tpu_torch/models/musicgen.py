@@ -1,0 +1,43 @@
+"""MusicGen: text-conditioned music generation (counterpart of
+`audiocraft_tpu/models/musicgen.py`)."""
+from .genmodel import BaseGenModel
+
+
+class MusicGen(BaseGenModel):
+    """Text -> music. Defaults: duration 15 s (capped by `max_duration`),
+    sampling with top-k 250, CFG coefficient 3."""
+
+    def __init__(self, name, compression_model, lm, max_duration: float = 30,
+                 device=None):
+        super().__init__(name, compression_model, lm, max_duration, device)
+        self.set_generation_params(duration=min(15, self.max_duration),
+                                   extend_stride=min(18, self.max_duration / 2))
+
+    @staticmethod
+    def get_pretrained(name: str = "debug", device=None) -> "MusicGen":
+        """The `debug` model (tiny, seeded random weights). Loading upstream
+        checkpoints is not ported yet."""
+        if name != "debug":
+            raise NotImplementedError(
+                f"{name!r}: only the 'debug' model can be built; loading "
+                "upstream MusicGen checkpoints is not ported yet")
+        from . import builders
+        return MusicGen(name, builders.get_debug_compression_model(device=device),
+                        builders.get_debug_lm_model(device=device),
+                        max_duration=30, device=device)
+
+    def set_generation_params(self, use_sampling: bool = True, top_k: int = 250,
+                              top_p: float = 0.0, temperature: float = 1.0,
+                              duration: float = 30.0, cfg_coef: float = 3.0,
+                              extend_stride: float = 18):
+        assert extend_stride < self.max_duration, \
+            "Cannot stride by more than max generation duration."
+        self.extend_stride = extend_stride
+        self.duration = duration
+        self.generation_params = {
+            "use_sampling": use_sampling,
+            "temp": temperature,
+            "top_k": top_k,
+            "top_p": top_p,
+            "cfg_coef": cfg_coef,
+        }

@@ -1,0 +1,299 @@
+"""Streaming transformer with a static KV cache
+(counterpart of `audiocraft_tpu/modules/transformer.py`).
+
+Module attributes follow upstream audiocraft's state-dict keys
+(`layers.{i}.self_attn.in_proj_weight`, `cross_attention`, `norm_cross`, ...).
+The KV cache is allocated once at full size and written in place; a
+single-step causal self-attention reads it through the decode-attention
+kernel (`ops/decode_attention.py`), which visits only the valid prefix.
+"""
+import dataclasses
+import typing as tp
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops.attention import dot_product_attention, make_causal_bias
+from ..ops.decode_attention import decode_attention
+from .activations import get_activation_fn
+
+MAX_PERIOD = 10000.0
+
+
+def create_sin_embedding(positions: torch.Tensor, dim: int,
+                         max_period: float = MAX_PERIOD,
+                         dtype=torch.float32) -> torch.Tensor:
+    """Sinusoidal positional embedding [B, T, C] from positions [B, T, 1]."""
+    assert dim % 2 == 0
+    half_dim = dim // 2
+    positions = positions.to(dtype)
+    adim = torch.arange(half_dim, dtype=dtype,
+                        device=positions.device).reshape(1, 1, -1)
+    phase = positions / (max_period ** (adim / (half_dim - 1)))
+    return torch.cat([torch.cos(phase), torch.sin(phase)], dim=-1)
+
+
+@dataclasses.dataclass
+class KVCache:
+    """Static self-attention cache: buffers [B, S, H, D] and the count of
+    written steps (a host int). With dtype int8 the buffers hold values
+    quantized symmetrically per (step, head) and `k_scale`/`v_scale` [B, S, H]
+    hold the bf16 dequant scales."""
+    k: torch.Tensor
+    v: torch.Tensor
+    index: int = 0
+    k_scale: tp.Optional[torch.Tensor] = None
+    v_scale: tp.Optional[torch.Tensor] = None
+
+    @classmethod
+    def create(cls, batch: int, max_len: int, num_heads: int, head_dim: int,
+               dtype=torch.float32, device=None) -> "KVCache":
+        shape = (batch, max_len, num_heads, head_dim)
+        k = torch.zeros(shape, dtype=dtype, device=device)
+        v = torch.zeros(shape, dtype=dtype, device=device)
+        if dtype != torch.int8:
+            return cls(k, v)
+        scale_shape = (batch, max_len, num_heads)
+        return cls(k, v, k_scale=torch.zeros(scale_shape, dtype=torch.bfloat16,
+                                             device=device),
+                   v_scale=torch.zeros(scale_shape, dtype=torch.bfloat16,
+                                       device=device))
+
+    @staticmethod
+    def _quantize(x: torch.Tensor) -> tp.Tuple[torch.Tensor, torch.Tensor]:
+        scale = x.abs().amax(dim=-1, keepdim=True) / 127.0
+        # the clamp only matters where rounding in a narrow dtype lands on 128
+        q = torch.round(x / scale.clamp_min(1e-8)).clamp_(-127, 127)
+        return q.to(torch.int8), scale[..., 0].to(torch.bfloat16)
+
+    def write(self, k: torch.Tensor, v: torch.Tensor, offset: int) -> None:
+        """Write a [B, T, H, D] chunk at `offset` in place (quantizing if int8)."""
+        end = offset + k.shape[1]
+        if self.k.dtype == torch.int8:
+            k_q, k_s = self._quantize(k)
+            v_q, v_s = self._quantize(v)
+            self.k[:, offset:end] = k_q
+            self.v[:, offset:end] = v_q
+            self.k_scale[:, offset:end] = k_s
+            self.v_scale[:, offset:end] = v_s
+        else:
+            self.k[:, offset:end] = k.to(self.k.dtype)
+            self.v[:, offset:end] = v.to(self.v.dtype)
+        self.index = end
+
+    def read(self, dtype) -> tp.Tuple[torch.Tensor, torch.Tensor]:
+        """Full dequantized buffers in `dtype` (dequantized in `dtype`)."""
+        if self.k.dtype == torch.int8:
+            return (self.k.to(dtype) * self.k_scale[..., None].to(dtype),
+                    self.v.to(dtype) * self.v_scale[..., None].to(dtype))
+        return self.k.to(dtype), self.v.to(dtype)
+
+
+@dataclasses.dataclass
+class LayerCache:
+    """Per-layer state: self-attention KV cache + precomputed cross K/V."""
+    self_attn: KVCache
+    cross_k: tp.Optional[torch.Tensor] = None  # [B, Tc, H, D]
+    cross_v: tp.Optional[torch.Tensor] = None
+
+
+class StreamingMultiheadAttention(nn.Module):
+    """Multi-head attention with a fused qkv projection (torch layout
+    `in_proj_weight` [3E, E]), causal masking with an optional finite
+    `past_context`, cross-attention over precomputed K/V, and a static cache."""
+
+    def __init__(self, embed_dim: int, num_heads: int, bias: bool = True,
+                 causal: bool = False, past_context: tp.Optional[int] = None,
+                 cross_attention: bool = False, device=None, dtype=None):
+        super().__init__()
+        assert embed_dim % num_heads == 0
+        assert not (cross_attention and causal), \
+            "Causal cannot work with cross attention."
+        factory = dict(device=device, dtype=dtype)
+        self.embed_dim = embed_dim
+        self.num_heads = num_heads
+        self.causal = causal
+        self.past_context = past_context
+        self.cross_attention = cross_attention
+        self.in_proj_weight = nn.Parameter(
+            torch.empty(3 * embed_dim, embed_dim, **factory))
+        if bias:
+            self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim,
+                                                         **factory))
+        else:
+            self.register_parameter("in_proj_bias", None)
+        self.out_proj = nn.Linear(embed_dim, embed_dim, bias=bias, **factory)
+        bound = 1.0 / embed_dim ** 0.5
+        nn.init.uniform_(self.in_proj_weight, -bound, bound)
+
+    def _split_heads(self, x: torch.Tensor) -> torch.Tensor:
+        B, T, _ = x.shape
+        return x.reshape(B, T, self.num_heads, -1)
+
+    def project_kv(self, src: torch.Tensor
+                   ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
+        """Keys/values only, [B, Tk, H, D] each (cross-attention precompute)."""
+        E = self.embed_dim
+        bias = None if self.in_proj_bias is None else self.in_proj_bias[E:]
+        kv = F.linear(src.to(self.in_proj_weight.dtype), self.in_proj_weight[E:],
+                      bias)
+        k, v = kv.chunk(2, dim=-1)
+        return self._split_heads(k), self._split_heads(v)
+
+    def forward(self, query: torch.Tensor,
+                key: tp.Optional[torch.Tensor] = None, *,
+                cache: tp.Optional[KVCache] = None,
+                cross_kv: tp.Optional[tp.Tuple[torch.Tensor, torch.Tensor]] = None
+                ) -> torch.Tensor:
+        """query [B, T, E] -> [B, T, E]. Self-attention writes `cache` in
+        place; cross-attention attends `cross_kv` (or projects `key`)."""
+        B, T, E = query.shape
+        dtype = self.in_proj_weight.dtype
+        query = query.to(dtype)
+
+        if self.cross_attention:
+            bias = None if self.in_proj_bias is None else self.in_proj_bias[:E]
+            q = self._split_heads(F.linear(query, self.in_proj_weight[:E], bias))
+            k, v = cross_kv if cross_kv is not None else self.project_kv(key)
+            # no mask: the null condition of CFG is zeros of length 1
+            x = dot_product_attention(q, k, v, as_float32=False)
+            return self.out_proj(x.reshape(B, T, E))
+
+        projected = F.linear(query, self.in_proj_weight, self.in_proj_bias)
+        q, k, v = (self._split_heads(t) for t in projected.chunk(3, dim=-1))
+        if cache is None:
+            bias = None
+            if self.causal:
+                pos = torch.arange(T, device=query.device)
+                bias = make_causal_bias(pos, pos, self.past_context)
+            k_all, v_all = k, v
+        else:
+            offset = cache.index
+            cache.write(k, v, offset)
+            if T == 1 and self.causal:
+                k_c, v_c = cache.k, cache.v
+                if k_c.dtype not in (torch.int8, dtype):
+                    k_c, v_c = k_c.to(dtype), v_c.to(dtype)
+                x = decode_attention(q[:, 0].contiguous(), k_c, v_c, offset + 1,
+                                     past_context=self.past_context,
+                                     k_scale=cache.k_scale,
+                                     v_scale=cache.v_scale)
+                return self.out_proj(x.reshape(B, T, E))
+            assert self.causal, "a KV cache needs causal self-attention"
+            k_pos = torch.arange(cache.k.shape[1], device=query.device)
+            q_pos = torch.arange(T, device=query.device) + offset
+            bias = make_causal_bias(q_pos, k_pos, self.past_context,
+                                    k_valid=k_pos < offset + T)
+            k_all, v_all = cache.read(dtype)
+        x = dot_product_attention(q, k_all, v_all, bias=bias, as_float32=False)
+        return self.out_proj(x.reshape(B, T, E))
+
+
+class StreamingTransformerLayer(nn.Module):
+    """Pre- or post-norm layer: self-attention, optional cross-attention, FFN."""
+
+    def __init__(self, d_model: int, num_heads: int, dim_feedforward: int = 2048,
+                 bias_ff: bool = True, bias_attn: bool = True,
+                 causal: bool = False, past_context: tp.Optional[int] = None,
+                 cross_attention: bool = False, norm_first: bool = True,
+                 activation: str = "gelu", device=None, dtype=None):
+        super().__init__()
+        factory = dict(device=device, dtype=dtype)
+        common = dict(embed_dim=d_model, num_heads=num_heads, bias=bias_attn,
+                      **factory)
+        self.self_attn = StreamingMultiheadAttention(
+            causal=causal, past_context=past_context, **common)
+        self.linear1 = nn.Linear(d_model, dim_feedforward, bias=bias_ff,
+                                 **factory)
+        self.linear2 = nn.Linear(dim_feedforward, d_model, bias=bias_ff,
+                                 **factory)
+        self.norm1 = nn.LayerNorm(d_model, eps=1e-5, **factory)
+        self.norm2 = nn.LayerNorm(d_model, eps=1e-5, **factory)
+        self.cross_attention: tp.Optional[StreamingMultiheadAttention] = None
+        if cross_attention:
+            self.cross_attention = StreamingMultiheadAttention(
+                cross_attention=True, **common)
+            self.norm_cross = nn.LayerNorm(d_model, eps=1e-5, **factory)
+        self.norm_first = norm_first
+        self.activation = get_activation_fn(activation)
+
+    def _ff_block(self, x: torch.Tensor) -> torch.Tensor:
+        return self.linear2(self.activation(self.linear1(x)))
+
+    def forward(self, x: torch.Tensor, *,
+                cross_attention_src: tp.Optional[torch.Tensor] = None,
+                cache: tp.Optional[LayerCache] = None) -> torch.Tensor:
+        self_cache = cache.self_attn if cache is not None else None
+        cross_kv = None
+        if cache is not None and cache.cross_k is not None:
+            cross_kv = (cache.cross_k, cache.cross_v)
+        has_cross = cross_attention_src is not None or cross_kv is not None
+        assert has_cross == (self.cross_attention is not None)
+
+        def cross(h):
+            return self.cross_attention(h, cross_attention_src,
+                                        cross_kv=cross_kv)
+
+        x = x.to(self.norm1.weight.dtype)
+        if self.norm_first:
+            x = x + self.self_attn(self.norm1(x), cache=self_cache)
+            if has_cross:
+                x = x + cross(self.norm_cross(x))
+            return x + self._ff_block(self.norm2(x))
+        x = self.norm1(x + self.self_attn(x, cache=self_cache))
+        if has_cross:
+            x = self.norm_cross(x + cross(x))
+        return self.norm2(x + self._ff_block(x))
+
+
+class StreamingTransformer(nn.Module):
+    """Stack of layers with sinusoidal positions added at the input."""
+
+    def __init__(self, d_model: int, num_heads: int, num_layers: int,
+                 dim_feedforward: int = 2048, bias_ff: bool = True,
+                 bias_attn: bool = True, causal: bool = False,
+                 past_context: tp.Optional[int] = None,
+                 cross_attention: bool = False, norm_first: bool = True,
+                 activation: str = "gelu", device=None, dtype=None):
+        super().__init__()
+        assert d_model % num_heads == 0
+        self.d_model = d_model
+        self.num_heads = num_heads
+        self.layers = nn.ModuleList([
+            StreamingTransformerLayer(
+                d_model, num_heads, dim_feedforward, bias_ff=bias_ff,
+                bias_attn=bias_attn, causal=causal, past_context=past_context,
+                cross_attention=cross_attention, norm_first=norm_first,
+                activation=activation, device=device, dtype=dtype)
+            for _ in range(num_layers)])
+
+    def init_cache(self, batch: int, max_len: int, dtype=None,
+                   device=None) -> tp.List[LayerCache]:
+        """Fresh empty caches for all layers, allocated once at `max_len`."""
+        p = self.layers[0].norm1.weight
+        dtype = dtype or p.dtype
+        device = device or p.device
+        head_dim = self.d_model // self.num_heads
+        return [LayerCache(KVCache.create(batch, max_len, self.num_heads,
+                                          head_dim, dtype, device))
+                for _ in self.layers]
+
+    def precompute_cross_kv(self, src: torch.Tensor,
+                            caches: tp.List[LayerCache]) -> None:
+        """Fill each layer cache with its projected cross-attention K/V."""
+        for layer, cache in zip(self.layers, caches):
+            cache.cross_k, cache.cross_v = layer.cross_attention.project_kv(src)
+
+    def forward(self, x: torch.Tensor, *,
+                cross_attention_src: tp.Optional[torch.Tensor] = None,
+                caches: tp.Optional[tp.List[LayerCache]] = None) -> torch.Tensor:
+        B, T, C = x.shape
+        x = x.to(self.layers[0].norm1.weight.dtype)
+        offset = caches[0].self_attn.index if caches is not None else 0
+        positions = torch.arange(T, device=x.device).reshape(1, -1, 1) + offset
+        x = x + create_sin_embedding(positions, C).to(x.dtype)
+        for i, layer in enumerate(self.layers):
+            x = layer(x, cross_attention_src=cross_attention_src,
+                      cache=caches[i] if caches is not None else None)
+        return x

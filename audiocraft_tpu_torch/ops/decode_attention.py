@@ -1,0 +1,149 @@
+"""Single-query (decode) attention over a static KV cache.
+
+Counterpart of `audiocraft_tpu/ops/flash_attention.py::decode_attention`, the
+Pallas TPU kernel. On CUDA tensors `decode_attention` launches the hand-written
+Hopper kernel `csrc/decode_attention.cu` (see its header for the design: it is
+bound by the HBM bytes of the valid cache prefix); on CPU tensors it computes
+the same function with `decode_attention_reference`. There is no other route.
+
+Layouts: q [B, H, D]; k/v caches [B, S, H, D] (f32, bf16, or int8 with
+per-(step, head) bf16 scales [B, S, H] or [B, S, H, 1]); `length` a host int,
+the number of valid slots (the current step is the last valid one). Returns
+[B, H, D] in q's dtype.
+"""
+import ctypes
+import typing as tp
+
+import torch
+
+from . import _build
+
+NEG_INF = -1e30
+# online-softmax max floor of the TPU kernel (`_M_FLOOR`)
+M_FLOOR = -1e4
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_launch_fn = None
+
+
+def _window(length: int, past_context: tp.Optional[int]) -> tp.Tuple[int, int]:
+    """Valid slots [lo, hi): s < length and, with a window,
+    s >= length - 1 - past_context (`make_causal_bias` with q_pos = length-1)."""
+    lo = 0 if past_context is None else max(0, length - 1 - past_context)
+    return lo, length
+
+
+def _check(q, k_cache, v_cache, length, past_context, k_scale, v_scale):
+    if q.dim() != 3 or k_cache.dim() != 4 or k_cache.shape != v_cache.shape:
+        raise ValueError(f"expected q [B, H, D] and k/v [B, S, H, D], got "
+                         f"{tuple(q.shape)}, {tuple(k_cache.shape)}, "
+                         f"{tuple(v_cache.shape)}")
+    B, S, H, D = k_cache.shape
+    if tuple(q.shape) != (B, H, D):
+        raise ValueError(f"q {tuple(q.shape)} does not match cache "
+                         f"{tuple(k_cache.shape)}")
+    if not 1 <= length <= S:
+        raise ValueError(f"length {length} outside [1, {S}]")
+    if past_context is not None and past_context < 0:
+        raise ValueError(f"past_context must be >= 0, got {past_context}")
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("pass both k_scale and v_scale or neither")
+    if (k_scale is not None) != (k_cache.dtype == torch.int8):
+        raise ValueError("scales are given exactly when the cache is int8, got "
+                         f"{k_cache.dtype} with scales={k_scale is not None}")
+    if k_cache.dtype != v_cache.dtype:
+        raise ValueError(f"k/v dtypes differ: {k_cache.dtype}, {v_cache.dtype}")
+    if k_scale is not None:
+        for s in (k_scale, v_scale):
+            if s.numel() != B * S * H or s.shape[:3] != (B, S, H):
+                raise ValueError(f"scales must be [B, S, H(, 1)], got "
+                                 f"{tuple(s.shape)}")
+
+
+def decode_attention_reference(q: torch.Tensor, k_cache: torch.Tensor,
+                               v_cache: torch.Tensor, length: int,
+                               past_context: tp.Optional[int] = None,
+                               k_scale: tp.Optional[torch.Tensor] = None,
+                               v_scale: tp.Optional[torch.Tensor] = None
+                               ) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: same window, same f32 math, same
+    max floor; reads only the valid slots."""
+    _check(q, k_cache, v_cache, length, past_context, k_scale, v_scale)
+    B, S, H, D = k_cache.shape
+    lo, hi = _window(length, past_context)
+    k = k_cache[:, lo:hi].float()
+    v = v_cache[:, lo:hi].float()
+    if k_scale is not None:
+        k = k * k_scale.reshape(B, S, H)[:, lo:hi, :, None].float()
+        v = v * v_scale.reshape(B, S, H)[:, lo:hi, :, None].float()
+    scale = 1.0 / (D ** 0.5)
+    scores = torch.einsum("bhd,bshd->bhs", q.float() * scale, k)
+    m = scores.amax(dim=-1, keepdim=True).clamp_min(M_FLOOR)
+    e = torch.exp(scores - m)
+    out = torch.einsum("bhs,bshd->bhd", e, v) / e.sum(dim=-1, keepdim=True)
+    return out.to(q.dtype)
+
+
+def _launcher():
+    global _launch_fn
+    if _launch_fn is None:
+        fn = _build.load("decode_attention").decode_attention_launch
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _launch_fn = fn
+    return _launch_fn
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, length: int,
+                     past_context: tp.Optional[int] = None,
+                     k_scale: tp.Optional[torch.Tensor] = None,
+                     v_scale: tp.Optional[torch.Tensor] = None) -> torch.Tensor:
+    """softmax(q.K^T/sqrt(D) + validity mask).V for one query per (row, head).
+
+    CPU tensors take `decode_attention_reference`; CUDA tensors launch the
+    kernel on the current stream (no synchronisation) or raise."""
+    if q.device.type == "cpu":
+        return decode_attention_reference(q, k_cache, v_cache, length,
+                                          past_context, k_scale, v_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention runs on cpu or cuda, not {q.device}")
+    _check(q, k_cache, v_cache, length, past_context, k_scale, v_scale)
+    B, S, H, D = k_cache.shape
+    tensors = [q, k_cache, v_cache] + ([k_scale, v_scale]
+                                       if k_scale is not None else [])
+    for t in tensors:
+        if t.device != q.device:
+            raise ValueError(f"all inputs must be on {q.device}, got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError("decode_attention needs contiguous tensors")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"q must be float32 or bfloat16, got {q.dtype}")
+    if k_cache.dtype not in _DTYPE_CODES:
+        raise ValueError(f"cache must be float32, bfloat16 or int8, got "
+                         f"{k_cache.dtype}")
+    if k_scale is not None and (k_scale.dtype != torch.bfloat16
+                                or v_scale.dtype != torch.bfloat16):
+        raise ValueError("int8 cache scales must be bfloat16")
+    if D > 128 or D % 2:
+        raise ValueError(f"head dim must be even and <= 128, got {D}")
+    if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
+        raise ValueError("k/v caches must be 16-byte aligned")
+    lo, hi = _window(length, past_context)
+    out = torch.empty_like(q)
+    err = _launcher()(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        k_scale.data_ptr() if k_scale is not None else None,
+        v_scale.data_ptr() if v_scale is not None else None,
+        out.data_ptr(), B, S, H, D, lo, hi, _DTYPE_CODES[q.dtype],
+        _DTYPE_CODES[k_cache.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
+                           f"error {err}")
+    decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0

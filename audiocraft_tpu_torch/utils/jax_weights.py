@@ -1,0 +1,210 @@
+"""Carry the JAX package's parameters into the port's modules.
+
+The inputs are the JAX parameter trees as nested dicts of numpy arrays
+(`jax.tree.map(np.asarray, params)`); this module imports neither JAX nor the
+JAX package. Each function fills a module's `state_dict` and loads it
+strictly, so a missing or extra parameter raises. Layout changes:
+Dense `[in, out]` -> Linear `[out, in]`; fused `in_proj_weight` `[E, 3E]` ->
+`[3E, E]`; stacked `emb` `[K, V, D]` / `linears` `[K, D, card]` -> K modules;
+conv `[W, Cin, Cout]` -> `[Cout, Cin, W]` (transposed conv -> `[Cin, Cout, W]`)
+with weight-norm `g`/`v`; LSTM `w_ih` `[C, 4H]` -> `weight_ih_l{n}` `[4H, C]`;
+RVQ codebooks `[n_q, C, D]` -> one codebook per level.
+"""
+import typing as tp
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from ..modules.conditioners import LUTConditioner, T5Conditioner
+from ..modules.conv import StreamableConv1d, StreamableConvTranspose1d
+from ..modules.lstm import StreamableLSTM
+from ..modules.seanet import SEANetResnetBlock
+
+Tree = tp.Mapping[str, tp.Any]
+
+
+def _load(module: nn.Module, state: tp.Dict[str, np.ndarray]) -> None:
+    ref = module.state_dict()
+    tensors = {k: torch.from_numpy(np.array(v)).to(
+        device=ref[k].device, dtype=ref[k].dtype) if k in ref else v
+        for k, v in state.items()}
+    module.load_state_dict(tensors, strict=True)
+
+
+def _params(tree: Tree) -> Tree:
+    return tree["params"] if "params" in tree else tree
+
+
+def _dense(p: Tree, prefix: str, out: dict) -> None:
+    out[prefix + "weight"] = np.asarray(p["kernel"]).T
+    if "bias" in p:
+        out[prefix + "bias"] = p["bias"]
+
+
+def _norm(p: Tree, prefix: str, out: dict) -> None:
+    out[prefix + "weight"] = p["scale"]
+    out[prefix + "bias"] = p["bias"]
+
+
+def _mha(p: Tree, prefix: str, out: dict) -> None:
+    out[prefix + "in_proj_weight"] = np.asarray(p["in_proj_weight"]).T
+    if "in_proj_bias" in p:
+        out[prefix + "in_proj_bias"] = p["in_proj_bias"]
+    _dense(p["out_proj"], prefix + "out_proj.", out)
+
+
+def t5_state(params: Tree, num_layers: int, prefix: str = "") -> dict:
+    """JAX `T5Encoder` params -> the port's (Hugging Face) T5 keys."""
+    p = _params(params)
+    out = {prefix + "shared.weight": p["shared"]["embedding"]}
+    for i in range(num_layers):
+        blk = p[f"block_{i}"]
+        rp = f"{prefix}encoder.block.{i}.layer."
+        out[rp + "0.layer_norm.weight"] = blk["ln_attn"]["weight"]
+        for name in ("q", "k", "v", "o"):
+            out[rp + f"0.SelfAttention.{name}.weight"] = np.asarray(
+                blk["attn"][name]["kernel"]).T
+        if "relative_attention_bias" in blk["attn"]:
+            out[rp + "0.SelfAttention.relative_attention_bias.weight"] = \
+                blk["attn"]["relative_attention_bias"]
+        out[rp + "1.layer_norm.weight"] = blk["ln_ff"]["weight"]
+        for name in ("wi", "wi_0", "wi_1", "wo"):
+            if name in blk:
+                out[rp + f"1.DenseReluDense.{name}.weight"] = np.asarray(
+                    blk[name]["kernel"]).T
+    out[prefix + "encoder.final_layer_norm.weight"] = p["final_ln"]["weight"]
+    return out
+
+
+def load_t5(t5: nn.Module, params: Tree) -> None:
+    _load(t5, t5_state(params, len(t5.encoder.block)))
+
+
+def transformer_state(p: Tree, num_layers: int, prefix: str = "") -> dict:
+    """JAX `StreamingTransformer` params -> the port's layer keys."""
+    out: dict = {}
+    for i in range(num_layers):
+        lp = p[f"layers_{i}"]
+        rp = f"{prefix}layers.{i}."
+        _mha(lp["self_attn"], rp + "self_attn.", out)
+        for name in ("norm1", "norm2"):
+            _norm(lp[name], rp + name + ".", out)
+        for name in ("linear1", "linear2"):
+            _dense(lp[name], rp + name + ".", out)
+        if "cross_attn" in lp:
+            _mha(lp["cross_attn"], rp + "cross_attention.", out)
+            _norm(lp["norm_cross"], rp + "norm_cross.", out)
+    return out
+
+
+def load_transformer(transformer: nn.Module, params: Tree) -> None:
+    _load(transformer, transformer_state(_params(params),
+                                         len(transformer.layers)))
+
+
+def load_mha(mha: nn.Module, params: Tree) -> None:
+    out: dict = {}
+    _mha(_params(params), "", out)
+    _load(mha, out)
+
+
+def load_lm(lm: nn.Module, params: Tree) -> None:
+    """JAX `LMModel` params -> a port `LMModel`."""
+    p = _params(params)
+    out: dict = {}
+    for k in range(lm.n_q):
+        out[f"emb.{k}.weight"] = p["emb"][k]
+        out[f"linears.{k}.weight"] = np.asarray(p["linears"][k]).T
+        if "linears_bias" in p:
+            out[f"linears.{k}.bias"] = p["linears_bias"][k]
+    if "out_norm" in p:
+        _norm(p["out_norm"], "out_norm.", out)
+    out.update(transformer_state(p["transformer"], lm.num_layers,
+                                 "transformer."))
+    for name, cond in lm.condition_provider.conditioners.items():
+        cp = p[f"conditioners_{name}"]
+        prefix = f"condition_provider.conditioners.{name}."
+        _dense(cp["output_proj"], prefix + "output_proj.", out)
+        if isinstance(cond, LUTConditioner):
+            out[prefix + "embed.weight"] = cp["embed"]["embedding"]
+        elif isinstance(cond, T5Conditioner):
+            out.update(t5_state(cp["t5"], len(cond.t5.encoder.block),
+                                prefix + "t5."))
+        else:
+            raise TypeError(f"no weight rule for {type(cond).__name__}")
+    _load(lm, out)
+
+
+def _conv(p: Tree, prefix: str, transposed: bool, out: dict) -> None:
+    # [W, Cin, Cout] -> [Cout, Cin, W] (conv) or [Cin, Cout, W] (transposed)
+    perm = (1, 2, 0) if transposed else (2, 1, 0)
+    if "kernel_v" in p:
+        out[prefix + "weight_v"] = np.asarray(p["kernel_v"]).transpose(perm)
+        out[prefix + "weight_g"] = np.asarray(p["kernel_g"]).reshape(-1, 1, 1)
+    else:
+        out[prefix + "weight"] = np.asarray(p["kernel"]).transpose(perm)
+    if "bias" in p:
+        out[prefix + "bias"] = p["bias"]
+
+
+def _seanet(p: Tree, model: nn.Sequential, prefix: str, decoder: bool,
+            out: dict) -> None:
+    """Walk the Sequential in order, naming each layer as the JAX package
+    does (conv_in, res_{i}_{j}, down_{i}/up_{i}, lstm, conv_out)."""
+    stage, j = -1 if decoder else 0, 0
+    convs = [m for m in model if isinstance(m, StreamableConv1d)]
+    for idx, m in enumerate(model):
+        rp = f"{prefix}model.{idx}."
+        if isinstance(m, StreamableConvTranspose1d):
+            stage, j = stage + 1, 0
+            _conv(p[f"up_{stage}"]["convtr"], rp + "convtr.convtr.", True, out)
+        elif isinstance(m, SEANetResnetBlock):
+            res = p[f"res_{stage}_{j}"]
+            for our_i, ref_i in enumerate((1, 3)):
+                _conv(res[f"block_{our_i}"]["conv"],
+                      f"{rp}block.{ref_i}.conv.conv.", False, out)
+            if "shortcut" in res:
+                _conv(res["shortcut"]["conv"], rp + "shortcut.conv.conv.",
+                      False, out)
+            j += 1
+        elif isinstance(m, StreamableLSTM):
+            for n in range(m.lstm.num_layers):
+                lp = p["lstm"][f"lstm_{n}"]
+                out[f"{rp}lstm.weight_ih_l{n}"] = np.asarray(lp["w_ih"]).T
+                out[f"{rp}lstm.weight_hh_l{n}"] = np.asarray(lp["w_hh"]).T
+                out[f"{rp}lstm.bias_ih_l{n}"] = lp["b_ih"]
+                out[f"{rp}lstm.bias_hh_l{n}"] = lp["b_hh"]
+        elif isinstance(m, StreamableConv1d):
+            if m is convs[0]:
+                name = "conv_in"
+            elif m is convs[-1]:
+                name = "conv_out"
+            else:  # encoder downsampling closes a stage
+                name = f"down_{stage}"
+                stage, j = stage + 1, 0
+            _conv(p[name]["conv"], rp + "conv.conv.", False, out)
+
+
+def load_seanet(model: nn.Module, params: Tree, decoder: bool) -> None:
+    """JAX `SEANetEncoder`/`SEANetDecoder` params -> a port SEANet stack."""
+    out: dict = {}
+    _seanet(_params(params), model.model, "", decoder, out)
+    _load(model, out)
+
+
+def load_encodec(model: nn.Module, variables: Tree) -> None:
+    """JAX EnCodec variables ({'params': {'encoder', 'decoder'},
+    'quantizer': RVQ state}) -> a port `EncodecModel`."""
+    p = variables["params"]
+    out: dict = {}
+    _seanet(p["encoder"], model.encoder.model, "encoder.", False, out)
+    _seanet(p["decoder"], model.decoder.model, "decoder.", True, out)
+    books = variables["quantizer"].codebooks
+    for q in range(len(model.quantizer.vq.layers)):
+        rp = f"quantizer.vq.layers.{q}._codebook."
+        out[rp + "embed"] = books.embed[q]
+        out[rp + "embed_avg"] = books.embed_avg[q]
+        out[rp + "cluster_size"] = books.cluster_size[q]
+        out[rp + "inited"] = np.asarray(books.inited[q], np.float32).reshape(1)
+    _load(model, out)
