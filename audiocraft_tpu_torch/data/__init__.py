@@ -1,0 +1,5 @@
+"""Segment metadata that a training batch carries beside its audio. The
+datasets and loaders themselves are not ported yet (ROADMAP, slice H)."""
+from .audio_dataset import AudioMeta, SegmentInfo
+from .info_audio_dataset import AudioInfo
+from .music_dataset import MusicInfo

@@ -1,12 +1,16 @@
 """Model builders with seeded random weights (counterpart of the debug and
 MusicGen-small assemblies in `audiocraft_tpu/models/builders.py` and
-`bench.py`)."""
+`bench.py`, and of its config-driven `get_lm_model`)."""
 import contextlib
+import typing as tp
 
 import torch
 
-from ..modules.conditioners import ConditionFuser, LUTConditioner
-from ..modules.patterns import DelayedPatternProvider
+from ..modules.conditioners import (BaseConditioner, ConditionFuser,
+                                    LUTConditioner, T5Conditioner)
+from ..modules.patterns import (CodebooksPatternProvider,
+                                DelayedPatternProvider,
+                                ParallelPatternProvider)
 from ..modules.seanet import SEANetDecoder, SEANetEncoder
 from ..quantization import ResidualVectorQuantizer
 from ..utils.utils import resolve_device
@@ -84,4 +88,113 @@ def get_musicgen_small_lm(device=None, dtype=torch.bfloat16,
         lm = musicgen_lm("small", n_q=4, card=2048, use_t5=True,
                          device=device, dtype=dtype)
     lm.reset_parameters(seed)
+    return lm.eval()
+
+
+# transformer_lm keys of features the port does not have, with the only
+# value it takes (ROADMAP, slice A item 4 and slice B)
+_UNPORTED_LM_KEYS = {"layer_scale": None, "positional_embedding": "sin",
+                     "xpos": False, "qk_layer_norm": False,
+                     "qk_layer_norm_cross": False, "kv_repeat": 1,
+                     "two_step_cfg": False}
+# keys that only shape the JAX program or its optimizer (`layer_scan`, `dtype`
+# and the per-module lr/weight decay, which the solver reads), or that the
+# JAX builder also drops
+_DROPPED_LM_KEYS = ("layer_scan", "dtype", "lr", "weight_decay", "emb_lr",
+                    "q_modeling", "custom", "memory_efficient", "norm")
+
+
+def get_condition_fuser(cfg: dict) -> ConditionFuser:
+    fuser_cfg = dict(cfg.get("fuser", {}) or {})
+    if fuser_cfg.pop("cross_attention_pos_emb", False):
+        raise NotImplementedError("fuser.cross_attention_pos_emb is not ported")
+    fuser_cfg.pop("cross_attention_pos_emb_scale", None)
+    return ConditionFuser({k: fuser_cfg.pop(k)
+                           for k in ConditionFuser.FUSING_METHODS
+                           if k in fuser_cfg}, **fuser_cfg)
+
+
+def get_conditioners(output_dim: int, cfg: dict, device=None,
+                     dtype=None) -> tp.Dict[str, BaseConditioner]:
+    """The text conditioners of `cfg['conditioners']` (T5 or lookup table)."""
+    out: tp.Dict[str, BaseConditioner] = {}
+    for name, cond_cfg in (cfg.get("conditioners", {}) or {}).items():
+        if name == "args":
+            continue
+        kind = cond_cfg["model"]
+        args = dict(cond_cfg.get(kind, {}) or {})
+        args.pop("device", None)
+        if kind == "t5":
+            # accepted and not applied by the JAX package's T5Conditioner
+            args.pop("word_dropout", None)
+            args.pop("normalize_text", None)
+            out[name] = T5Conditioner(model_name=args.pop("name", "t5-base"),
+                                      output_dim=output_dim, device=device,
+                                      dtype=dtype, **args)
+        elif kind == "lut":
+            tokenizer = args.pop("tokenizer", "whitespace")
+            if tokenizer != "whitespace":
+                raise NotImplementedError(f"lut tokenizer {tokenizer!r} is not "
+                                          f"ported")
+            out[name] = LUTConditioner(output_dim=output_dim, device=device,
+                                       dtype=dtype, **args)
+        else:
+            raise NotImplementedError(f"conditioner {kind!r} is not ported "
+                                      f"(ROADMAP, slice C)")
+    return out
+
+
+def get_codebooks_pattern_provider(n_q: int, cfg: dict
+                                   ) -> CodebooksPatternProvider:
+    name = cfg["modeling"]
+    kwargs = dict(cfg.get(name, {}) or {})
+    if name == "delay":
+        return DelayedPatternProvider(n_q, **kwargs)
+    if name == "parallel":
+        return ParallelPatternProvider(n_q, **kwargs)
+    raise NotImplementedError(f"codebooks pattern {name!r} is not ported")
+
+
+def get_lm_model(cfg: dict, device=None, seed: int = 0) -> LMModel:
+    """The LM of a solver config (`transformer_lm`, `codebooks_pattern`,
+    `conditioners`, `fuser`, `classifier_free_guidance`), with seeded random
+    weights: upstream's 'gaussian' init with 'current' depthwise scaling
+    when `weight_init` asks for it, else torch's default init. Parameters are
+    f32; `transformer_lm.dtype` names the compute dtype, which the solver
+    applies with autocast."""
+    device = resolve_device(device)
+    kwargs = dict(cfg["transformer_lm"])
+    for key, value in _UNPORTED_LM_KEYS.items():
+        if kwargs.pop(key, value) != value:
+            raise NotImplementedError(f"transformer_lm.{key} != {value!r} is "
+                                      f"not ported (ROADMAP)")
+    for key in _DROPPED_LM_KEYS:
+        kwargs.pop(key, None)
+    weight_init = kwargs.pop("weight_init", None)
+    depthwise_init = kwargs.pop("depthwise_init", None)
+    zero_bias_init = kwargs.pop("zero_bias_init", False)
+    if weight_init not in (None, "gaussian") or (
+            weight_init and (depthwise_init != "current" or not zero_bias_init)):
+        raise NotImplementedError(
+            f"weight_init={weight_init!r}, depthwise_init={depthwise_init!r}, "
+            f"zero_bias_init={zero_bias_init!r} is not ported")
+    lm_model = cfg.get("lm_model", "transformer_lm")
+    if lm_model != "transformer_lm":
+        raise NotImplementedError(f"lm_model {lm_model!r} is not ported "
+                                  f"(ROADMAP, slice D)")
+    n_q = kwargs["n_q"]
+    pattern_cfg = cfg.get("codebooks_pattern") or {
+        "modeling": "delay", "delay": {"delays": list(range(n_q))}}
+    cfg_coef = (cfg.get("classifier_free_guidance", {}) or {}).get(
+        "inference_coef", 1.0)
+    with _seeded(device, seed):
+        fuser = get_condition_fuser(cfg)
+        conditioners = get_conditioners(kwargs["dim"], cfg, device=device)
+        if fuser.fuse2cond.get("cross"):
+            kwargs["cross_attention"] = True
+        lm = LMModel(get_codebooks_pattern_provider(n_q, pattern_cfg),
+                     conditioners, fuser, cfg_coef=cfg_coef, device=device,
+                     **kwargs)
+    if weight_init == "gaussian":
+        lm.reset_parameters(seed)
     return lm.eval()

@@ -5,8 +5,10 @@ Module attributes follow upstream audiocraft's state-dict keys (`emb.{k}`,
 `linears.{k}`, `out_norm`, `transformer.layers.{i}...`,
 `condition_provider.conditioners.{name}...`).
 
-`generate` runs one prefill forward, then one forward per pattern step in a
-Python loop. The KV cache is allocated once at the full sequence length and
+`compute_predictions` is the training forward: codes -> the interleaved
+pattern sequence -> logits reverted onto the codes' time axis, with the mask
+of valid positions. `generate` runs one prefill forward, then one forward
+per pattern step in a Python loop. The KV cache is allocated once at the full sequence length and
 the decode-attention kernel reads only its valid prefix. The loop keeps every
 value it branches on on the host (step offsets, the pattern's index tables),
 so it never waits for the device.
@@ -27,6 +29,15 @@ from ..modules.transformer import LayerCache, StreamingTransformer
 from ..utils.utils import check_module_device, resolve_device, sample_tokens
 
 ConditionTensors = tp.Dict[str, ConditionType]
+
+
+@dataclasses.dataclass
+class LMOutput:
+    """Logits [B, K, T, card] aligned with the codes [B, K, T], and the mask
+    [B, K, T] of the positions the pattern predicts. Positions outside the
+    mask hold 0.0 (not NaN), so a loss selecting by the mask stays finite."""
+    logits: torch.Tensor
+    mask: torch.Tensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,10 +66,13 @@ class LMModel(nn.Module):
                  dim: int = 128, num_heads: int = 8, hidden_scale: int = 4,
                  norm_first: bool = False, bias_proj: bool = True,
                  cfg_coef: float = 1.0, num_layers: int = 8,
+                 dropout: float = 0.0,
+                 attention_dropout: tp.Optional[float] = None,
                  bias_ff: bool = True, bias_attn: bool = True,
                  causal: bool = True, past_context: tp.Optional[int] = None,
+                 attention_as_float32: bool = False,
                  cross_attention: bool = False, activation: str = "gelu",
-                 device=None, dtype=None):
+                 checkpointing: str = "none", device=None, dtype=None):
         super().__init__()
         factory = dict(device=device, dtype=dtype)
         self.pattern_provider = pattern_provider
@@ -75,10 +89,12 @@ class LMModel(nn.Module):
                                   for _ in range(n_q)])
         self.transformer = StreamingTransformer(
             d_model=dim, num_heads=num_heads, num_layers=num_layers,
-            dim_feedforward=int(hidden_scale * dim), bias_ff=bias_ff,
+            dim_feedforward=int(hidden_scale * dim), dropout=dropout,
+            attention_dropout=attention_dropout, bias_ff=bias_ff,
             bias_attn=bias_attn, causal=causal, past_context=past_context,
+            attention_as_float32=attention_as_float32,
             cross_attention=cross_attention, norm_first=norm_first,
-            activation=activation, **factory)
+            activation=activation, checkpointing=checkpointing, **factory)
         self.out_norm = (nn.LayerNorm(dim, eps=1e-5, **factory)
                          if norm_first else None)
         self.linears = nn.ModuleList([nn.Linear(dim, card, bias=bias_proj,
@@ -129,8 +145,8 @@ class LMModel(nn.Module):
 
     def forward(self, sequence: torch.Tensor,
                 condition_tensors: ConditionTensors,
-                caches: tp.Optional[tp.List[LayerCache]] = None
-                ) -> torch.Tensor:
+                caches: tp.Optional[tp.List[LayerCache]] = None,
+                dropout_seed: tp.Optional[int] = None) -> torch.Tensor:
         """sequence [B, K, S] -> logits [B, K, S, card]. With `caches`, the
         steps are appended to them in place."""
         B, K, S = sequence.shape
@@ -138,10 +154,28 @@ class LMModel(nn.Module):
         input_, cross_src = self.fuser(self.embed_codes(sequence),
                                        condition_tensors)
         out = self.transformer(input_, cross_attention_src=cross_src,
-                               caches=caches)
+                               caches=caches, dropout_seed=dropout_seed)
         if self.out_norm is not None:
             out = self.out_norm(out)
         return torch.stack([lin(out) for lin in self.linears], dim=1)
+
+    def compute_predictions(self, codes: torch.Tensor,
+                            condition_tensors: ConditionTensors,
+                            dropout_seed: tp.Optional[int] = None) -> LMOutput:
+        """Training forward: codes [B, K, T] -> logits [B, K, T, card] aligned
+        with the codes, and their validity mask. The pattern sequence keeps
+        only its valid steps (T + 1 for the delay pattern)."""
+        B, K, T = codes.shape
+        pattern = self.pattern_provider.get_pattern(T)
+        sequence, _, _ = pattern.build_pattern_sequence(
+            codes, self.special_token_id, keep_only_valid_steps=True)
+        logits = self(sequence, condition_tensors, dropout_seed=dropout_seed)
+        logits = logits.permute(0, 3, 1, 2)  # [B, card, K, S]
+        logits, _, mask = pattern.revert_pattern_logits(
+            logits, 0.0, keep_only_valid_steps=True)
+        logits = logits.permute(0, 2, 3, 1)  # [B, K, T, card]
+        mask = torch.from_numpy(mask).to(codes.device)[None].expand(B, K, T)
+        return LMOutput(logits, mask)
 
     def prepare_cfg_conditions(self, conditions: tp.List[ConditioningAttributes]
                                ) -> ConditionTensors:

@@ -1,5 +1,5 @@
-"""Text conditioning: attributes, tokenizers, conditioners, provider, fuser
-and classifier-free-guidance dropout (the parts of
+"""Text conditioning: attributes, tokenizers, conditioners, provider, fuser,
+and the classifier-free-guidance and attribute dropouts (the parts of
 `audiocraft_tpu/modules/conditioners.py` that text-to-music needs).
 
 Tokenizing is host-side numpy; `ConditioningProvider.forward` is the only
@@ -25,8 +25,11 @@ ConditionType = tp.Tuple[torch.Tensor, torch.Tensor]
 
 @dataclasses.dataclass
 class ConditioningAttributes:
-    """Per-sample conditions; this slice carries text only."""
+    """Per-sample conditions. Only text conditions are consumed; `wav` holds
+    the waveform conditions a dataset attaches (None here: waveform
+    conditioning is not ported, ROADMAP slice C)."""
     text: tp.Dict[str, tp.Optional[str]] = dataclasses.field(default_factory=dict)
+    wav: tp.Dict[str, tp.Any] = dataclasses.field(default_factory=dict)
 
 
 class WhiteSpaceTokenizer:
@@ -96,25 +99,71 @@ class LUTConditioner(BaseConditioner):
 
 class T5Conditioner(BaseConditioner):
     """T5-encoder text conditioner. `config` overrides the named preset
-    (small encoders for tests)."""
+    (small encoders for tests). With `finetune=False` the encoder runs under
+    `torch.no_grad()` and its weights do not require grad, so no optimizer
+    takes them (the JAX package's `stop_gradient`); the output projection
+    trains either way."""
     N_BINS = 32128
 
     def __init__(self, model_name: str = "t5-base", output_dim: int = 1024,
-                 config: tp.Optional[T5EncoderConfig] = None, device=None,
-                 dtype=None):
+                 config: tp.Optional[T5EncoderConfig] = None,
+                 finetune: bool = False, device=None, dtype=None):
         cfg = config or T5EncoderConfig.for_model(model_name)
         super().__init__(cfg.d_model, output_dim, device, dtype)
         self.t5 = T5Encoder(cfg, device=device, dtype=dtype)
+        self.finetune = finetune
+        self.t5.requires_grad_(finetune)
 
     def tokenize(self, x: tp.List[tp.Optional[str]]):
         return WhiteSpaceTokenizer(n_bins=self.N_BINS)(
             [xi if xi else None for xi in x])
 
-    @torch.no_grad()
     def forward(self, inputs) -> ConditionType:
         tokens, mask = self._to_device(inputs)
-        embeds = self.t5(tokens, mask)
+        with torch.set_grad_enabled(self.finetune and torch.is_grad_enabled()):
+            embeds = self.t5(tokens, mask)
         return self._masked(self.output_proj(embeds), mask)
+
+
+def dropout_condition(sample: ConditioningAttributes, condition_type: str,
+                      condition: str) -> ConditioningAttributes:
+    """Null one attribute of `sample` in place: a text becomes None. A
+    waveform condition can only be dropped while it is None (waveform
+    conditioning is not ported)."""
+    if condition_type not in ("text", "wav"):
+        raise ValueError(f"unexpected condition type: {condition_type}")
+    attributes = getattr(sample, condition_type)
+    if condition not in attributes:
+        raise ValueError(f"unexpected condition {condition}.{condition_type}")
+    if condition_type == "wav" and attributes[condition] is not None:
+        raise NotImplementedError("waveform conditions are not ported "
+                                  "(ROADMAP, slice C)")
+    attributes[condition] = None
+    return sample
+
+
+class AttributeDropout:
+    """Independent dropout per attribute: `p` maps a condition type to
+    {condition: probability}; each listed condition is dropped from the whole
+    batch with its probability (one host draw each, numpy RNG). Inactive in
+    eval mode (`training = False`)."""
+
+    def __init__(self, p: tp.Dict[str, tp.Dict[str, float]], seed: int = 1234):
+        self.p = {kind: dict(probs) for kind, probs in p.items()}
+        self.rng = np.random.RandomState(seed)
+        self.training = True
+
+    def __call__(self, samples: tp.List[ConditioningAttributes]
+                 ) -> tp.List[ConditioningAttributes]:
+        if not self.training:
+            return samples
+        samples = deepcopy(samples)
+        for kind, probs in self.p.items():
+            for condition, p in probs.items():
+                if self.rng.rand() < p:
+                    for sample in samples:
+                        dropout_condition(sample, kind, condition)
+        return samples
 
 
 class ClassifierFreeGuidanceDropout:
@@ -133,8 +182,9 @@ class ClassifierFreeGuidanceDropout:
             return samples
         samples = deepcopy(samples)
         for sample in samples:
-            for condition in sample.text:
-                sample.text[condition] = None
+            for kind in ("wav", "text"):
+                for condition in list(getattr(sample, kind)):
+                    dropout_condition(sample, kind, condition)
         return samples
 
 

@@ -1,6 +1,6 @@
 """Codebook interleaving patterns (counterpart of
 `audiocraft_tpu/modules/patterns.py`: `Pattern`, `CodebooksPatternProvider`,
-`DelayedPatternProvider`).
+`DelayedPatternProvider`, `ParallelPatternProvider`).
 
 The layout and the index tables are host-side numpy, computed once per
 (timesteps, n_q); building or reverting a sequence is one gather on the
@@ -211,3 +211,10 @@ class DelayedPatternProvider(CodebooksPatternProvider):
                     v.append(LayoutCoord(t_for_q, q))
             out.append(v)
         return Pattern(out, n_q=self.n_q, timesteps=timesteps)
+
+
+class ParallelPatternProvider(DelayedPatternProvider):
+    """Every codebook at the same step (no delays)."""
+
+    def __init__(self, n_q: int, empty_initial: int = 0):
+        super().__init__(n_q, [0] * n_q, empty_initial=empty_initial)

@@ -6,6 +6,14 @@ Module attributes follow upstream audiocraft's state-dict keys
 The KV cache is allocated once at full size and written in place; a
 single-step causal self-attention reads it through the decode-attention
 kernel (`ops/decode_attention.py`), which visits only the valid prefix.
+Full-sequence causal self-attention without a cache (training, evaluation)
+goes through the flash causal-attention kernel
+(`ops/flash_causal_attention.py`) under the JAX package's conditions.
+
+Training mode (`module.train()`) applies residual dropout and
+attention-probs dropout; both are the identity at p = 0. Their masks come
+from a generator seeded per layer from `dropout_seed`, so that a layer
+recomputed under `checkpointing='torch'` draws the same masks.
 """
 import dataclasses
 import typing as tp
@@ -13,9 +21,12 @@ import typing as tp
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
-from ..ops.attention import dot_product_attention, make_causal_bias
+from ..ops.attention import (dot_product_attention, dropout,
+                             flash_causal_eligible, make_causal_bias)
 from ..ops.decode_attention import decode_attention
+from ..ops.flash_causal_attention import flash_causal_attention
 from .activations import get_activation_fn
 
 MAX_PERIOD = 10000.0
@@ -101,11 +112,13 @@ class LayerCache:
 class StreamingMultiheadAttention(nn.Module):
     """Multi-head attention with a fused qkv projection (torch layout
     `in_proj_weight` [3E, E]), causal masking with an optional finite
-    `past_context`, cross-attention over precomputed K/V, and a static cache."""
+    `past_context`, cross-attention over precomputed K/V, a static cache,
+    and attention-probs dropout `dropout` in training mode."""
 
     def __init__(self, embed_dim: int, num_heads: int, bias: bool = True,
                  causal: bool = False, past_context: tp.Optional[int] = None,
-                 cross_attention: bool = False, device=None, dtype=None):
+                 cross_attention: bool = False, dropout: float = 0.0,
+                 attention_as_float32: bool = False, device=None, dtype=None):
         super().__init__()
         assert embed_dim % num_heads == 0
         assert not (cross_attention and causal), \
@@ -116,6 +129,8 @@ class StreamingMultiheadAttention(nn.Module):
         self.causal = causal
         self.past_context = past_context
         self.cross_attention = cross_attention
+        self.dropout = dropout
+        self.attention_as_float32 = attention_as_float32
         self.in_proj_weight = nn.Parameter(
             torch.empty(3 * embed_dim, embed_dim, **factory))
         if bias:
@@ -144,25 +159,36 @@ class StreamingMultiheadAttention(nn.Module):
     def forward(self, query: torch.Tensor,
                 key: tp.Optional[torch.Tensor] = None, *,
                 cache: tp.Optional[KVCache] = None,
-                cross_kv: tp.Optional[tp.Tuple[torch.Tensor, torch.Tensor]] = None
+                cross_kv: tp.Optional[tp.Tuple[torch.Tensor, torch.Tensor]] = None,
+                generator: tp.Optional[torch.Generator] = None
                 ) -> torch.Tensor:
         """query [B, T, E] -> [B, T, E]. Self-attention writes `cache` in
         place; cross-attention attends `cross_kv` (or projects `key`)."""
         B, T, E = query.shape
         dtype = self.in_proj_weight.dtype
         query = query.to(dtype)
+        attn = dict(as_float32=self.attention_as_float32,
+                    dropout_rate=self.dropout if self.training else 0.0,
+                    generator=generator)
 
         if self.cross_attention:
             bias = None if self.in_proj_bias is None else self.in_proj_bias[:E]
             q = self._split_heads(F.linear(query, self.in_proj_weight[:E], bias))
             k, v = cross_kv if cross_kv is not None else self.project_kv(key)
             # no mask: the null condition of CFG is zeros of length 1
-            x = dot_product_attention(q, k, v, as_float32=False)
+            x = dot_product_attention(q, k, v, **attn)
             return self.out_proj(x.reshape(B, T, E))
 
         projected = F.linear(query, self.in_proj_weight, self.in_proj_bias)
         q, k, v = (self._split_heads(t) for t in projected.chunk(3, dim=-1))
         if cache is None:
+            if (self.causal and self.past_context is None
+                    and not self.attention_as_float32
+                    and attn["dropout_rate"] <= 0.0
+                    and flash_causal_eligible(T, T, E // self.num_heads)):
+                # q, k, v go in as strided views of `projected`
+                x = flash_causal_attention(q, k, v)
+                return self.out_proj(x.reshape(B, T, E))
             bias = None
             if self.causal:
                 pos = torch.arange(T, device=query.device)
@@ -186,22 +212,29 @@ class StreamingMultiheadAttention(nn.Module):
             bias = make_causal_bias(q_pos, k_pos, self.past_context,
                                     k_valid=k_pos < offset + T)
             k_all, v_all = cache.read(dtype)
-        x = dot_product_attention(q, k_all, v_all, bias=bias, as_float32=False)
+        x = dot_product_attention(q, k_all, v_all, bias=bias, **attn)
         return self.out_proj(x.reshape(B, T, E))
 
 
 class StreamingTransformerLayer(nn.Module):
-    """Pre- or post-norm layer: self-attention, optional cross-attention, FFN."""
+    """Pre- or post-norm layer: self-attention, optional cross-attention, FFN,
+    with residual dropout `dropout` (after each block and inside the FFN) and
+    attention-probs dropout `attention_dropout` (default: `dropout`)."""
 
     def __init__(self, d_model: int, num_heads: int, dim_feedforward: int = 2048,
+                 dropout: float = 0.0,
+                 attention_dropout: tp.Optional[float] = None,
                  bias_ff: bool = True, bias_attn: bool = True,
                  causal: bool = False, past_context: tp.Optional[int] = None,
+                 attention_as_float32: bool = False,
                  cross_attention: bool = False, norm_first: bool = True,
                  activation: str = "gelu", device=None, dtype=None):
         super().__init__()
         factory = dict(device=device, dtype=dtype)
         common = dict(embed_dim=d_model, num_heads=num_heads, bias=bias_attn,
-                      **factory)
+                      dropout=dropout if attention_dropout is None
+                      else attention_dropout,
+                      attention_as_float32=attention_as_float32, **factory)
         self.self_attn = StreamingMultiheadAttention(
             causal=causal, past_context=past_context, **common)
         self.linear1 = nn.Linear(d_model, dim_feedforward, bias=bias_ff,
@@ -217,13 +250,26 @@ class StreamingTransformerLayer(nn.Module):
             self.norm_cross = nn.LayerNorm(d_model, eps=1e-5, **factory)
         self.norm_first = norm_first
         self.activation = get_activation_fn(activation)
-
-    def _ff_block(self, x: torch.Tensor) -> torch.Tensor:
-        return self.linear2(self.activation(self.linear1(x)))
+        self.dropout = dropout
 
     def forward(self, x: torch.Tensor, *,
                 cross_attention_src: tp.Optional[torch.Tensor] = None,
-                cache: tp.Optional[LayerCache] = None) -> torch.Tensor:
+                cache: tp.Optional[LayerCache] = None,
+                dropout_seed: tp.Optional[int] = None) -> torch.Tensor:
+        """`dropout_seed` seeds this layer's dropout masks in training mode
+        (the default generator draws them when it is None)."""
+        generator = None
+        p = self.dropout if self.training else 0.0
+        if dropout_seed is not None and self.training and (
+                p > 0.0 or self.self_attn.dropout > 0.0):
+            generator = torch.Generator(x.device).manual_seed(dropout_seed)
+
+        def drop(y):
+            return dropout(y, p, generator)
+
+        def ff_block(h):
+            return drop(self.linear2(drop(self.activation(self.linear1(h)))))
+
         self_cache = cache.self_attn if cache is not None else None
         cross_kv = None
         if cache is not None and cache.cross_k is not None:
@@ -231,39 +277,62 @@ class StreamingTransformerLayer(nn.Module):
         has_cross = cross_attention_src is not None or cross_kv is not None
         assert has_cross == (self.cross_attention is not None)
 
+        def self_attn(h):
+            return drop(self.self_attn(h, cache=self_cache, generator=generator))
+
         def cross(h):
-            return self.cross_attention(h, cross_attention_src,
-                                        cross_kv=cross_kv)
+            return drop(self.cross_attention(h, cross_attention_src,
+                                             cross_kv=cross_kv,
+                                             generator=generator))
 
         x = x.to(self.norm1.weight.dtype)
         if self.norm_first:
-            x = x + self.self_attn(self.norm1(x), cache=self_cache)
+            x = x + self_attn(self.norm1(x))
             if has_cross:
                 x = x + cross(self.norm_cross(x))
-            return x + self._ff_block(self.norm2(x))
-        x = self.norm1(x + self.self_attn(x, cache=self_cache))
+            return x + ff_block(self.norm2(x))
+        x = self.norm1(x + self_attn(x))
         if has_cross:
             x = self.norm_cross(x + cross(x))
-        return self.norm2(x + self._ff_block(x))
+        return self.norm2(x + ff_block(x))
 
 
 class StreamingTransformer(nn.Module):
-    """Stack of layers with sinusoidal positions added at the input."""
+    """Stack of layers with sinusoidal positions added at the input.
+
+    `checkpointing='torch'` recomputes each layer in the backward
+    (`torch.utils.checkpoint`, non-reentrant), saving only the layer inputs,
+    as the JAX package's `jax.checkpoint` of each layer does. The JAX
+    package's selective policies 'dots' and 'dots_nb' are not ported
+    (ROADMAP, slice E)."""
 
     def __init__(self, d_model: int, num_heads: int, num_layers: int,
-                 dim_feedforward: int = 2048, bias_ff: bool = True,
-                 bias_attn: bool = True, causal: bool = False,
-                 past_context: tp.Optional[int] = None,
+                 dim_feedforward: int = 2048, dropout: float = 0.0,
+                 attention_dropout: tp.Optional[float] = None,
+                 bias_ff: bool = True, bias_attn: bool = True,
+                 causal: bool = False, past_context: tp.Optional[int] = None,
+                 attention_as_float32: bool = False,
                  cross_attention: bool = False, norm_first: bool = True,
-                 activation: str = "gelu", device=None, dtype=None):
+                 activation: str = "gelu", checkpointing: str = "none",
+                 device=None, dtype=None):
         super().__init__()
         assert d_model % num_heads == 0
+        if checkpointing in ("dots", "dots_nb"):
+            raise NotImplementedError(
+                f"checkpointing={checkpointing!r} needs the flash kernel as a "
+                f"torch.library op for selective checkpointing; not ported "
+                f"yet (ROADMAP, slice E)")
+        if checkpointing not in ("none", "torch"):
+            raise ValueError(f"unknown checkpointing {checkpointing!r}")
         self.d_model = d_model
         self.num_heads = num_heads
+        self.checkpointing = checkpointing
         self.layers = nn.ModuleList([
             StreamingTransformerLayer(
-                d_model, num_heads, dim_feedforward, bias_ff=bias_ff,
+                d_model, num_heads, dim_feedforward, dropout=dropout,
+                attention_dropout=attention_dropout, bias_ff=bias_ff,
                 bias_attn=bias_attn, causal=causal, past_context=past_context,
+                attention_as_float32=attention_as_float32,
                 cross_attention=cross_attention, norm_first=norm_first,
                 activation=activation, device=device, dtype=dtype)
             for _ in range(num_layers)])
@@ -287,13 +356,31 @@ class StreamingTransformer(nn.Module):
 
     def forward(self, x: torch.Tensor, *,
                 cross_attention_src: tp.Optional[torch.Tensor] = None,
-                caches: tp.Optional[tp.List[LayerCache]] = None) -> torch.Tensor:
+                caches: tp.Optional[tp.List[LayerCache]] = None,
+                dropout_seed: tp.Optional[int] = None) -> torch.Tensor:
+        """Layer i seeds its dropout masks with `dropout_seed + i`."""
         B, T, C = x.shape
         x = x.to(self.layers[0].norm1.weight.dtype)
         offset = caches[0].self_attn.index if caches is not None else 0
         positions = torch.arange(T, device=x.device).reshape(1, -1, 1) + offset
         x = x + create_sin_embedding(positions, C).to(x.dtype)
+        remat = (self.checkpointing == "torch" and caches is None
+                 and torch.is_grad_enabled())
         for i, layer in enumerate(self.layers):
-            x = layer(x, cross_attention_src=cross_attention_src,
-                      cache=caches[i] if caches is not None else None)
+            seed = None if dropout_seed is None else dropout_seed + i
+            if remat:
+                x = torch.utils.checkpoint.checkpoint(
+                    self._layer_call, layer, x, cross_attention_src, seed,
+                    use_reentrant=False)
+            else:
+                x = layer(x, cross_attention_src=cross_attention_src,
+                          cache=caches[i] if caches is not None else None,
+                          dropout_seed=seed)
         return x
+
+    @staticmethod
+    def _layer_call(layer: StreamingTransformerLayer, x: torch.Tensor,
+                    cross_attention_src: tp.Optional[torch.Tensor],
+                    seed: tp.Optional[int]) -> torch.Tensor:
+        return layer(x, cross_attention_src=cross_attention_src,
+                     dropout_seed=seed)

@@ -34,14 +34,40 @@ def make_causal_bias(q_pos: torch.Tensor, k_pos: torch.Tensor,
     return torch.where(valid, zero, neg)
 
 
+def flash_causal_eligible(q_len: int, k_len: int, head_dim: int) -> bool:
+    """True when `ops.flash_causal_attention` serves a full-sequence causal
+    self-attention: square q/k (no cache offset) and a head dim the kernel
+    takes. The JAX package also asked for the TPU backend, T >= 256 and an
+    opt-in switch (default off), all from measurements on a TPU, where the
+    Pallas kernel's backward recompute stacked on the layer remat's; none of
+    that carries over to the H100, so an eligible CUDA call always launches
+    the kernel."""
+    return q_len == k_len and head_dim % 64 == 0
+
+
+def dropout(x: torch.Tensor, p: float,
+            generator: tp.Optional[torch.Generator] = None) -> torch.Tensor:
+    """Inverted dropout: zero with probability p, scale the rest by
+    1 / (1 - p); the mask is drawn from `generator` (the default one if
+    None). Identity at p = 0."""
+    if p <= 0.0:
+        return x
+    keep = torch.empty_like(x).bernoulli_(1.0 - p, generator=generator)
+    return torch.where(keep.bool(), x / (1.0 - p), torch.zeros_like(x))
+
+
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           bias: tp.Optional[torch.Tensor] = None,
-                          as_float32: bool = True) -> torch.Tensor:
+                          as_float32: bool = True, dropout_rate: float = 0.0,
+                          generator: tp.Optional[torch.Generator] = None
+                          ) -> torch.Tensor:
     """Scaled dot-product attention with f32 logits and softmax.
 
     Inputs are cast to the compute dtype (f32 with `as_float32`, else q's);
     logits accumulate in f32; the weighted sum runs in the compute dtype.
-    `bias` is [Tq, Tk] or broadcasts against [B, H, Tq, Tk]."""
+    `bias` is [Tq, Tk] or broadcasts against [B, H, Tq, Tk]. With
+    `dropout_rate > 0` the attention weights are dropped after the softmax
+    (inverted dropout, mask drawn from `generator`)."""
     D = q.shape[-1]
     out_dtype = q.dtype
     scale = 1.0 / (D ** 0.5)
@@ -50,6 +76,6 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           k.to(compute).float())
     if bias is not None:
         logits = logits + bias.to(logits.dtype)
-    w = torch.softmax(logits, dim=-1)
+    w = dropout(torch.softmax(logits, dim=-1), dropout_rate, generator)
     out = torch.einsum("bhqk,bkhd->bqhd", w.to(compute), v.to(compute))
     return out.to(out_dtype)

@@ -1,0 +1,121 @@
+"""Solver registry and optimizer factory (counterpart of
+`audiocraft_tpu/solvers/builders.py:29-125`)."""
+import typing as tp
+
+import torch
+import torch.nn as nn
+
+from ..optim.lr_schedulers import get_lr_scheduler
+
+ParamGroups = tp.List[tp.Dict[str, tp.Any]]
+
+
+def get_solver(cfg: dict, device=None):
+    """The solver named by `cfg['solver']`; MusicGen only for now."""
+    from .musicgen import MusicGenSolver
+    name = cfg["solver"]
+    if name != "musicgen":
+        raise NotImplementedError(f"solver {name!r} is not ported (ROADMAP)")
+    return MusicGenSolver(cfg, device=device)
+
+
+def get_optim_parameter_groups(model: nn.Module,
+                               group_overrides: tp.Dict[str, dict]
+                               ) -> ParamGroups:
+    """The trainable parameters of `model` split by top-level submodule:
+    one group per name in `group_overrides` (e.g. 'transformer'), carrying
+    its {'lr', 'weight_decay'} overrides, and a 'default' group for the
+    rest. Frozen parameters (requires_grad False) join no group."""
+    groups: tp.Dict[str, ParamGroups] = {}
+    for name, param in model.named_parameters():
+        if not param.requires_grad:
+            continue
+        top = name.split(".", 1)[0]
+        label = top if group_overrides.get(top) else "default"
+        groups.setdefault(label, []).append(param)
+    return [{"params": params, "name": label,
+             **(group_overrides.get(label) or {})}
+            for label, params in groups.items()]
+
+
+class ClippedOptimizer:
+    """An optimizer step preceded by clipping the gradients' global norm to
+    `max_norm` (0: no clipping), with each group's LR schedule stepped after
+    the update: optax's `chain(clip_by_global_norm, adamw(schedule))`.
+    torch scales by max_norm / (norm + 1e-6) where optax scales by
+    max_norm / norm, a relative difference of 1e-6 / norm in clipped steps."""
+
+    def __init__(self, optimizer: torch.optim.Optimizer,
+                 schedules: tp.Sequence[tp.Callable[[int], float]],
+                 max_norm: float = 0.0):
+        self.optimizer = optimizer
+        self.max_norm = max_norm
+        lambdas = [lambda step, f=f, lr=g["lr"]: f(step) / lr if lr else 0.0
+                   for f, g in zip(schedules, optimizer.param_groups)]
+        self.scheduler = torch.optim.lr_scheduler.LambdaLR(optimizer, lambdas)
+
+    @property
+    def params(self) -> tp.List[torch.Tensor]:
+        return [p for g in self.optimizer.param_groups for p in g["params"]]
+
+    def zero_grad(self) -> None:
+        self.optimizer.zero_grad(set_to_none=True)
+
+    def step(self) -> torch.Tensor:
+        """Clip, update, advance the schedule; returns the gradients' global
+        norm before clipping (a 0-d tensor, not synchronised)."""
+        grads = [p.grad for p in self.params if p.grad is not None]
+        norm = torch.nn.utils.get_total_norm(grads)
+        if self.max_norm:
+            torch.nn.utils.clip_grads_with_norm_(self.params, self.max_norm,
+                                                 norm)
+        self.optimizer.step()
+        self.scheduler.step()
+        return norm
+
+
+def make_torch_optimizer(groups: ParamGroups, name: str, lr: float,
+                         betas: tp.Sequence[float], eps: float,
+                         weight_decay: float) -> torch.optim.Optimizer:
+    if name == "adamw":
+        return torch.optim.AdamW(groups, lr=lr, betas=tuple(betas), eps=eps,
+                                 weight_decay=weight_decay)
+    if name == "adam":
+        # optax.adam has no weight decay; neither do the groups here
+        for g in groups:
+            g.pop("weight_decay", None)
+        return torch.optim.Adam(groups, lr=lr, betas=tuple(betas), eps=eps)
+    if name == "dadam":
+        raise NotImplementedError("the dadam optimizer is not ported "
+                                  "(ROADMAP, slice E)")
+    raise ValueError(f"Unsupported Optimizer: {name}")
+
+
+def get_optimizer(params: tp.Union[ParamGroups, tp.Iterable[torch.Tensor]],
+                  cfg: dict, total_updates: int = 1) -> ClippedOptimizer:
+    """AdamW or Adam with clipping and an LR schedule from an `optim` config:
+    `optimizer`, `lr`, `adam.{betas, eps, weight_decay}`, `max_norm`, and
+    `lr_scheduler` with its settings under the scheduler's name. `params` is
+    a list of tensors or of groups from `get_optim_parameter_groups`; a
+    group's 'lr' and 'weight_decay' override the config's, and every group
+    follows the same schedule shape from its own peak rate."""
+    params = list(params)
+    groups = (params if params and isinstance(params[0], dict)
+              else [{"params": params}])
+    base_lr = float(cfg.get("lr", 1e-4))
+    adam = cfg.get("adam", {}) or {}
+    weight_decay = float(adam.get("weight_decay", 0.0))
+    sched_name = cfg.get("lr_scheduler")
+    sched_cfg = cfg.get(sched_name or "", {})
+    sched_cfg = sched_cfg if isinstance(sched_cfg, dict) else {}
+    groups = [{**g, "lr": float(g.get("lr", base_lr)),
+               "weight_decay": float(g.get("weight_decay", weight_decay))}
+              for g in groups]
+    optimizer = make_torch_optimizer(
+        groups, cfg.get("optimizer", "adamw"), base_lr,
+        adam.get("betas", (0.9, 0.999)), float(adam.get("eps", 1e-8)),
+        weight_decay)
+    schedules = [get_lr_scheduler(sched_name, g["lr"], total_updates, sched_cfg)
+                 for g in optimizer.param_groups]
+    return ClippedOptimizer(optimizer, schedules,
+                            float(cfg.get("max_norm", 0.0) or 0.0))

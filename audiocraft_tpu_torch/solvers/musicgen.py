@@ -1,0 +1,246 @@
+"""MusicGen LM training: cross-entropy over the delay pattern (counterpart of
+`audiocraft_tpu/solvers/musicgen.py:40-388, 590-603`).
+
+A train step runs the conditioners and the LM's `compute_predictions`
+forward (under bf16 autocast when `transformer_lm.dtype` is bfloat16; the
+parameters stay f32), takes the cross-entropy over the positions the pattern
+predicts that are not padding, back-propagates, clips the gradients' global
+norm and steps the optimizer. Two facts of the JAX solver are kept as they
+are: it reads `lr_scheduler` from `optim`, where the MusicGen config has none
+(its schedule sits under `schedule:`), so the rate is constant; and it keeps
+no EMA of the weights whatever `optim.ema` says.
+"""
+import contextlib
+import typing as tp
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..models import builders as model_builders
+from ..models.lm import LMModel
+from ..modules.conditioners import (AttributeDropout,
+                                    ClassifierFreeGuidanceDropout,
+                                    ConditioningAttributes)
+from ..utils.utils import resolve_device
+from . import builders
+from .base import SolverRunMixin
+
+
+def compute_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                          mask: torch.Tensor
+                          ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
+    """CE over the valid positions, per codebook. logits [B, K, T, card] (any
+    float dtype; the softmax runs in f32), targets [B, K, T], mask [B, K, T].
+    Returns (mean over codebooks, per-codebook CE [K]). Positions outside the
+    mask are selected away (`torch.where`, not a product: their CE may be
+    anything and must not reach the sum or its gradient); their targets,
+    which may be the special token, are clamped into range first."""
+    B, K, T = targets.shape
+    card = logits.shape[-1]
+    ce_all = F.cross_entropy(logits.float().reshape(-1, card),
+                             targets.clamp(0, card - 1).reshape(-1),
+                             reduction="none").view(B, K, T)
+    ce_sel = torch.where(mask, ce_all, torch.zeros_like(ce_all))
+    counts = mask.sum(dim=(0, 2)).float().clamp_min(1.0)
+    ce_per_codebook = ce_sel.sum(dim=(0, 2)) / counts
+    return ce_per_codebook.mean(), ce_per_codebook
+
+
+def mask_padding(codes: torch.Tensor, padding_mask: torch.Tensor,
+                 special_token_id: int) -> torch.Tensor:
+    """codes [B, K, T] with the padded frames (padding_mask [B, T] False)
+    replaced by the special token."""
+    return torch.where(padding_mask[:, None, :], codes,
+                       torch.full_like(codes, special_token_id))
+
+
+def apply_condition_dropout(attributes: tp.List[ConditioningAttributes],
+                            cfg_dropout: tp.Optional[ClassifierFreeGuidanceDropout],
+                            att_dropout: tp.Optional[AttributeDropout]
+                            ) -> tp.List[ConditioningAttributes]:
+    """Classifier-free-guidance dropout, then attribute dropout (host side,
+    before tokenizing)."""
+    if cfg_dropout is not None:
+        attributes = cfg_dropout(attributes)
+    if att_dropout is not None:
+        attributes = att_dropout(attributes)
+    return attributes
+
+
+def make_optimizer(params, learning_rate: tp.Union[float, tp.Callable[[int], float]],
+                   optimizer: str = "adamw", betas=(0.9, 0.95),
+                   weight_decay: float = 0.1, eps: float = 1e-8,
+                   max_norm: float = 1.0) -> builders.ClippedOptimizer:
+    """AdamW (or Adam) with global-norm clipping; `learning_rate` is a rate
+    or a schedule of the update count."""
+    schedule = learning_rate if callable(learning_rate) else (
+        lambda step: learning_rate)
+    peak = float(schedule(0)) or 1.0  # LambdaLR scales the group's rate
+    groups = [{"params": list(params), "lr": peak,
+               "weight_decay": weight_decay}]
+    opt = builders.make_torch_optimizer(groups, optimizer, peak, betas, eps,
+                                        weight_decay)
+    return builders.ClippedOptimizer(opt, [schedule], max_norm)
+
+
+def _autocast(device: torch.device, dtype: tp.Optional[torch.dtype]):
+    if dtype is None:
+        return contextlib.nullcontext()
+    return torch.autocast(device_type=device.type, dtype=dtype)
+
+
+def _ce_metrics(ce: torch.Tensor, ce_q: torch.Tensor) -> dict:
+    metrics = {"ce": ce.detach(), "ppl": torch.exp(ce.detach())}
+    for k in range(ce_q.shape[0]):
+        metrics[f"ce_q{k + 1}"] = ce_q[k].detach()
+        metrics[f"ppl_q{k + 1}"] = torch.exp(ce_q[k].detach())
+    return metrics
+
+
+def train_step(model: LMModel, optimizer: builders.ClippedOptimizer,
+               codes: torch.Tensor, tokenized: tp.Dict[str, tp.Any],
+               dropout_seed: tp.Optional[int] = None,
+               compute_dtype: tp.Optional[torch.dtype] = None) -> dict:
+    """One update on codes [B, K, T] (padding already the special token).
+    Returns 0-d device tensors: ce, ppl, grad_norm (before clipping), and
+    ce_q{k}, ppl_q{k} per codebook; nothing here waits for the device."""
+    model.train()
+    with _autocast(codes.device, compute_dtype):
+        condition_tensors = model.compute_conditions(tokenized)
+        out = model.compute_predictions(codes, condition_tensors,
+                                        dropout_seed=dropout_seed)
+        mask = out.mask & (codes != model.special_token_id)
+        ce, ce_q = compute_cross_entropy(out.logits, codes, mask)
+    optimizer.zero_grad()
+    ce.backward()
+    grad_norm = optimizer.step()
+    return {**_ce_metrics(ce, ce_q), "grad_norm": grad_norm}
+
+
+@torch.no_grad()
+def eval_step(model: LMModel, codes: torch.Tensor,
+              tokenized: tp.Dict[str, tp.Any],
+              compute_dtype: tp.Optional[torch.dtype] = None) -> dict:
+    """CE and perplexity without dropout or gradients: ce, ppl, ce_q{k}."""
+    model.eval()
+    with _autocast(codes.device, compute_dtype):
+        condition_tensors = model.compute_conditions(tokenized)
+        out = model.compute_predictions(codes, condition_tensors)
+        mask = out.mask & (codes != model.special_token_id)
+        ce, ce_q = compute_cross_entropy(out.logits, codes, mask)
+    return {k: v for k, v in _ce_metrics(ce, ce_q).items()
+            if not k.startswith("ppl_q")}
+
+
+class MusicGenSolver(SolverRunMixin):
+    """MusicGen LM training from a solver config dict: a frozen compression
+    model (the debug codec for `compression_model_checkpoint` 'debug' or
+    None), the LM (`get_lm_model` when the config has `transformer_lm`, else
+    the debug LM), condition dropouts, and the optimizer. Runs on CUDA
+    unless `device` names another. Loaders are iterables of batches placed
+    in `self.dataloaders` (the datasets are ROADMAP slice H); a batch is
+    `(wav, infos)` or a precomputed dict with 'codes', 'tokenized' and
+    'padding_mask'."""
+    DATASET_TYPE = "music"
+
+    def __init__(self, cfg: dict, device=None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        if cfg.get("datasource"):
+            raise NotImplementedError("datasets and loaders are not ported "
+                                      "(ROADMAP, slice H); fill "
+                                      "solver.dataloaders instead")
+        if (cfg.get("cache", {}) or {}).get("path"):
+            raise NotImplementedError("the cached-batch writer and loader are "
+                                      "not ported (ROADMAP, slice H)")
+        self.dataloaders: tp.Dict[str, tp.Iterable] = {}
+        seed = cfg.get("seed", 2036)
+
+        ckpt = cfg.get("compression_model_checkpoint")
+        if ckpt not in ("debug", None):
+            raise NotImplementedError("loading a compression model checkpoint "
+                                      "is not ported (ROADMAP, slice A item 3)")
+        assert cfg.get("sample_rate", 32000) == 32000
+        self.compression_model = model_builders.get_debug_compression_model(
+            device=self.device)
+
+        lm_cfg = cfg.get("transformer_lm") or {}
+        if lm_cfg:
+            self.model = model_builders.get_lm_model(cfg, device=self.device,
+                                                     seed=seed)
+        else:
+            self.model = model_builders.get_debug_lm_model(device=self.device,
+                                                           seed=seed)
+        self.compute_dtype = (torch.bfloat16 if lm_cfg.get("dtype") == "bfloat16"
+                              else None)
+
+        cls_free = cfg.get("classifier_free_guidance", {}) or {}
+        self.cfg_dropout = ClassifierFreeGuidanceDropout(
+            p=cls_free.get("training_dropout", 0.0))
+        self.att_dropout = AttributeDropout(p=cfg.get("attribute_dropout", {}))
+
+        optim_cfg = cfg.get("optim", {}) or {}
+        total_updates = (optim_cfg.get("epochs", 1)
+                         * optim_cfg.get("updates_per_epoch", 2000))
+        overrides = {k: lm_cfg[k] for k in ("lr", "weight_decay")
+                     if lm_cfg.get(k) is not None}
+        params = builders.get_optim_parameter_groups(
+            self.model, {"transformer": overrides})
+        self.optimizer = builders.get_optimizer(params, optim_cfg,
+                                                total_updates)
+        self._rng = torch.Generator().manual_seed(seed)
+        self.epoch = 1
+
+    def _next_dropout_seed(self) -> int:
+        return int(torch.randint(0, 2 ** 62, (1,), generator=self._rng))
+
+    def _prepare_tokens_and_attributes(self, batch, training: bool = True):
+        """(wav [B, C, T], infos) -> (codes [B, K, T'] with padding as the
+        special token, tokenized conditions, padding mask [B, T'])."""
+        wav, infos = batch
+        codes, scale = self.compression_model.encode(torch.as_tensor(wav),
+                                                     device=self.device)
+        assert scale is None, "Scaled compression model not supported with LM."
+        attributes = [info.to_condition_attributes() for info in infos]
+        if training:
+            attributes = apply_condition_dropout(attributes, self.cfg_dropout,
+                                                 self.att_dropout)
+        tokenized = self.model.condition_provider.tokenize(attributes)
+        lengths = np.array([info.n_frames for info in infos])
+        frame_rate = self.compression_model.frame_rate
+        valid_frames = np.ceil(lengths / (infos[0].sample_rate / frame_rate))
+        T = codes.shape[-1]
+        padding_mask = (torch.arange(T, device=self.device)[None, :]
+                        < torch.as_tensor(valid_frames, device=self.device)[:, None])
+        codes = mask_padding(codes, padding_mask, self.model.special_token_id)
+        return codes, tokenized, padding_mask
+
+    def run_step(self, idx: int, batch, metrics: dict) -> dict:
+        if isinstance(batch, tuple) and len(batch) == 1 \
+                and isinstance(batch[0], dict):
+            batch = batch[0]
+        if isinstance(batch, dict) and "codes" in batch:
+            codes = torch.as_tensor(batch["codes"]).to(self.device)
+            tokenized = batch["tokenized"]
+        else:
+            codes, tokenized, _ = self._prepare_tokens_and_attributes(batch)
+        metrics.update(train_step(self.model, self.optimizer, codes, tokenized,
+                                  dropout_seed=self._next_dropout_seed(),
+                                  compute_dtype=self.compute_dtype))
+        return metrics
+
+    def run_epoch(self, split: str = "train", max_updates: int = 0) -> dict:
+        loader = self.dataloaders[split]
+        if hasattr(loader, "set_epoch"):
+            loader.set_epoch(self.epoch)
+        average: tp.Dict[str, float] = {}
+        count = 0
+        for idx, batch in enumerate(loader):
+            if max_updates and idx >= max_updates:
+                break
+            metrics = self.run_step(idx, batch, {})
+            count += 1
+            for key, value in metrics.items():
+                average[key] = average.get(key, 0.0) + float(value)
+        return {k: v / max(count, 1) for k, v in average.items()}

@@ -109,8 +109,10 @@ def load_mha(mha: nn.Module, params: Tree) -> None:
     _load(mha, out)
 
 
-def load_lm(lm: nn.Module, params: Tree) -> None:
-    """JAX `LMModel` params -> a port `LMModel`."""
+def lm_state(lm: nn.Module, params: Tree) -> dict:
+    """JAX `LMModel` params -> {port parameter name: numpy array}. The map is
+    linear (transposes and unstacking), so it carries a JAX gradient tree
+    onto the port's parameter names as well."""
     p = _params(params)
     out: dict = {}
     for k in range(lm.n_q):
@@ -133,7 +135,12 @@ def load_lm(lm: nn.Module, params: Tree) -> None:
                                 prefix + "t5."))
         else:
             raise TypeError(f"no weight rule for {type(cond).__name__}")
-    _load(lm, out)
+    return out
+
+
+def load_lm(lm: nn.Module, params: Tree) -> None:
+    """JAX `LMModel` params -> a port `LMModel`."""
+    _load(lm, lm_state(lm, params))
 
 
 def _conv(p: Tree, prefix: str, transposed: bool, out: dict) -> None:

@@ -6,20 +6,30 @@
 Phases, each printing one JSON line:
   device   the card's name and count (and nvidia-smi's name and power limit);
   build    compiles every kernel of the port from `audiocraft_tpu_torch/csrc`;
-  kernels  holds each kernel against its plain PyTorch version at the main
-           path's shapes and times kernel, plain version and a library call;
+  kernel_check / kernel_timing  hold each kernel (decode attention K1, causal
+           flash attention K2 forward and backward) against its plain PyTorch
+           version at the main paths' shapes, and time kernel, plain version
+           and a library call;
   reference  the debug MusicGen, greedy in f32: tokens on the card equal the
-           CPU's;
+           CPU's; then a train step of a small K2-eligible LM in f32: CE and
+           every gradient on the card match the CPU's, and
+           checkpointing='torch' gives the same gradients;
   slice    full-width MusicGen-small (T5-base text encoder, 24-layer LM,
            EnCodec 32 kHz decoder; seeded random weights, bf16) answers 3
            requests of 2 texts x 10 s, then one 16-prompt LM generation over
            an int8 KV cache; checks shapes, finiteness, code range, and that
-           every decode-attention step launched the hand-written kernel.
+           every decode-attention step launched the hand-written kernel;
+  train    the MusicGen solver config at full width (T5-base, 24 layers,
+           f32 parameters, bf16 autocast, AdamW) takes 5 steps on 16 x 30 s
+           of seeded audio encoded by the full-width EnCodec; checks finite
+           and falling CE and that every self-attention forward and backward
+           launched K2.
 Then the `{"kernels": [...]}` summary, and last `{"ok": true, "device": ...}`.
 Any failed check raises, so the script exits non-zero without the last line.
 It needs no network and imports nothing of JAX.
 """
 import json
+import math
 import subprocess
 import sys
 import time
@@ -30,6 +40,10 @@ DURATION = 10               # seconds of audio per request
 N_REQUESTS = 3
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3, published
 F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores, published
+BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor cores, published
+TRAIN_BATCH = 16
+TRAIN_SECONDS = 30
+TRAIN_STEPS = 5
 SPIN_CYCLES = 2_000_000     # about 1 ms at the H100's clock
 TEXTS = ["90s rock song with loud guitars and heavy drums",
          "calm lo-fi piano with soft rain in the background"]
@@ -193,6 +207,123 @@ def phase_kernels(torch, S):
     return worst, timings
 
 
+def _fused_qkv(torch, B, T, H, D, dtype, g):
+    """q, k, v [B, T, H, D] as strided chunks of one [B, T, 3HD] leaf, the
+    layout the transformer's fused projection gives the kernel."""
+    x = torch.randn(B, T, 3 * H * D, device="cuda", generator=g).to(dtype)
+    x.requires_grad_(True)
+    return x, [t.reshape(B, T, H, D) for t in x.chunk(3, dim=-1)]
+
+
+def _flash_bytes_and_ops(B, T, H, D, backward):
+    """HBM bytes (each input read once, each output written once) and
+    tensor-core operations of one causal attention call, bf16."""
+    n = B * T * H * D
+    causal_pairs = T * (T + 1) // 2
+    fwd_ops = 4 * B * H * D * causal_pairs
+    if backward:  # q, k, v, out, dO, lse in; dq, dk, dv out
+        return 8 * n * 2 + B * H * T * 4, 2.5 * fwd_ops
+    return 4 * n * 2 + B * H * T * 4, fwd_ops  # q, k, v in; out, lse out
+
+
+def phase_flash_kernels(torch):
+    """K2 forward and backward vs their plain version, then timings."""
+    import torch.nn.functional as F
+    from audiocraft_tpu_torch.ops.flash_causal_attention import (
+        _backward, _forward, flash_causal_attention,
+        flash_causal_attention_reference)
+    H = 16
+    g = torch.Generator("cuda").manual_seed(1)
+    tol = {"float32": {"out": 1e-5, "grad": 1e-4},
+           "bfloat16": {"out": 2e-2, "grad": 2e-2}}
+    worst = {}
+    checks = 0
+    cases = [(B, T, 64) for B in (1, 4, 16) for T in (1, 63, 64, 65, 300, 1500)]
+    cases.append((4, 300, 128))
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        for B, T, D in cases:
+            x, (q, k, v) = _fused_qkv(torch, B, T, H, D, dtype, g)
+            dout = torch.randn(B, T, H, D, device="cuda", generator=g).to(dtype)
+            out = flash_causal_attention(q, k, v)
+            out.backward(dout)
+            torch.cuda.synchronize()
+            # the plain version in f32 on the same (rounded) inputs
+            refs = [t.detach().float().requires_grad_(True) for t in (q, k, v)]
+            ref = flash_causal_attention_reference(*refs)
+            ref.backward(dout.float())
+            got = [out] + [t.reshape(B, T, H, D) for t in x.grad.chunk(3, -1)]
+            want = [ref] + [t.grad for t in refs]
+            for i, (a, b) in enumerate(zip(got, want)):
+                kind = "out" if i == 0 else "grad"
+                err = (a.float() - b.float()).abs()
+                bound = tol[name][kind] * (1 + b.float().abs())
+                if not bool((err <= bound).all()):
+                    raise AssertionError(
+                        f"flash_causal_attention {name} B={B} T={T} D={D} "
+                        f"{['out', 'dq', 'dk', 'dv'][i]}: max abs err "
+                        f"{err.max().item()} beyond atol = rtol = "
+                        f"{tol[name][kind]}")
+                worst[f"{name}_{kind}"] = max(worst.get(f"{name}_{kind}", 0.0),
+                                              err.max().item())
+            checks += 1
+    emit("kernel_check", kernel="flash_causal_attention", checks=checks,
+         shapes=dict(B=[1, 4, 16], T=[1, 63, 64, 65, 300, 1500], H=H, D=64,
+                     also=dict(B=4, T=300, D=128)),
+         inputs="chunks of one fused [B, T, 3HD] tensor (row stride 3HD)",
+         compared="output and dq, dk, dv from a seeded dO, against the plain "
+                  "version in f32 on the same inputs",
+         max_abs_err=worst, tolerance="|err| <= tol * (1 + |plain|)",
+         tol=tol)
+
+    B, T, D = 16, 1500, 64
+    flush = 128 << 20
+    _, (q, k, v) = _fused_qkv(torch, B, T, H, D, torch.bfloat16, g)
+    q, k, v = (t.detach() for t in (q, k, v))
+    dout = torch.randn(B, T, H, D, device="cuda", generator=g).to(torch.bfloat16)
+    out, lse = _forward(q, k, v)
+    ms = _time_ms(lambda: _forward(q, k, v), flush_bytes=flush)
+    bwd_ms = _time_ms(lambda: _backward(q, k, v, out, lse, dout),
+                      flush_bytes=flush)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    plain_ms = _time_ms(lambda: flash_causal_attention_reference(*leaves),
+                        flush_bytes=flush)
+    ref = flash_causal_attention_reference(*leaves)
+    plain_bwd_ms = _time_ms(lambda: torch.autograd.grad(
+        ref, leaves, dout, retain_graph=True), flush_bytes=flush)
+    del ref
+    heads = [t.transpose(1, 2).contiguous().requires_grad_(True)
+             for t in (q, k, v)]
+    dout_h = dout.transpose(1, 2).contiguous()
+    library_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+        *heads, is_causal=True), flush_bytes=flush)
+    lib = F.scaled_dot_product_attention(*heads, is_causal=True)
+    library_bwd_ms = _time_ms(lambda: torch.autograd.grad(
+        lib, heads, dout_h, retain_graph=True), flush_bytes=flush)
+    del lib
+    timing = {}
+    for tag, t_ms, t_plain, t_lib, backward in (
+            ("forward", ms, plain_ms, library_ms, False),
+            ("backward", bwd_ms, plain_bwd_ms, library_bwd_ms, True)):
+        nbytes, ops = _flash_bytes_and_ops(B, T, H, D, backward)
+        bound = max(nbytes / HBM_BYTES_PER_S, ops / BF16_FLOPS) * 1e3
+        timing[tag] = dict(
+            ms=t_ms, plain_ms=t_plain, library_ms=t_lib, bound_ms=bound,
+            bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= ops / BF16_FLOPS
+            else "operations", roofline_share=bound / t_ms,
+            tflops=ops / t_ms / 1e9)
+    timing["forward_plus_backward"] = {
+        key: timing["forward"][key] + timing["backward"][key]
+        for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    emit("kernel_timing", kernel="flash_causal_attention", l2_flushed=True,
+         statistic="median of 50 calls", shape=dict(B=B, T=T, H=H, D=D,
+                                                    dtype="bfloat16"),
+         library="torch.nn.functional.scaled_dot_product_attention(is_causal="
+                 "True) on [B, H, T, D] copies; backward alone through "
+                 "torch.autograd.grad", **timing)
+    return worst, timing
+
+
 def phase_reference(torch):
     """Debug MusicGen, greedy, f32: the card's tokens equal the CPU's."""
     from audiocraft_tpu_torch.models import builders
@@ -221,6 +352,75 @@ def phase_reference(torch):
          caches=["float32", "int8"], wav_max_abs_err=err, wav_tolerance=1e-4)
 
 
+def _toy_train_lm(device, checkpointing="none"):
+    """A small K2-eligible LM: dim 128, 2 heads (D 64), 2 layers, card 64,
+    lookup-table text conditioning, f32."""
+    from audiocraft_tpu_torch.models.presets import musicgen_lm
+    from audiocraft_tpu_torch.modules.conditioners import LUTConditioner
+    import torch
+    torch.manual_seed(0)
+    cond = {"description": LUTConditioner(n_bins=256, dim=128, output_dim=128,
+                                          device=device)}
+    lm = musicgen_lm("xsmall", card=64, dim=128, num_heads=2,
+                     conditioners=cond, checkpointing=checkpointing,
+                     device=device)
+    lm.reset_parameters(0)
+    return lm
+
+
+def phase_reference_train(torch):
+    """One f32 train step of a small K2-eligible LM at T = 299 frames (300
+    pattern steps): CE and every gradient on the card (K2) match the CPU's
+    (plain version); 'torch' checkpointing matches 'none' on the card and
+    launches K2's forward twice as often."""
+    import numpy as np
+    from audiocraft_tpu_torch.modules.conditioners import ConditioningAttributes
+    from audiocraft_tpu_torch.ops.flash_causal_attention import \
+        flash_causal_attention as fca
+    from audiocraft_tpu_torch.solvers import builders as sb
+    from audiocraft_tpu_torch.solvers.musicgen import train_step
+    codes = torch.from_numpy(np.random.RandomState(0).randint(0, 64, (2, 4, 299)))
+    attrs = [ConditioningAttributes(text={"description": t}) for t in TEXTS]
+    runs = {}
+    for device, mode in (("cpu", "none"), ("cuda", "none"), ("cuda", "torch")):
+        lm = _toy_train_lm(device, mode)
+        if device == "cuda":
+            lm.load_state_dict(runs["cpu", "none"][2])
+        if device == "cpu":
+            state = {k: v.clone() for k, v in lm.state_dict().items()}
+        else:
+            state = None
+        opt = sb.get_optimizer(lm.parameters(), {"lr": 0.0})
+        fca.launches = fca.backward_launches = 0
+        m = train_step(lm, opt, codes.to(device),
+                       lm.condition_provider.tokenize(attrs))
+        grads = {n: p.grad.detach().cpu() for n, p in lm.named_parameters()}
+        runs[device, mode] = (m["ce"].item(), grads, state,
+                              (fca.launches, fca.backward_launches))
+    ce_cpu, g_cpu, _, _ = runs["cpu", "none"]
+    ce_gpu, g_gpu, _, launches_none = runs["cuda", "none"]
+    ce_remat, g_remat, _, launches_remat = runs["cuda", "torch"]
+    ce_err = abs(ce_cpu - ce_gpu)
+    grad_err = max((g_cpu[n] - g_gpu[n]).abs().max().item() for n in g_cpu)
+    remat_err = max((g_remat[n] - g_gpu[n]).abs().max().item() for n in g_gpu)
+    if not ce_err <= 1e-5:
+        raise AssertionError(f"toy train step CE differs by {ce_err} (card vs CPU)")
+    if not grad_err <= 1e-4:
+        raise AssertionError(f"toy train step gradients differ by {grad_err}")
+    if not (abs(ce_remat - ce_gpu) <= 1e-6 and remat_err <= 1e-6):
+        raise AssertionError(f"checkpointing='torch' differs from 'none' by "
+                             f"{remat_err} (CE {ce_remat} vs {ce_gpu})")
+    if launches_none != (2, 2) or launches_remat != (4, 2):
+        raise AssertionError(f"K2 (forward, backward) launches {launches_none} "
+                             f"without and {launches_remat} with remat, "
+                             f"expected (2, 2) and (4, 2)")
+    emit("reference_train", model="dim 128, 2 heads (D 64), 2 layers, card 64, "
+         "f32", frames=299, ce_cpu=ce_cpu, ce_card=ce_gpu, ce_abs_err=ce_err,
+         ce_tolerance=1e-5, grad_max_abs_err=grad_err, grad_tolerance=1e-4,
+         remat_grad_max_abs_err=remat_err, remat_tolerance=1e-6,
+         k2_launches_none=launches_none, k2_launches_torch=launches_remat)
+
+
 def phase_slice(torch, card):
     from audiocraft_tpu_torch.models import MusicGen, builders
     from audiocraft_tpu_torch.models.lm import GenParams
@@ -240,8 +440,10 @@ def phase_slice(torch, card):
     steps = len(lm.pattern_provider.get_pattern(frames).layout)
     forwards = steps - 1  # the prefill over step 0, then one per slot
 
+    from audiocraft_tpu_torch.ops.flash_causal_attention import \
+        flash_causal_attention as fca
     torch.cuda.reset_peak_memory_stats()
-    decode_attention.launches = 0
+    decode_attention.launches = fca.launches = fca.backward_launches = 0
     request_s = []
     for _ in range(N_REQUESTS):
         t = time.perf_counter()
@@ -264,6 +466,7 @@ def phase_slice(torch, card):
     torch.cuda.synchronize()
     int8_s = time.perf_counter() - t
     launches = decode_attention.launches
+    flash_launches = fca.launches + fca.backward_launches
     peak = torch.cuda.max_memory_allocated()
     if tuple(codes.shape) != (16, 4, frames):
         raise AssertionError(f"int8 codes shape {tuple(codes.shape)}")
@@ -282,6 +485,99 @@ def phase_slice(torch, card):
          int8_audio_s_per_s=16 * DURATION / int8_s,
          pattern_steps=steps, forwards_per_generate=forwards,
          decode_attention_launches=launches, expected_launches=expected,
+         flash_causal_attention_launches=flash_launches,
+         max_memory_allocated=peak)
+    return launches
+
+
+def _seeded_music(torch, batch: int, seconds: int, sample_rate: int = 32000):
+    """[batch, 1, seconds * sample_rate] of periodic audio: a few harmonics
+    with seeded pitches, amplitudes and phases per row, plus a little noise."""
+    g = torch.Generator("cuda").manual_seed(3)
+    t = torch.arange(seconds * sample_rate, device="cuda") / sample_rate
+    f0 = 110.0 * 2 ** (torch.randint(0, 24, (batch, 1), device="cuda",
+                                     generator=g) / 12)
+    wav = torch.zeros(batch, t.numel(), device="cuda")
+    for h in range(1, 5):
+        amp = torch.rand(batch, 1, device="cuda", generator=g) / h
+        phase = 2 * torch.pi * torch.rand(batch, 1, device="cuda", generator=g)
+        wav += amp * torch.sin(2 * torch.pi * h * f0 * t + phase)
+    wav += 0.01 * torch.randn(wav.shape, device="cuda", generator=g)
+    return (0.3 * wav / wav.abs().amax(dim=-1, keepdim=True))[:, None]
+
+
+def phase_train(torch, card):
+    """MusicGen-small LM training at full width through the solver's entry
+    points: 5 run_steps on 16 x 30 s of encoded audio."""
+    from audiocraft_tpu_torch.config import apply_overrides, load_config
+    from audiocraft_tpu_torch.models import builders
+    from audiocraft_tpu_torch.modules.conditioners import ConditioningAttributes
+    from audiocraft_tpu_torch.ops.decode_attention import decode_attention
+    from audiocraft_tpu_torch.ops.flash_causal_attention import \
+        flash_causal_attention as fca
+    from audiocraft_tpu_torch.solvers import get_solver
+    t0 = time.perf_counter()
+    cfg = load_config("solver/musicgen/default")
+    apply_overrides(cfg, [f"dataset.batch_size={TRAIN_BATCH}",
+                          "transformer_lm.dtype=bfloat16"])
+    solver = get_solver(cfg)  # CUDA
+    lm = solver.model
+    codec = builders.get_encodec_32khz(device="cuda", dtype=torch.bfloat16,
+                                       seed=1)
+    codes, _ = codec.encode(_seeded_music(torch, TRAIN_BATCH, TRAIN_SECONDS))
+    frames = TRAIN_SECONDS * TOKENS_PER_SECOND
+    if tuple(codes.shape) != (TRAIN_BATCH, 4, frames):
+        raise AssertionError(f"encoded codes {tuple(codes.shape)}")
+    del codec
+    texts = [f"{TEXTS[i % 2]}, take {i}" for i in range(TRAIN_BATCH)]
+    batch = {"codes": codes, "padding_mask": torch.ones(
+        TRAIN_BATCH, frames, dtype=torch.bool, device="cuda"),
+        "tokenized": lm.condition_provider.tokenize(
+            [ConditioningAttributes(text={"description": t}) for t in texts])}
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    decode_attention.launches = fca.launches = fca.backward_launches = 0
+    ces, step_s = [], []
+    for idx in range(TRAIN_STEPS):
+        t = time.perf_counter()
+        metrics = solver.run_step(idx, batch, {})
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        ces.append(float(metrics["ce"]))
+    launches = (fca.launches, fca.backward_launches, decode_attention.launches)
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(ce) for ce in ces):
+        raise AssertionError(f"non-finite CE {ces}")
+    if not ces[-1] < ces[0]:
+        raise AssertionError(f"CE did not fall over {TRAIN_STEPS} steps: {ces}")
+    expected = lm.num_layers * TRAIN_STEPS
+    if launches[:2] != (expected, expected):
+        raise AssertionError(f"K2 forward/backward launched {launches[:2]} "
+                             f"times, expected {expected} each")
+    # model FLOPs as bench.py counts them: 6 N per token over the LM without
+    # its conditioners, plus 12 L T^2 d per sample of attention
+    n_trunk = sum(p.numel() for n, p in lm.named_parameters()
+                  if not n.startswith("condition_provider"))
+    T = frames + 1  # pattern steps the LM sees (keep_only_valid_steps)
+    flops = (6 * n_trunk * TRAIN_BATCH * T
+             + 12 * lm.num_layers * T * T * lm.dim * TRAIN_BATCH)
+    steady = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    emit("train", model="musicgen-small LM (T5-base cross-attention, 24 "
+         "layers, d 1024, 16 heads, 4 x 2048 codes; seeded random weights, "
+         "f32 params, bf16 autocast, AdamW, max_norm 1.0)", card=card,
+         config="solver/musicgen/default + dataset.batch_size=16 "
+                "transformer_lm.dtype=bfloat16", batch=TRAIN_BATCH,
+         seconds_per_item=TRAIN_SECONDS, frames=frames, setup_s=setup_s,
+         step_s=step_s, steady_step_s=steady, ce=ces,
+         grad_norm_last=float(metrics["grad_norm"]),
+         audio_s_per_s=TRAIN_BATCH * TRAIN_SECONDS / steady,
+         tokens_per_s=TRAIN_BATCH * frames * 4 / steady,
+         model_flops_per_step=flops, trunk_params=n_trunk,
+         mfu_vs_989_tflops=flops / steady / BF16_FLOPS,
+         k2_forward_launches=launches[0], k2_backward_launches=launches[1],
+         expected_launches=expected, decode_attention_launches=launches[2],
          max_memory_allocated=peak)
     return launches
 
@@ -301,10 +597,14 @@ def main() -> int:
     from audiocraft_tpu_torch.modules.patterns import DelayedPatternProvider
     S = len(DelayedPatternProvider(4).get_pattern(frames).layout)
     worst, timings = phase_kernels(torch, S)
+    flash_worst, flash_timing = phase_flash_kernels(torch)
     phase_reference(torch)
+    phase_reference_train(torch)
     launches = phase_slice(torch, card)
+    train_launches = phase_train(torch, card)
 
     main_t = timings[0]
+    fwd, bwd = flash_timing["forward"], flash_timing["backward"]
     print(json.dumps({"kernels": [{
         "name": "decode_attention", "route": "cuda",
         "source": "audiocraft_tpu_torch/csrc/decode_attention.cu",
@@ -314,7 +614,21 @@ def main() -> int:
         "bound_ms": main_t["bound_ms"], "bound_by": main_t["bound_by"],
         "library_ms": main_t["library_ms"],
         "shape": {k: main_t[k] for k in ("B", "S", "H", "D", "length",
-                                          "cache")}}]}), flush=True)
+                                          "cache")}}, {
+        "name": "flash_causal_attention", "route": "cuda",
+        "source": "audiocraft_tpu_torch/csrc/flash_causal_attention.cu",
+        "replaces": "audiocraft_tpu/ops/attention.py:65",
+        "launches": train_launches[0], "max_abs_err": max(flash_worst.values()),
+        "ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
+        "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
+        "library_ms": fwd["library_ms"],
+        "backward_launches": train_launches[1], "backward_ms": bwd["ms"],
+        "backward_plain_ms": bwd["plain_ms"],
+        "backward_bound_ms": bwd["bound_ms"],
+        "backward_bound_by": bwd["bound_by"],
+        "backward_library_ms": bwd["library_ms"],
+        "shape": {"B": 16, "T": 1500, "H": 16, "D": 64,
+                  "dtype": "bfloat16"}}]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,16 +5,25 @@ installed:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
-Tolerances: f32 caches 1e-4; bf16 and int8 caches 2e-2 (bf16 output
-rounding of values of order 1)."""
+Tolerances: decode attention, f32 caches 1e-4, bf16 and int8 caches 2e-2
+(bf16 output rounding of values of order 1); causal flash attention against
+its plain version in f32 on the same inputs, |err| <= tol * (1 + |plain|)
+with tol 1e-5 (f32 output), 1e-4 (f32 gradients) and 2e-2 (bf16)."""
 import pytest
 import torch
 
 from audiocraft_tpu_torch.models import MusicGen, builders
 from audiocraft_tpu_torch.models.lm import GenParams
-from audiocraft_tpu_torch.modules.conditioners import ConditioningAttributes
+from audiocraft_tpu_torch.models.presets import musicgen_lm
+from audiocraft_tpu_torch.modules import transformer
+from audiocraft_tpu_torch.modules.conditioners import (ConditioningAttributes,
+                                                       LUTConditioner)
 from audiocraft_tpu_torch.ops.decode_attention import (
     decode_attention, decode_attention_reference)
+from audiocraft_tpu_torch.ops.flash_causal_attention import (
+    flash_causal_attention, flash_causal_attention_reference)
+from audiocraft_tpu_torch.solvers.builders import get_optimizer
+from audiocraft_tpu_torch.solvers.musicgen import train_step
 
 TEXTS = ["90s rock song with loud guitars", "calm piano"]
 
@@ -85,3 +94,86 @@ def test_greedy_tokens_on_card_match_cpu():
         a = cpu.generate(device="cpu", **kw)
         b = gpu.generate(device="cuda", **kw).cpu()
         assert torch.equal(a, b), cache_dtype
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T, D", [(1, 64), (63, 64), (64, 64), (65, 64),
+                                  (130, 64), (301, 128)])
+@pytest.mark.parametrize("fused", [False, True])
+def test_flash_causal_kernel_matches_reference(dtype, T, D, fused):
+    """Forward and dq, dk, dv against the plain version, ragged T included;
+    `fused` feeds q, k, v as strided chunks of one [B, T, 3HD] tensor."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    torch.manual_seed(0)
+    dt = getattr(torch, dtype)
+    B, H = 2, 3
+    if fused:
+        x = torch.randn(B, T, 3 * H * D, device="cuda").to(dt).requires_grad_()
+        q, k, v = (t.reshape(B, T, H, D) for t in x.chunk(3, dim=-1))
+    else:
+        q, k, v = (torch.randn(B, T, H, D, device="cuda").to(dt).requires_grad_()
+                   for _ in range(3))
+    dout = torch.randn(B, T, H, D, device="cuda").to(dt)
+    before = (flash_causal_attention.launches,
+              flash_causal_attention.backward_launches)
+    out = flash_causal_attention(q, k, v)
+    grads = torch.autograd.grad(out, (q, k, v), dout)
+    torch.cuda.synchronize()
+    assert (flash_causal_attention.launches,
+            flash_causal_attention.backward_launches) == (before[0] + 1,
+                                                          before[1] + 1)
+    refs = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    ref = flash_causal_attention_reference(*refs)
+    ref_grads = torch.autograd.grad(ref, refs, dout.float())
+    out_tol, grad_tol = (1e-5, 1e-4) if dtype == "float32" else (2e-2, 2e-2)
+    torch.testing.assert_close(out.float(), ref, atol=out_tol, rtol=out_tol)
+    for got, want in zip(grads, ref_grads):
+        assert got.dtype == dt
+        torch.testing.assert_close(got.float(), want, atol=grad_tol,
+                                   rtol=grad_tol)
+
+
+@pytest.mark.gpu
+def test_flash_causal_kernel_rejects_what_it_cannot_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    q = torch.randn(1, 8, 2, 32, device="cuda")
+    with pytest.raises(ValueError, match="head dims"):
+        flash_causal_attention(q, q, q)
+    q = torch.randn(1, 8, 2, 64, device="cuda", dtype=torch.float16)
+    with pytest.raises(ValueError, match="float32 or all bfloat16"):
+        flash_causal_attention(q, q, q)
+
+
+@pytest.mark.gpu
+def test_bf16_train_step_on_card_runs_the_kernel_on_bf16(monkeypatch):
+    """A small K2-eligible LM under bf16 autocast: every self-attention
+    forward and backward launches K2 on bf16 q/k/v."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    seen = []
+
+    def spy(q, k, v):
+        seen.append(q.dtype)
+        return flash_causal_attention(q, k, v)
+    monkeypatch.setattr(transformer, "flash_causal_attention", spy)
+    torch.manual_seed(0)
+    cond = {"description": LUTConditioner(n_bins=256, dim=128, output_dim=128,
+                                          device="cuda")}
+    lm = musicgen_lm("xsmall", card=64, dim=128, num_heads=2,
+                     conditioners=cond, device="cuda")
+    opt = get_optimizer(lm.parameters(), {"lr": 1e-3, "max_norm": 1.0})
+    codes = torch.randint(0, 64, (2, 4, 100), device="cuda")
+    tokenized = lm.condition_provider.tokenize(
+        [ConditioningAttributes(text={"description": t}) for t in TEXTS])
+    before = (flash_causal_attention.launches,
+              flash_causal_attention.backward_launches)
+    ces = [train_step(lm, opt, codes, tokenized,
+                      compute_dtype=torch.bfloat16)["ce"].item()
+           for _ in range(3)]
+    assert seen == [torch.bfloat16] * 6
+    assert flash_causal_attention.launches - before[0] == 6
+    assert flash_causal_attention.backward_launches - before[1] == 6
+    assert all(torch.isfinite(torch.tensor(ces))) and ces[-1] < ces[0]

@@ -91,7 +91,8 @@ def test_t5_conditioner_forward_matches_jax_encoder_and_projection():
     cond.output_proj.load_state_dict({"weight": torch.from_numpy(w.T.copy()),
                                       "bias": torch.from_numpy(b)})
     emb, got_mask = cond((tokens, mask))
-    np.testing.assert_allclose(emb.numpy(), expected, atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(emb.detach().numpy(), expected, atol=1e-4,
+                               rtol=1e-4)
     np.testing.assert_array_equal(got_mask.numpy(), mask)
 
 
