@@ -1,6 +1,7 @@
 """Model builders with seeded random weights (counterpart of the debug and
 MusicGen-small assemblies in `audiocraft_tpu/models/builders.py` and
-`bench.py`, and of its config-driven `get_lm_model`)."""
+`bench.py`, of its config-driven `get_lm_model`, and of
+`get_wrapped_compression_model`)."""
 import contextlib
 import typing as tp
 
@@ -14,7 +15,8 @@ from ..modules.patterns import (CodebooksPatternProvider,
 from ..modules.seanet import SEANetDecoder, SEANetEncoder
 from ..quantization import ResidualVectorQuantizer
 from ..utils.utils import resolve_device
-from .encodec import EncodecModel
+from .encodec import (CompressionModel, EncodecModel,
+                      InterleaveStereoCompressionModel)
 from .lm import LMModel
 from .presets import musicgen_lm
 
@@ -78,6 +80,21 @@ def get_debug_lm_model(device=None, seed: int = 0) -> LMModel:
                        cross_attention=True, causal=True, device=device).eval()
 
 
+def get_debug_stereo_lm_model(device=None, seed: int = 0) -> LMModel:
+    """The debug LM over interleaved stereo codebooks: 8 x 400 codes with
+    the default delays 0..7, as the JAX package's debug stereo LM."""
+    device = resolve_device(device)
+
+    with _seeded(device, seed):
+        conditioners = {"description": LUTConditioner(
+            n_bins=128, dim=16, output_dim=16, device=device)}
+        fuser = ConditionFuser({"cross": ["description"], "prepend": [],
+                                "sum": [], "input_interpolate": []})
+        return LMModel(DelayedPatternProvider(n_q=8), conditioners, fuser,
+                       n_q=8, card=400, dim=16, num_heads=4, num_layers=2,
+                       cross_attention=True, causal=True, device=device).eval()
+
+
 def get_musicgen_small_lm(device=None, dtype=torch.bfloat16,
                           seed: int = 0) -> LMModel:
     """MusicGen-small LM at full width (dim 1024, 16 heads, 24 layers,
@@ -91,12 +108,45 @@ def get_musicgen_small_lm(device=None, dtype=torch.bfloat16,
     return lm.eval()
 
 
+# `grids/musicgen/musicgen_stereo_finetune_32khz.py` of the JAX package
+STEREO_SMALL_DELAYS = [0, 0, 1, 1, 2, 2, 3, 3]
+
+
+def get_musicgen_stereo_small_lm(device=None, dtype=torch.bfloat16,
+                                 seed: int = 0) -> LMModel:
+    """MusicGen-stereo-small LM at full width: the small LM over 8 x 2048
+    interleaved stereo codebooks (left and right of each mono level side by
+    side) with delays [0, 0, 1, 1, 2, 2, 3, 3], T5-base conditioned."""
+    device = resolve_device(device)
+
+    with _seeded(device, seed):
+        lm = musicgen_lm("small", n_q=8, card=2048, use_t5=True,
+                         delays=STEREO_SMALL_DELAYS, device=device,
+                         dtype=dtype)
+    lm.reset_parameters(seed)
+    return lm.eval()
+
+
+def get_wrapped_compression_model(compression_model: CompressionModel,
+                                  cfg: dict) -> CompressionModel:
+    """The stereo interleave wrapper (`interleave_stereo_codebooks.use`,
+    with its `per_timestep`) and the `compression_model_n_q` clamp of a
+    model config."""
+    interleave = dict(cfg.get("interleave_stereo_codebooks") or {})
+    if interleave.pop("use", False):
+        compression_model = InterleaveStereoCompressionModel(compression_model,
+                                                             **interleave)
+    n_q = cfg.get("compression_model_n_q")
+    if n_q is not None:
+        compression_model.set_num_codebooks(n_q)
+    return compression_model
+
+
 # transformer_lm keys of features the port does not have, with the only
-# value it takes (ROADMAP, slice A item 4 and slice B)
+# value it takes (ROADMAP, slice A item 4)
 _UNPORTED_LM_KEYS = {"layer_scale": None, "positional_embedding": "sin",
                      "xpos": False, "qk_layer_norm": False,
-                     "qk_layer_norm_cross": False, "kv_repeat": 1,
-                     "two_step_cfg": False}
+                     "qk_layer_norm_cross": False, "kv_repeat": 1}
 # keys that only shape the JAX program or its optimizer (`layer_scan`, `dtype`
 # and the per-module lr/weight decay, which the solver reads), or that the
 # JAX builder also drops

@@ -2,7 +2,8 @@
 `audiocraft_tpu/models/encodec.py`).
 
 Audio is [B, C, T] and codes [B, K, T] at the public functions, as in the JAX
-package; inside, everything is channels-first.
+package; inside, everything is channels-first. `InterleaveStereoCompressionModel`
+serves stereo through a mono codec.
 """
 import typing as tp
 
@@ -82,5 +83,101 @@ class EncodecModel(CompressionModel):
         return self.quantizer.decode(codes, dtype=self._dtype).transpose(1, 2)
 
     @property
+    def cardinality(self) -> int:
+        return self.quantizer.bins
+
+    @property
+    def num_codebooks(self) -> int:
+        return self.quantizer.num_codebooks
+
+    @property
+    def total_codebooks(self) -> int:
+        return self.quantizer.total_codebooks
+
+    def set_num_codebooks(self, n: int) -> None:
+        self.quantizer.set_num_codebooks(n)
+
+    @property
     def _dtype(self) -> torch.dtype:
         return next(self.decoder.parameters()).dtype
+
+
+class InterleaveStereoCompressionModel(CompressionModel):
+    """Stereo through a mono codec: each channel is encoded on its own and
+    the two code streams are interleaved codebook by codebook ([B, 2K, T]:
+    left k0, right k0, left k1, ...) or, with `per_timestep`, step by step
+    ([B, K, 2T]: left t0, right t0, left t1, ...)."""
+
+    def __init__(self, model: EncodecModel, per_timestep: bool = False):
+        super().__init__()
+        assert model.channels == 1, "Wrapped model is expected to be mono"
+        self.model = model
+        self.per_timestep = per_timestep
+
+    @property
+    def total_codebooks(self) -> int:
+        return self.model.total_codebooks
+
+    @property
+    def num_codebooks(self) -> int:
+        """Doubled when codebooks are interleaved, unchanged when timesteps
+        are."""
+        if self.per_timestep:
+            return self.model.num_codebooks
+        return self.model.num_codebooks * 2
+
+    def set_num_codebooks(self, n: int) -> None:
+        assert n % 2 == 0, "Stereo interleaved model expects even codebooks"
+        self.model.set_num_codebooks(n // 2)
+
+    @property
+    def num_virtual_steps(self) -> int:
+        return 2 if self.per_timestep else 1
+
+    @property
+    def frame_rate(self) -> float:
+        return self.model.frame_rate * self.num_virtual_steps
+
+    @property
+    def sample_rate(self) -> int:
+        return self.model.sample_rate
+
+    @property
+    def channels(self) -> int:
+        return 2
+
+    @property
+    def cardinality(self) -> int:
+        return self.model.cardinality
+
+    def encode(self, x: torch.Tensor, device=None):
+        """[B, 2, T] audio -> (interleaved codes, None)."""
+        B, C, _ = x.shape
+        assert C == self.channels, \
+            f"Expecting stereo audio but audio num channels is {C}"
+        left, _ = self.model.encode(x[:, 0:1], device)
+        right, _ = self.model.encode(x[:, 1:2], device)
+        codes = torch.stack([left, right])  # [2, B, K, T]
+        if self.per_timestep:
+            return codes.permute(1, 2, 3, 0).reshape(B, left.shape[1], -1), None
+        return codes.permute(1, 2, 0, 3).reshape(B, -1, left.shape[-1]), None
+
+    def get_left_right_codes(self, codes: torch.Tensor
+                             ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
+        if self.per_timestep:
+            B, K, T = codes.shape
+            codes = codes.reshape(B, K, T // 2, 2)
+            return codes[..., 0], codes[..., 1]
+        B, K2, T = codes.shape
+        codes = codes.reshape(B, K2 // 2, 2, T)
+        return codes[:, :, 0], codes[:, :, 1]
+
+    def decode(self, codes: torch.Tensor, device=None) -> torch.Tensor:
+        """Interleaved codes -> [B, 2, T] audio."""
+        B, K, T = codes.shape
+        assert T > 0
+        assert K == self.num_codebooks, \
+            "Provided codes' number of codebooks does not match the model"
+        left, right = self.get_left_right_codes(codes)
+        return torch.cat([self.model.decode(left, device),
+                          self.model.decode(right, device)], dim=1)

@@ -1,9 +1,12 @@
 """Base generative model: the user-facing generation API (counterpart of
-`audiocraft_tpu/models/genmodel.py`)."""
+`audiocraft_tpu/models/genmodel.py`): text-conditioned and unconditional
+generation, continuation of an audio prompt, and the sliding window past
+`max_duration`."""
 import typing as tp
 
 import torch
 
+from ..data.audio_utils import convert_audio
 from ..modules.conditioners import ConditioningAttributes
 from ..utils.utils import resolve_device
 from .encodec import CompressionModel
@@ -41,21 +44,53 @@ class BaseGenModel:
     def audio_channels(self) -> int:
         return self.compression_model.channels
 
-    def _prepare_attributes(self, descriptions: tp.Sequence[tp.Optional[str]]
-                            ) -> tp.List[ConditioningAttributes]:
-        return [ConditioningAttributes(text={"description": d})
-                for d in descriptions]
+    def _prepare_tokens_and_attributes(
+            self, descriptions: tp.Sequence[tp.Optional[str]],
+            prompt: tp.Optional[torch.Tensor]
+    ) -> tp.Tuple[tp.List[ConditioningAttributes], tp.Optional[torch.Tensor]]:
+        """Texts -> attributes; a prompt waveform [B, C, T] -> its codes."""
+        attributes = [ConditioningAttributes(text={"description": d})
+                      for d in descriptions]
+        if prompt is None:
+            return attributes, None
+        assert len(descriptions) == len(prompt), \
+            "Prompt and nb. descriptions doesn't match"
+        prompt_tokens, scale = self.compression_model.encode(
+            prompt, device=self.device)
+        assert scale is None
+        return attributes, prompt_tokens
 
     def generate_unconditional(self, num_samples: int,
                                return_tokens: bool = False):
-        return self._generate([None] * num_samples, return_tokens)
+        return self._generate([None] * num_samples, None, return_tokens)
 
     def generate(self, descriptions: tp.List[str], return_tokens: bool = False):
         """Text-conditioned generation -> audio [B, C, T] (and codes)."""
-        return self._generate(descriptions, return_tokens)
+        return self._generate(descriptions, None, return_tokens)
 
-    def _generate(self, descriptions, return_tokens: bool):
-        tokens = self._generate_tokens(self._prepare_attributes(descriptions))
+    def generate_continuation(self, prompt, prompt_sample_rate: int,
+                              descriptions: tp.Optional[
+                                  tp.List[tp.Optional[str]]] = None,
+                              return_tokens: bool = False):
+        """Continue the audio prompt [B, C, T] (or [C, T]) at
+        `prompt_sample_rate`: it is converted to the model's rate and
+        channels, encoded, and kept verbatim at the start of the codes."""
+        prompt = torch.as_tensor(prompt, dtype=torch.float32)
+        if prompt.dim() == 2:
+            prompt = prompt[None]
+        if prompt.dim() != 3:
+            raise ValueError("prompt should have 3 dimensions: [B, C, T] "
+                             "(C = 1).")
+        prompt = convert_audio(prompt.to(self.device), prompt_sample_rate,
+                               self.sample_rate, self.audio_channels)
+        if descriptions is None:
+            descriptions = [None] * len(prompt)
+        return self._generate(descriptions, prompt, return_tokens)
+
+    def _generate(self, descriptions, prompt, return_tokens: bool):
+        attributes, prompt_tokens = self._prepare_tokens_and_attributes(
+            descriptions, prompt)
+        tokens = self._generate_tokens(attributes, prompt_tokens)
         audio = self.generate_audio(tokens)
         return (audio, tokens) if return_tokens else audio
 
@@ -71,6 +106,11 @@ class BaseGenModel:
         """Codes for `self.duration`; past `max_duration` a sliding window
         re-prompts the LM with the last `max_duration - extend_stride`."""
         total_gen_len = int(self.duration * self.frame_rate)
+        max_prompt_len = int(min(self.duration, self.max_duration)
+                             * self.frame_rate)
+        if prompt_tokens is not None:
+            assert max_prompt_len >= prompt_tokens.shape[-1], \
+                "Prompt is longer than audio to generate"
         if self.duration <= self.max_duration:
             return self._lm_generate(prompt_tokens, attributes, total_gen_len)
         assert self.extend_stride is not None and \

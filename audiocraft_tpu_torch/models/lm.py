@@ -11,7 +11,10 @@ of valid positions. `generate` runs one prefill forward, then one forward
 per pattern step in a Python loop. The KV cache is allocated once at the full sequence length and
 the decode-attention kernel reads only its valid prefix. The loop keeps every
 value it branches on on the host (step offsets, the pattern's index tables),
-so it never waits for the device.
+so it never waits for the device. Classifier-free guidance runs batched (the
+conditional and null rows in one batch) or in two steps (two streams, each
+with its own conditions, cache and forward). `quantize_lm_` puts the model in
+the W8A8 int8 serving mode.
 """
 import dataclasses
 import math
@@ -26,6 +29,7 @@ from ..modules.conditioners import (BaseConditioner,
                                     ConditioningProvider, ConditionType)
 from ..modules.patterns import CodebooksPatternProvider
 from ..modules.transformer import LayerCache, StreamingTransformer
+from ..ops.quant import QTensor, quantize_weight, w8a8_heads
 from ..utils.utils import check_module_device, resolve_device, sample_tokens
 
 ConditionTensors = tp.Dict[str, ConditionType]
@@ -48,6 +52,10 @@ class GenParams:
     top_k: int = 250
     top_p: float = 0.0
     cfg_coef: tp.Optional[float] = None
+    # double CFG; needs the waveform conditions of a melody or style model
+    cfg_coef_beta: tp.Optional[float] = None
+    # None: the model's `two_step_cfg`
+    two_step_cfg: tp.Optional[bool] = None
 
 
 def _combine_cfg_logits(all_logits: torch.Tensor, B: int,
@@ -65,7 +73,8 @@ class LMModel(nn.Module):
                  fuser: ConditionFuser, n_q: int = 8, card: int = 1024,
                  dim: int = 128, num_heads: int = 8, hidden_scale: int = 4,
                  norm_first: bool = False, bias_proj: bool = True,
-                 cfg_coef: float = 1.0, num_layers: int = 8,
+                 cfg_coef: float = 1.0, two_step_cfg: bool = False,
+                 num_layers: int = 8,
                  dropout: float = 0.0,
                  attention_dropout: tp.Optional[float] = None,
                  bias_ff: bool = True, bias_attn: bool = True,
@@ -83,6 +92,7 @@ class LMModel(nn.Module):
         self.num_heads = num_heads
         self.num_layers = num_layers
         self.cfg_coef = cfg_coef
+        self.two_step_cfg = two_step_cfg
         self.cross_attention = cross_attention
         self.condition_provider = ConditioningProvider(conditioners)
         self.emb = nn.ModuleList([nn.Embedding(card + 1, dim, **factory)
@@ -100,6 +110,8 @@ class LMModel(nn.Module):
         self.linears = nn.ModuleList([nn.Linear(dim, card, bias=bias_proj,
                                                 **factory)
                                       for _ in range(n_q)])
+        # the heads' int8 weights [n_q, card, dim] in the W8A8 mode
+        self.heads_q: tp.Optional[QTensor] = None
 
     @property
     def special_token_id(self) -> int:
@@ -157,7 +169,13 @@ class LMModel(nn.Module):
                                caches=caches, dropout_seed=dropout_seed)
         if self.out_norm is not None:
             out = self.out_norm(out)
-        return torch.stack([lin(out) for lin in self.linears], dim=1)
+        if self.heads_q is None:
+            return torch.stack([lin(out) for lin in self.linears], dim=1)
+        logits = w8a8_heads(out, self.heads_q)
+        if self.linears[0].bias is None:
+            return logits
+        bias = torch.stack([lin.bias for lin in self.linears])
+        return logits + bias.to(logits.dtype)[None, :, None, :]
 
     def compute_predictions(self, codes: torch.Tensor,
                             condition_tensors: ConditionTensors,
@@ -177,13 +195,25 @@ class LMModel(nn.Module):
         mask = torch.from_numpy(mask).to(codes.device)[None].expand(B, K, T)
         return LMOutput(logits, mask)
 
-    def prepare_cfg_conditions(self, conditions: tp.List[ConditioningAttributes]
-                               ) -> ConditionTensors:
+    def prepare_cfg_conditions(self, conditions: tp.List[ConditioningAttributes],
+                               two_step: bool = False
+                               ) -> tp.Union[ConditionTensors,
+                                             tp.Tuple[ConditionTensors,
+                                                      ConditionTensors]]:
         """Condition tensors for batched CFG: the conditional rows, then the
-        null rows (every attribute dropped), tokenized together."""
+        null rows (every attribute dropped), tokenized together. With
+        `two_step`, the conditional and the null rows are tokenized
+        separately, each padded to its own length, and returned as a pair.
+        Under cross-attention conditioning the two forms give the same
+        logits: a null row is all padding, whose attention output does not
+        depend on its length, and the conditional rows pad alike."""
         if not conditions:
             return {}
         null_conditions = ClassifierFreeGuidanceDropout(p=1.0)(conditions)
+        if two_step:
+            return tuple(self.compute_conditions(
+                self.condition_provider.tokenize(c))
+                for c in (conditions, null_conditions))
         tokenized = self.condition_provider.tokenize(conditions + null_conditions)
         return self.compute_conditions(tokenized)
 
@@ -197,17 +227,25 @@ class LMModel(nn.Module):
                  device=None) -> torch.Tensor:
         """Autoregressive generation; returns codes [B, K, max_gen_len] with
         the prompt retained. `condition_tensors`, when given, already holds
-        the conditional and the null rows (2B of them). The model must be on
+        the conditional and the null rows (2B of them), or for two-step CFG
+        the pair (conditional, null) of B rows each. The model must be on
         `device` (CUDA unless the caller names another)."""
         device = resolve_device(device)
         check_module_device(self, device)
+        if gen.cfg_coef_beta is not None:
+            raise NotImplementedError(
+                "double CFG (cfg_coef_beta) needs the waveform conditions of a "
+                "melody or style model, which are not ported (ROADMAP, slice C)")
         conditions = list(conditions)
         if num_samples is None:
             num_samples = (prompt.shape[0] if prompt is not None
                            else len(conditions) if conditions else 1)
         cfg_coef = self.cfg_coef if gen.cfg_coef is None else gen.cfg_coef
+        two_step = (self.two_step_cfg if gen.two_step_cfg is None
+                    else gen.two_step_cfg)
         if condition_tensors is None:
-            condition_tensors = self.prepare_cfg_conditions(conditions)
+            condition_tensors = self.prepare_cfg_conditions(conditions,
+                                                            bool(two_step))
 
         K = self.n_q
         if prompt is None:
@@ -229,19 +267,33 @@ class LMModel(nn.Module):
         seq_mask = torch.from_numpy(seq_mask_np).to(device)  # [K, S]
 
         cfg_mult = 2 if condition_tensors else 1
+        # one stream of cfg_mult * B rows, or two streams of B (two-step CFG)
+        if isinstance(condition_tensors, tuple):
+            streams, stream_batch = list(condition_tensors), B
+        else:
+            streams, stream_batch = [condition_tensors], cfg_mult * B
         cache_dtype = cache_dtype or self.emb[0].weight.dtype
-        caches = self.transformer.init_cache(cfg_mult * B, S, cache_dtype,
-                                             device)
-        if self.cross_attention and condition_tensors:
-            cross_src = self.fuser.cross_source(condition_tensors)
-            # cross K/V stay bf16 under an int8 self-attention cache
-            cross_dt = torch.bfloat16 if cache_dtype == torch.int8 else cache_dtype
-            self.transformer.precompute_cross_kv(cross_src.to(cross_dt), caches)
+        caches_list = []
+        for ct in streams:
+            caches = self.transformer.init_cache(stream_batch, S, cache_dtype,
+                                                 device)
+            if self.cross_attention and ct:
+                cross_src = self.fuser.cross_source(ct)
+                # cross K/V stay bf16 under an int8 self-attention cache
+                cross_dt = (torch.bfloat16 if cache_dtype == torch.int8
+                            else cache_dtype)
+                self.transformer.precompute_cross_kv(cross_src.to(cross_dt),
+                                                     caches)
+            caches_list.append(caches)
 
         def step(offset: int, tokens: torch.Tensor):
             """Forward `tokens` [B, K, t], sample step `offset`, write it."""
-            seq_in = torch.cat([tokens] * cfg_mult) if cfg_mult > 1 else tokens
-            logits = self(seq_in, condition_tensors, caches=caches)
+            if len(streams) == 1:
+                seq_in = torch.cat([tokens] * cfg_mult) if cfg_mult > 1 else tokens
+                logits = self(seq_in, streams[0], caches=caches_list[0])
+            else:
+                logits = torch.cat([self(tokens, ct, caches=caches)
+                                    for ct, caches in zip(streams, caches_list)])
             if cfg_mult > 1:
                 logits = _combine_cfg_logits(logits, B, cfg_coef)
             next_token = sample_tokens(
@@ -261,3 +313,32 @@ class LMModel(nn.Module):
         out_codes, _, _ = pattern.revert_pattern_sequence(
             gen_sequence, special_token=unknown)
         return out_codes[..., :max_gen_len]
+
+
+@torch.no_grad()
+def quantize_lm_(lm: LMModel) -> LMModel:
+    """W8A8 int8 serving mode, in place (counterpart of the JAX package's
+    `quantize_lm_params`): the fused qkv `in_proj_weight` of self- and
+    cross-attention, every `out_proj`, `linear1` and `linear2`, and the
+    per-codebook output heads become per-output-channel int8 `QTensor`s
+    consumed by `ops.quant.qdot` / `w8a8_heads`. Embeddings, norms, biases
+    and the conditioners keep their dtype. The quantized weights replace the
+    parameters (they leave `parameters()` and `state_dict()`), so quantize a
+    model after moving it to its device; it then serves inference only."""
+
+    def swap(module: nn.Module, name: str) -> None:
+        qt = quantize_weight(getattr(module, name))
+        delattr(module, name)
+        setattr(module, name, qt)
+
+    for layer in lm.transformer.layers:
+        for attn in (layer.self_attn, layer.cross_attention):
+            if attn is not None:
+                swap(attn, "in_proj_weight")
+                swap(attn.out_proj, "weight")
+        swap(layer.linear1, "weight")
+        swap(layer.linear2, "weight")
+    lm.heads_q = quantize_weight(torch.stack([lin.weight for lin in lm.linears]))
+    for lin in lm.linears:
+        del lin.weight
+    return lm

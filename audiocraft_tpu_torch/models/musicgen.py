@@ -1,5 +1,7 @@
 """MusicGen: text-conditioned music generation (counterpart of
 `audiocraft_tpu/models/musicgen.py`)."""
+import typing as tp
+
 from .genmodel import BaseGenModel
 
 
@@ -15,21 +17,32 @@ class MusicGen(BaseGenModel):
 
     @staticmethod
     def get_pretrained(name: str = "debug", device=None) -> "MusicGen":
-        """The `debug` model (tiny, seeded random weights). Loading upstream
-        checkpoints is not ported yet."""
-        if name != "debug":
+        """The `debug` model or its interleaved-stereo twin `debug-stereo`
+        (tiny, seeded random weights). Loading upstream checkpoints is not
+        ported yet."""
+        if name not in ("debug", "debug-stereo"):
             raise NotImplementedError(
-                f"{name!r}: only the 'debug' model can be built; loading "
-                "upstream MusicGen checkpoints is not ported yet")
+                f"{name!r}: only the 'debug' and 'debug-stereo' models can be "
+                "built; loading upstream MusicGen checkpoints is not ported yet")
         from . import builders
-        return MusicGen(name, builders.get_debug_compression_model(device=device),
-                        builders.get_debug_lm_model(device=device),
-                        max_duration=30, device=device)
+        codec = builders.get_debug_compression_model(device=device)
+        if name == "debug":
+            lm = builders.get_debug_lm_model(device=device)
+        else:
+            codec = builders.get_wrapped_compression_model(
+                codec, {"interleave_stereo_codebooks": {"use": True}})
+            lm = builders.get_debug_stereo_lm_model(device=device)
+        return MusicGen(name, codec, lm, max_duration=30, device=device)
 
     def set_generation_params(self, use_sampling: bool = True, top_k: int = 250,
                               top_p: float = 0.0, temperature: float = 1.0,
                               duration: float = 30.0, cfg_coef: float = 3.0,
+                              cfg_coef_beta: tp.Optional[float] = None,
+                              two_step_cfg: bool = False,
                               extend_stride: float = 18):
+        """Sampling, CFG (`two_step_cfg` runs the conditional and null
+        forwards as two streams) and durations. Double CFG (`cfg_coef_beta`)
+        makes `LMModel.generate` raise: it needs a melody or style model."""
         assert extend_stride < self.max_duration, \
             "Cannot stride by more than max generation duration."
         self.extend_stride = extend_stride
@@ -40,4 +53,6 @@ class MusicGen(BaseGenModel):
             "top_k": top_k,
             "top_p": top_p,
             "cfg_coef": cfg_coef,
+            "cfg_coef_beta": cfg_coef_beta,
+            "two_step_cfg": two_step_cfg,
         }

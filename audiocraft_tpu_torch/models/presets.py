@@ -16,10 +16,12 @@ MODEL_SCALES = {
 
 def musicgen_lm(scale: str = "small", n_q: int = 4, card: int = 2048,
                 conditioners: tp.Optional[tp.Dict[str, BaseConditioner]] = None,
-                use_t5: bool = False, device=None, dtype=None,
-                **overrides) -> LMModel:
-    """MusicGen LM: delay pattern, text conditioning by cross-attention
-    (T5-base, or a lookup table), pre-norm, no biases, CFG coefficient 3."""
+                use_t5: bool = False,
+                delays: tp.Optional[tp.List[int]] = None, device=None,
+                dtype=None, **overrides) -> LMModel:
+    """MusicGen LM: delay pattern (codebook q delayed by `delays[q]`,
+    default q), text conditioning by cross-attention (T5-base, or a lookup
+    table), pre-norm, no biases, CFG coefficient 3."""
     kw = dict(MODEL_SCALES[scale])
     dim = kw["dim"]
     factory = dict(device=device, dtype=dtype)
@@ -36,5 +38,5 @@ def musicgen_lm(scale: str = "small", n_q: int = 4, card: int = 2048,
               norm_first=True, bias_proj=False, bias_ff=False, bias_attn=False,
               cfg_coef=3.0)
     kw.update(overrides)
-    return LMModel(DelayedPatternProvider(n_q=n_q), conditioners, fuser, **kw,
-                   **factory)
+    return LMModel(DelayedPatternProvider(n_q=n_q, delays=delays), conditioners,
+                   fuser, **kw, **factory)

@@ -10,6 +10,11 @@ Full-sequence causal self-attention without a cache (training, evaluation)
 goes through the flash causal-attention kernel
 (`ops/flash_causal_attention.py`) under the JAX package's conditions.
 
+The hot projections (fused qkv, the q-only and k/v-only slices of
+cross-attention, `out_proj`, `linear1`, `linear2`) go through `ops.quant.qdot`,
+so a weight replaced by a `QTensor` (W8A8 serving, `models/lm.py::quantize_lm_`)
+runs the int8 product and a plain weight keeps F.linear's math.
+
 Training mode (`module.train()`) applies residual dropout and
 attention-probs dropout; both are the identity at p = 0. Their masks come
 from a generator seeded per layer from `dropout_seed`, so that a layer
@@ -20,13 +25,13 @@ import typing as tp
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from ..ops.attention import (dot_product_attention, dropout,
                              flash_causal_eligible, make_causal_bias)
 from ..ops.decode_attention import decode_attention
 from ..ops.flash_causal_attention import flash_causal_attention
+from ..ops.quant import qdot
 from .activations import get_activation_fn
 
 MAX_PERIOD = 10000.0
@@ -101,6 +106,14 @@ class KVCache:
         return self.k.to(dtype), self.v.to(dtype)
 
 
+class QLinear(nn.Linear):
+    """`nn.Linear` whose weight may be replaced by a `QTensor` (counterpart
+    of the JAX package's `QDense`); a plain weight keeps nn.Linear's math."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return qdot(x, self.weight, self.bias)
+
+
 @dataclasses.dataclass
 class LayerCache:
     """Per-layer state: self-attention KV cache + precomputed cross K/V."""
@@ -138,7 +151,7 @@ class StreamingMultiheadAttention(nn.Module):
                                                          **factory))
         else:
             self.register_parameter("in_proj_bias", None)
-        self.out_proj = nn.Linear(embed_dim, embed_dim, bias=bias, **factory)
+        self.out_proj = QLinear(embed_dim, embed_dim, bias=bias, **factory)
         bound = 1.0 / embed_dim ** 0.5
         nn.init.uniform_(self.in_proj_weight, -bound, bound)
 
@@ -151,8 +164,8 @@ class StreamingMultiheadAttention(nn.Module):
         """Keys/values only, [B, Tk, H, D] each (cross-attention precompute)."""
         E = self.embed_dim
         bias = None if self.in_proj_bias is None else self.in_proj_bias[E:]
-        kv = F.linear(src.to(self.in_proj_weight.dtype), self.in_proj_weight[E:],
-                      bias)
+        kv = qdot(src.to(self.in_proj_weight.dtype), self.in_proj_weight[E:],
+                  bias)
         k, v = kv.chunk(2, dim=-1)
         return self._split_heads(k), self._split_heads(v)
 
@@ -173,13 +186,13 @@ class StreamingMultiheadAttention(nn.Module):
 
         if self.cross_attention:
             bias = None if self.in_proj_bias is None else self.in_proj_bias[:E]
-            q = self._split_heads(F.linear(query, self.in_proj_weight[:E], bias))
+            q = self._split_heads(qdot(query, self.in_proj_weight[:E], bias))
             k, v = cross_kv if cross_kv is not None else self.project_kv(key)
             # no mask: the null condition of CFG is zeros of length 1
             x = dot_product_attention(q, k, v, **attn)
             return self.out_proj(x.reshape(B, T, E))
 
-        projected = F.linear(query, self.in_proj_weight, self.in_proj_bias)
+        projected = qdot(query, self.in_proj_weight, self.in_proj_bias)
         q, k, v = (self._split_heads(t) for t in projected.chunk(3, dim=-1))
         if cache is None:
             if (self.causal and self.past_context is None
@@ -237,10 +250,10 @@ class StreamingTransformerLayer(nn.Module):
                       attention_as_float32=attention_as_float32, **factory)
         self.self_attn = StreamingMultiheadAttention(
             causal=causal, past_context=past_context, **common)
-        self.linear1 = nn.Linear(d_model, dim_feedforward, bias=bias_ff,
-                                 **factory)
-        self.linear2 = nn.Linear(dim_feedforward, d_model, bias=bias_ff,
-                                 **factory)
+        self.linear1 = QLinear(d_model, dim_feedforward, bias=bias_ff,
+                               **factory)
+        self.linear2 = QLinear(dim_feedforward, d_model, bias=bias_ff,
+                               **factory)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5, **factory)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5, **factory)
         self.cross_attention: tp.Optional[StreamingMultiheadAttention] = None

@@ -20,7 +20,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNELS = ("decode_attention", "flash_causal_attention")
+KERNELS = ("decode_attention", "flash_causal_attention",
+           "int4_decode_attention")
 
 _LOADED: tp.Dict[str, ctypes.CDLL] = {}
 

@@ -16,6 +16,19 @@ class ResidualVectorQuantizer(nn.Module):
         self.bins = bins
         self.vq = ResidualVectorQuantization(n_q, dimension, bins, device)
 
+    @property
+    def total_codebooks(self) -> int:
+        return len(self.vq.layers)
+
+    @property
+    def num_codebooks(self) -> int:
+        return self.n_q
+
+    def set_num_codebooks(self, n: int) -> None:
+        """Use the first `n` codebooks (1 <= n <= total_codebooks)."""
+        assert 0 < n <= self.total_codebooks
+        self.n_q = n
+
     def encode(self, x: torch.Tensor) -> torch.Tensor:
         """x [B, D, T] -> codes [B, K, T] with K = the active n_q."""
         return self.vq.encode(x.transpose(1, 2), self.n_q)

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from ..models.encodec import InterleaveStereoCompressionModel
 from ..modules.conditioners import LUTConditioner, T5Conditioner
 from ..modules.conv import StreamableConv1d, StreamableConvTranspose1d
 from ..modules.lstm import StreamableLSTM
@@ -202,7 +203,10 @@ def load_seanet(model: nn.Module, params: Tree, decoder: bool) -> None:
 
 def load_encodec(model: nn.Module, variables: Tree) -> None:
     """JAX EnCodec variables ({'params': {'encoder', 'decoder'},
-    'quantizer': RVQ state}) -> a port `EncodecModel`."""
+    'quantizer': RVQ state}) -> a port `EncodecModel`, or the mono model
+    inside an `InterleaveStereoCompressionModel`."""
+    if isinstance(model, InterleaveStereoCompressionModel):
+        model = model.model
     p = variables["params"]
     out: dict = {}
     _seanet(p["encoder"], model.encoder.model, "encoder.", False, out)

@@ -23,7 +23,24 @@ Phases, each printing one JSON line:
            f32 parameters, bf16 autocast, AdamW) takes 5 steps on 16 x 30 s
            of seeded audio encoded by the full-width EnCodec; checks finite
            and falling CE and that every self-attention forward and backward
-           launched K2.
+           launched K2;
+  int4_kernel_check / int4_kernel_timing  hold the int4-KV decode attention
+           K3 against its plain version (B 1, 4, 512; D 64, 128; S 504, 512;
+           lengths 1, 33, 384, S; with and without a window of 7), then time
+           it at scripts/pallas_int4_decode.py's shape (B 512, H 16, S 512,
+           D 64) beside its plain version and K1 over the int8 and the bf16
+           cache of the same K/V;
+  int4_path  the path of scripts/torch_int4_decode.py (the counterpart of
+           the JAX script's main): pack, attend, errors against f32
+           attention, and a decode loop through K3; checks the launches;
+  variants full-width MusicGen-small serving variants (bf16, seeded random
+           weights, 5 s per text): W8A8 int8 weights (1 text, then 2; logit
+           drift of one forward against bf16), two-step CFG, continuation of
+           2 s of 44.1 kHz stereo audio, and musicgen-stereo-small (8
+           interleaved codebooks); first holds K1 against its plain version
+           at these runs' shapes (B 2 and 4, the 5 s cache of 254 slots);
+           checks shapes, finiteness, code range and that every
+           decode-attention step launched K1.
 Then the `{"kernels": [...]}` summary, and last `{"ok": true, "device": ...}`.
 Any failed check raises, so the script exits non-zero without the last line.
 It needs no network and imports nothing of JAX.
@@ -44,41 +61,16 @@ BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor cores, published
 TRAIN_BATCH = 16
 TRAIN_SECONDS = 30
 TRAIN_STEPS = 5
-SPIN_CYCLES = 2_000_000     # about 1 ms at the H100's clock
 TEXTS = ["90s rock song with loud guitars and heavy drums",
          "calm lo-fi piano with soft rain in the background"]
+VARIANT_SECONDS = 5         # audio seconds per text in the variants phase
+PROMPT_SECONDS = 2          # of 44.1 kHz stereo audio, to continue
+INT4_SHAPE = dict(B=512, H=16, S=512, D=64)  # scripts/pallas_int4_decode.py
+INT4_STEPS = 100            # decode-loop steps of the int4 path
 
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
-
-
-def _time_ms(fn, n: int = 50, flush_bytes: int = 0) -> float:
-    """Median device milliseconds of `fn()` over n warm calls, each timed
-    with its own CUDA events. Before each call a buffer larger than L2 is
-    rewritten (with `flush_bytes`), so the inputs come from HBM as in the
-    decode loop, where the other layers' traffic evicts them; then the
-    device spins for about a millisecond, so that the events and `fn`'s
-    kernels are all queued before the device reaches them and the interval
-    holds device work only, not the host's launch latency."""
-    import torch
-    flush = (torch.empty(flush_bytes, dtype=torch.uint8, device="cuda")
-             if flush_bytes else None)
-    for _ in range(5):
-        fn()
-    times = []
-    for _ in range(n):
-        if flush is not None:
-            flush.zero_()
-        torch.cuda._sleep(SPIN_CYCLES)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return sorted(times)[n // 2]
 
 
 def phase_device(torch):
@@ -138,39 +130,56 @@ def _kernel_bytes_and_ops(B, H, D, length, kind, q_dtype_bytes):
     return bytes_, ops
 
 
-def phase_kernels(torch, S):
-    """K1 vs its plain version at the path's shapes, then timings."""
-    import torch.nn.functional as F
+K1_TOL = {"float32": 1e-4, "bfloat16": 2e-2, "int8": 2e-2}
+
+
+def check_decode_attention(torch, batches, S, path, seed=0):
+    """K1 vs its plain version at a path's batches and cache length S, over
+    f32, bf16 and int8 caches; lengths 1, 37, S - 1, S and a window of 64.
+    Emits one `kernel_check` line and returns the worst error per cache."""
     from audiocraft_tpu_torch.ops.decode_attention import (
         decode_attention, decode_attention_reference)
     H, D = 16, 64
-    g = torch.Generator("cuda").manual_seed(0)
-    tol = {"float32": 1e-4, "bfloat16": 2e-2, "int8": 2e-2}
+    g = torch.Generator("cuda").manual_seed(seed)
+    window_length = min(300, S - 4)
     worst = {}
     checks = 0
-    for B in (4, 8, 32, 64):
+    for B in batches:
         for kind in ("float32", "bfloat16", "int8"):
             q_dtype = torch.float32 if kind == "float32" else torch.bfloat16
             q = torch.randn(B, H, D, device="cuda", generator=g).to(q_dtype)
             k, v, scales = _cache(torch, B, S, H, D, kind, g)
             for length, window in ((1, None), (37, None), (S - 1, None),
-                                   (S, None), (300, 64)):
+                                   (S, None), (window_length, 64)):
                 out = decode_attention(q, k, v, length, past_context=window,
                                        **scales)
                 torch.cuda.synchronize()
                 ref = decode_attention_reference(q, k, v, length,
                                                  past_context=window, **scales)
                 err = (out.float() - ref.float()).abs().max().item()
-                if not err <= tol[kind]:
+                if not err <= K1_TOL[kind]:
                     raise AssertionError(
-                        f"decode_attention B={B} {kind} length={length} "
-                        f"window={window}: max abs err {err} > {tol[kind]}")
+                        f"decode_attention {path} B={B} S={S} {kind} "
+                        f"length={length} window={window}: max abs err {err} "
+                        f"> {K1_TOL[kind]}")
                 worst[kind] = max(worst.get(kind, 0.0), err)
                 checks += 1
-    emit("kernel_check", kernel="decode_attention", checks=checks,
-         shapes=dict(B=[4, 8, 32, 64], S=S, H=H, D=D,
-                     lengths=[1, 37, S - 1, S], window=[300, 64]),
-         max_abs_err=worst, tolerance=tol)
+    emit("kernel_check", kernel="decode_attention", path=path, checks=checks,
+         shapes=dict(B=list(batches), S=S, H=H, D=D,
+                     lengths=[1, 37, S - 1, S], window=[window_length, 64]),
+         max_abs_err=worst, tolerance=K1_TOL)
+    return worst
+
+
+def phase_kernels(torch, S):
+    """K1 vs its plain version at the slice path's shapes, then timings."""
+    import torch.nn.functional as F
+    from audiocraft_tpu_torch.ops.decode_attention import (
+        decode_attention, decode_attention_reference)
+    from audiocraft_tpu_torch.utils.timing import time_ms
+    H, D = 16, 64
+    worst = check_decode_attention(torch, (4, 8, 32, 64), S, "slice")
+    g = torch.Generator("cuda").manual_seed(0)
 
     timings = []
     for B, kind, length in ((32, "int8", S), (4, "bfloat16", S),
@@ -178,9 +187,9 @@ def phase_kernels(torch, S):
         q = torch.randn(B, H, D, device="cuda", generator=g).to(torch.bfloat16)
         k, v, scales = _cache(torch, B, S, H, D, kind, g)
         flush = 128 << 20  # > 50 MB of L2
-        ms = _time_ms(lambda: decode_attention(q, k, v, length, **scales),
+        ms = time_ms(lambda: decode_attention(q, k, v, length, **scales),
                       flush_bytes=flush)
-        plain_ms = _time_ms(lambda: decode_attention_reference(
+        plain_ms = time_ms(lambda: decode_attention_reference(
             q, k, v, length, **scales), flush_bytes=flush)
         if scales:
             kd = (k.float() * scales["k_scale"][..., None].float()).to(torch.bfloat16)
@@ -190,7 +199,7 @@ def phase_kernels(torch, S):
         ql = q[:, :, None]                               # [B, H, 1, D]
         kl = kd[:, :length].transpose(1, 2).contiguous()  # [B, H, len, D]
         vl = vd[:, :length].transpose(1, 2).contiguous()
-        library_ms = _time_ms(lambda: F.scaled_dot_product_attention(ql, kl, vl),
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(ql, kl, vl),
                               flush_bytes=flush)
         nbytes, ops = _kernel_bytes_and_ops(B, H, D, length, kind, 2)
         bound = max(nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS) * 1e3
@@ -232,6 +241,7 @@ def phase_flash_kernels(torch):
     from audiocraft_tpu_torch.ops.flash_causal_attention import (
         _backward, _forward, flash_causal_attention,
         flash_causal_attention_reference)
+    from audiocraft_tpu_torch.utils.timing import time_ms
     H = 16
     g = torch.Generator("cuda").manual_seed(1)
     tol = {"float32": {"out": 1e-5, "grad": 1e-4},
@@ -282,23 +292,23 @@ def phase_flash_kernels(torch):
     q, k, v = (t.detach() for t in (q, k, v))
     dout = torch.randn(B, T, H, D, device="cuda", generator=g).to(torch.bfloat16)
     out, lse = _forward(q, k, v)
-    ms = _time_ms(lambda: _forward(q, k, v), flush_bytes=flush)
-    bwd_ms = _time_ms(lambda: _backward(q, k, v, out, lse, dout),
+    ms = time_ms(lambda: _forward(q, k, v), flush_bytes=flush)
+    bwd_ms = time_ms(lambda: _backward(q, k, v, out, lse, dout),
                       flush_bytes=flush)
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
-    plain_ms = _time_ms(lambda: flash_causal_attention_reference(*leaves),
+    plain_ms = time_ms(lambda: flash_causal_attention_reference(*leaves),
                         flush_bytes=flush)
     ref = flash_causal_attention_reference(*leaves)
-    plain_bwd_ms = _time_ms(lambda: torch.autograd.grad(
+    plain_bwd_ms = time_ms(lambda: torch.autograd.grad(
         ref, leaves, dout, retain_graph=True), flush_bytes=flush)
     del ref
     heads = [t.transpose(1, 2).contiguous().requires_grad_(True)
              for t in (q, k, v)]
     dout_h = dout.transpose(1, 2).contiguous()
-    library_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
         *heads, is_causal=True), flush_bytes=flush)
     lib = F.scaled_dot_product_attention(*heads, is_causal=True)
-    library_bwd_ms = _time_ms(lambda: torch.autograd.grad(
+    library_bwd_ms = time_ms(lambda: torch.autograd.grad(
         lib, heads, dout_h, retain_graph=True), flush_bytes=flush)
     del lib
     timing = {}
@@ -582,6 +592,266 @@ def phase_train(torch, card):
     return launches
 
 
+def _int4_bytes_and_ops(B, H, D, length):
+    """HBM bytes (the valid window of the packed K and V, their bf16 scales,
+    q and out, each once) and f32 operations (q.k and p.v multiply-adds and
+    the nibble decodes) of one int4 decode-attention call, bf16 q."""
+    n = B * length * H
+    bytes_ = 2 * n * D // 2 + 2 * n * 2 * 2 + 2 * B * H * D * 2
+    return bytes_, 6 * n * D
+
+
+def phase_int4_kernels(torch):
+    """K3 vs its plain version on seeded bf16 K/V packed by quant_pack_kv,
+    then timings at the JAX script's shape."""
+    from audiocraft_tpu_torch.modules.transformer import KVCache
+    from audiocraft_tpu_torch.ops.decode_attention import decode_attention
+    from audiocraft_tpu_torch.ops.int4_decode_attention import (
+        int4_decode_attention, int4_decode_attention_reference, quant_pack_kv)
+    from audiocraft_tpu_torch.utils.timing import time_ms
+    H, tol = 16, 1e-2
+    g = torch.Generator("cuda").manual_seed(4)
+    worst, checks = 0.0, 0
+    for B in (1, 4, 512):
+        for D in (64, 128):
+            for S in (504, 512):
+                k, v = (torch.randn(B, S, H, D, device="cuda", generator=g)
+                        .to(torch.bfloat16) for _ in range(2))
+                q = torch.randn(B, H, D, device="cuda",
+                                generator=g).to(torch.bfloat16)
+                packed = quant_pack_kv(k, v)
+                for length in (1, 33, 384, S):
+                    for window in (None, 7):
+                        out = int4_decode_attention(q, *packed, length, window)
+                        torch.cuda.synchronize()
+                        ref = int4_decode_attention_reference(
+                            q, *packed, length, window).float()
+                        err = (out.float() - ref).abs()
+                        if not bool((err <= tol * ref.abs().clamp_min(1.0)).all()):
+                            raise AssertionError(
+                                f"int4_decode_attention B={B} D={D} S={S} "
+                                f"length={length} window={window}: max abs "
+                                f"err {err.max().item()} beyond "
+                                f"{tol} * max(1, |plain|)")
+                        worst = max(worst, err.max().item())
+                        checks += 1
+                del k, v, packed
+    emit("int4_kernel_check", kernel="int4_decode_attention", checks=checks,
+         shapes=dict(B=[1, 4, 512], H=H, D=[64, 128], S=[504, 512],
+                     lengths=[1, 33, 384, "S"], window=[None, 7]),
+         inputs="seeded bf16 K/V packed by quant_pack_kv, bf16 q",
+         max_abs_err=worst, tolerance="|err| <= 1e-2 * max(1, |plain|)")
+
+    B, S, D = INT4_SHAPE["B"], INT4_SHAPE["S"], INT4_SHAPE["D"]
+    flush = 128 << 20
+    k, v = (torch.randn(B, S, H, D, device="cuda", generator=g)
+            .to(torch.bfloat16) for _ in range(2))
+    q = torch.randn(B, H, D, device="cuda", generator=g).to(torch.bfloat16)
+    packed = quant_pack_kv(k, v)
+    (k8, ks8), (v8, vs8) = KVCache._quantize(k), KVCache._quantize(v)
+    timings = []
+    for length in (S - S // 4, S):
+        ms = time_ms(lambda: int4_decode_attention(q, *packed, length),
+                      flush_bytes=flush)
+        plain_ms = time_ms(lambda: int4_decode_attention_reference(
+            q, *packed, length), flush_bytes=flush)
+        k1_int8_ms = time_ms(lambda: decode_attention(
+            q, k8, v8, length, k_scale=ks8, v_scale=vs8), flush_bytes=flush)
+        k1_bf16_ms = time_ms(lambda: decode_attention(q, k, v, length),
+                              flush_bytes=flush)
+        nbytes, ops = _int4_bytes_and_ops(B, H, D, length)
+        bound = max(nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS) * 1e3
+        timings.append(dict(
+            B=B, S=S, H=H, D=D, length=length, ms=ms, plain_ms=plain_ms,
+            bound_ms=bound, bound_by="bytes" if nbytes / HBM_BYTES_PER_S
+            >= ops / F32_FLOPS else "operations", roofline_share=bound / ms,
+            bytes=nbytes, effective_gb_per_s=nbytes / ms / 1e6,
+            library_ms=None, k1_int8_ms=k1_int8_ms, k1_bf16_ms=k1_bf16_ms))
+    emit("int4_kernel_timing", kernel="int4_decode_attention", l2_flushed=True,
+         statistic="median of 50 calls",
+         library="none: no single PyTorch call attends over an int4 cache; "
+                 "yardsticks: K1 (decode_attention) over the int8 and the "
+                 "bf16 cache of the same K/V", timings=timings)
+    return worst, timings
+
+
+def phase_int4_path(torch, card):
+    """scripts/torch_int4_decode.py's path at its shape: pack, attend through
+    K3 (and K1 over the int8 and bf16 caches), errors against f32 attention,
+    then INT4_STEPS decode steps through K3 feeding each output back."""
+    import importlib.util
+    from audiocraft_tpu_torch.ops.int4_decode_attention import \
+        int4_decode_attention
+    path = Path(__file__).resolve().parent / "scripts" / "torch_int4_decode.py"
+    spec = importlib.util.spec_from_file_location("torch_int4_decode", path)
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    shape = [INT4_SHAPE[k] for k in "BHSD"]
+    int4_decode_attention.launches = 0
+    q, k, v = script.make_inputs(torch, *shape, "cuda", seed=0)
+    paths = script.caches(torch, q, k, v)
+    errors = script.relative_errors(torch, q, k, v, paths)
+    t = time.perf_counter()
+    final = script.decode_loop(torch, paths["int4-k3"][0], q, INT4_STEPS)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t
+    launches = int4_decode_attention.launches
+    if launches != INT4_STEPS + 1:
+        raise AssertionError(f"int4_decode_attention launched {launches} "
+                             f"times, expected {INT4_STEPS + 1}")
+    if not bool(torch.isfinite(final).all()):
+        raise AssertionError("non-finite output of the int4 decode loop")
+    if not (0.02 < errors["int4-k3"] < 0.35 and errors["int8-k1"] < 0.03):
+        raise AssertionError(f"errors against f32 attention out of range: "
+                             f"{errors}")
+    emit("int4_path", script="scripts/torch_int4_decode.py", card=card,
+         shape=INT4_SHAPE, length=script.valid_length(INT4_SHAPE["S"]),
+         rel_err_vs_f32=errors, decode_steps=INT4_STEPS,
+         decode_loop_wall_ms_per_step=loop_s * 1e3 / INT4_STEPS,
+         int4_decode_attention_launches=launches)
+    return launches
+
+
+def _k1_launches(lm, frames: int, prompt_frames: int = 0,
+                 streams: int = 1) -> int:
+    """Decode-attention launches of one generate: one per layer and stream
+    for every single-step forward (the prefill is one only without a
+    prompt)."""
+    pattern = lm.pattern_provider.get_pattern(frames)
+    start = pattern.get_first_step_with_timesteps(prompt_frames)
+    single = len(pattern.layout) - 1 - start + (1 if start == 1 else 0)
+    return lm.num_layers * single * streams
+
+
+def _check_generation(torch, name, wav, tokens, shape, n_q, frames, launches,
+                      expected):
+    if tuple(wav.shape) != shape:
+        raise AssertionError(f"{name}: waveform shape {tuple(wav.shape)}, "
+                             f"expected {shape}")
+    if not bool(torch.isfinite(wav).all()):
+        raise AssertionError(f"{name}: non-finite waveform")
+    if tuple(tokens.shape) != (shape[0], n_q, frames):
+        raise AssertionError(f"{name}: codes shape {tuple(tokens.shape)}")
+    if not (int(tokens.min()) >= 0 and int(tokens.max()) < 2048):
+        raise AssertionError(f"{name}: codes outside [0, 2048)")
+    if launches != expected:
+        raise AssertionError(f"{name}: decode_attention launched {launches} "
+                             f"times, expected {expected}")
+
+
+def phase_variants(torch, card):
+    """MusicGen-small serving variants at full width, through the entry
+    points a user calls."""
+    from audiocraft_tpu_torch.data.audio_utils import convert_audio
+    from audiocraft_tpu_torch.models import MusicGen, builders
+    from audiocraft_tpu_torch.models.lm import quantize_lm_
+    from audiocraft_tpu_torch.modules.patterns import DelayedPatternProvider
+    from audiocraft_tpu_torch.ops.decode_attention import decode_attention
+    frames = int(VARIANT_SECONDS * TOKENS_PER_SECOND)
+    samples = frames * 640
+    uneven = [TEXTS[0], "calm piano"]  # 9 and 2 words
+    # K1 at these runs' shapes: batch 2 (one text with CFG, or one stream of
+    # two-step CFG) and 4 (two texts with CFG), over the cache of each pattern
+    k1_worst = {}
+    for S in sorted({len(provider.get_pattern(frames).layout) for provider in (
+            DelayedPatternProvider(4),
+            DelayedPatternProvider(8, delays=builders.STEREO_SMALL_DELAYS))}):
+        for kind, err in check_decode_attention(torch, (2, 4), S,
+                                                "variants").items():
+            k1_worst[kind] = max(k1_worst.get(kind, 0.0), err)
+    lm = builders.get_musicgen_small_lm(device="cuda", dtype=torch.bfloat16,
+                                        seed=0)
+    codec = builders.get_encodec_32khz(device="cuda", dtype=torch.bfloat16,
+                                       seed=1)
+    mg = MusicGen("musicgen-small (random weights)", codec, lm, device="cuda")
+    mg.set_seed(0)
+    runs = {}
+
+    def run(name, texts, *, n_q=4, channels=1, prompt=None, streams=1,
+            prompt_frames=0):
+        decode_attention.launches = 0
+        t = time.perf_counter()
+        if prompt is None:
+            wav, tokens = mg.generate(texts, return_tokens=True)
+        else:
+            wav, tokens = mg.generate_continuation(prompt, 44100, texts,
+                                                   return_tokens=True)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        launches = decode_attention.launches
+        expected = _k1_launches(mg.lm, frames, prompt_frames, streams)
+        _check_generation(torch, name, wav, tokens,
+                          (len(texts), channels, samples), n_q, frames,
+                          launches, expected)
+        runs[name] = dict(texts=len(texts), request_s=seconds,
+                          audio_s_per_s=len(texts) * VARIANT_SECONDS / seconds,
+                          decode_attention_launches=launches)
+        return wav, tokens
+
+    mg.set_generation_params(duration=VARIANT_SECONDS)
+    for i in range(2):
+        run(f"bf16_b1_{i}", TEXTS[:1])
+
+    mg.set_generation_params(duration=VARIANT_SECONDS, two_step_cfg=True)
+    run("two_step_cfg", uneven, streams=2)
+    cond, null = mg.lm.prepare_cfg_conditions(mg._prepare_tokens_and_attributes(
+        uneven, None)[0], two_step=True)
+    cond_len = cond["description"][0].shape[1]
+    null_len = null["description"][0].shape[1]
+
+    mg.set_generation_params(duration=VARIANT_SECONDS)
+    prompt = _seeded_music(torch, 4, PROMPT_SECONDS,
+                           sample_rate=44100).reshape(2, 2, -1)
+    prompt_frames = int(PROMPT_SECONDS * TOKENS_PER_SECOND)
+    _, tokens = run("continuation", TEXTS, prompt=prompt,
+                    prompt_frames=prompt_frames)
+    prompt_codes, _ = mg.compression_model.encode(
+        convert_audio(prompt, 44100, 32000, 1), device="cuda")
+    if tuple(prompt_codes.shape) != (2, 4, prompt_frames) or not torch.equal(
+            tokens[..., :prompt_frames], prompt_codes):
+        raise AssertionError("continuation: the prompt's codes are not kept")
+
+    # W8A8: one forward against bf16 on the same weights, then quantized
+    seq = torch.randint(0, 2048, (1, 4, 32), device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(5))
+    ct = mg.lm.compute_conditions(mg.lm.condition_provider.tokenize(
+        mg._prepare_tokens_and_attributes(TEXTS[:1], None)[0]))
+    with torch.no_grad():
+        ref = mg.lm(seq, ct).float()
+        quantize_lm_(mg.lm)
+        out = mg.lm(seq, ct).float()
+    drift = ((out - ref).abs().max() / ref.std()).item()
+    corr = torch.corrcoef(torch.stack([ref.flatten(), out.flatten()]))[0, 1].item()
+    if not (math.isfinite(drift) and corr > 0.9):
+        raise AssertionError(f"W8A8 logits drift {drift}, correlation {corr}")
+    for i in range(2):
+        run(f"w8a8_b1_{i}", TEXTS[:1])
+    run("w8a8_b2", TEXTS)
+    del mg, lm, codec, ref, out
+    torch.cuda.empty_cache()
+
+    stereo_lm = builders.get_musicgen_stereo_small_lm(
+        device="cuda", dtype=torch.bfloat16, seed=0)
+    stereo_codec = builders.get_wrapped_compression_model(
+        builders.get_encodec_32khz(device="cuda", dtype=torch.bfloat16, seed=1),
+        {"interleave_stereo_codebooks": {"use": True, "per_timestep": False}})
+    mg = MusicGen("musicgen-stereo-small (random weights)", stereo_codec,
+                  stereo_lm, device="cuda")
+    mg.set_seed(0)
+    mg.set_generation_params(duration=VARIANT_SECONDS)
+    run("stereo", TEXTS, n_q=8, channels=2)
+    emit("variants", model="musicgen-small and musicgen-stereo-small (T5-base, "
+         "24-layer LM, EnCodec 32 kHz; seeded random weights, bf16; sampling, "
+         "top-k 250, cfg 3)", card=card, audio_s_per_text=VARIANT_SECONDS,
+         runs=runs, w8a8_logit_drift_over_std=drift,
+         w8a8_logit_correlation=corr,
+         two_step_condition_lengths=dict(cond=cond_len, null=null_len),
+         continuation_prompt="2 s of seeded stereo audio at 44.1 kHz, "
+                             "converted to 32 kHz mono",
+         stereo_delays=builders.STEREO_SMALL_DELAYS)
+    return k1_worst
+
+
 def main() -> int:
     root = Path(__file__).resolve().parent
     if not (root / "audiocraft_tpu_torch" / "csrc").is_dir():
@@ -602,14 +872,19 @@ def main() -> int:
     phase_reference_train(torch)
     launches = phase_slice(torch, card)
     train_launches = phase_train(torch, card)
+    int4_worst, int4_timings = phase_int4_kernels(torch)
+    int4_launches = phase_int4_path(torch, card)
+    variants_worst = phase_variants(torch, card)
 
     main_t = timings[0]
+    k1_err = max(list(worst.values()) + list(variants_worst.values()))
     fwd, bwd = flash_timing["forward"], flash_timing["backward"]
+    int4_t = int4_timings[0]  # the JAX script's length, S - S // 4
     print(json.dumps({"kernels": [{
         "name": "decode_attention", "route": "cuda",
         "source": "audiocraft_tpu_torch/csrc/decode_attention.cu",
         "replaces": "audiocraft_tpu/ops/flash_attention.py:94",
-        "launches": launches, "max_abs_err": max(worst.values()),
+        "launches": launches, "max_abs_err": k1_err,
         "ms": main_t["ms"], "plain_ms": main_t["plain_ms"],
         "bound_ms": main_t["bound_ms"], "bound_by": main_t["bound_by"],
         "library_ms": main_t["library_ms"],
@@ -628,7 +903,17 @@ def main() -> int:
         "backward_bound_by": bwd["bound_by"],
         "backward_library_ms": bwd["library_ms"],
         "shape": {"B": 16, "T": 1500, "H": 16, "D": 64,
-                  "dtype": "bfloat16"}}]}), flush=True)
+                  "dtype": "bfloat16"}}, {
+        "name": "int4_decode_attention", "route": "cuda",
+        "source": "audiocraft_tpu_torch/csrc/int4_decode_attention.cu",
+        "replaces": "scripts/pallas_int4_decode.py:190",
+        "launches": int4_launches, "max_abs_err": int4_worst,
+        "ms": int4_t["ms"], "plain_ms": int4_t["plain_ms"],
+        "bound_ms": int4_t["bound_ms"], "bound_by": int4_t["bound_by"],
+        "library_ms": None, "k1_int8_ms": int4_t["k1_int8_ms"],
+        "k1_bf16_ms": int4_t["k1_bf16_ms"],
+        "shape": {k: int4_t[k] for k in ("B", "S", "H", "D", "length")}}]}),
+        flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,20 +8,26 @@ installed:
 Tolerances: decode attention, f32 caches 1e-4, bf16 and int8 caches 2e-2
 (bf16 output rounding of values of order 1); causal flash attention against
 its plain version in f32 on the same inputs, |err| <= tol * (1 + |plain|)
-with tol 1e-5 (f32 output), 1e-4 (f32 gradients) and 2e-2 (bf16)."""
+with tol 1e-5 (f32 output), 1e-4 (f32 gradients) and 2e-2 (bf16); int4
+decode attention against its plain version, |err| <= 1e-2 * max(1, |plain|)
+(sums in another order can move a bf16-rounded weight by one ulp); the int8
+product's int32 sums exactly; greedy tokens equal."""
 import pytest
 import torch
 
 from audiocraft_tpu_torch.models import MusicGen, builders
-from audiocraft_tpu_torch.models.lm import GenParams
+from audiocraft_tpu_torch.models.lm import GenParams, quantize_lm_
 from audiocraft_tpu_torch.models.presets import musicgen_lm
 from audiocraft_tpu_torch.modules import transformer
 from audiocraft_tpu_torch.modules.conditioners import (ConditioningAttributes,
                                                        LUTConditioner)
 from audiocraft_tpu_torch.ops.decode_attention import (
     decode_attention, decode_attention_reference)
+from audiocraft_tpu_torch.ops import quant
 from audiocraft_tpu_torch.ops.flash_causal_attention import (
     flash_causal_attention, flash_causal_attention_reference)
+from audiocraft_tpu_torch.ops.int4_decode_attention import (
+    int4_decode_attention, int4_decode_attention_reference, quant_pack_kv)
 from audiocraft_tpu_torch.solvers.builders import get_optimizer
 from audiocraft_tpu_torch.solvers.musicgen import train_step
 
@@ -177,3 +183,90 @@ def test_bf16_train_step_on_card_runs_the_kernel_on_bf16(monkeypatch):
     assert flash_causal_attention.launches - before[0] == 6
     assert flash_causal_attention.backward_launches - before[1] == 6
     assert all(torch.isfinite(torch.tensor(ces))) and ces[-1] < ces[0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("S", [41, 77, 504])
+def test_int4_kernel_matches_reference(q_dtype, D, S):
+    """K3 against its plain version; S = 41 and 77 take the byte-wide V
+    loads (S % 4 != 0), 504 the 4-byte ones."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    g = torch.Generator("cuda").manual_seed(0)
+    B, H = 3, 5
+    k, v = (torch.randn(B, S, H, D, device="cuda", generator=g).bfloat16()
+            for _ in range(2))
+    q = torch.randn(B, H, D, device="cuda", generator=g).to(
+        getattr(torch, q_dtype))
+    packed = quant_pack_kv(k, v)
+    for length, window in [(1, None), (33, None), (S, None), (S, 7), (30, 0)]:
+        before = int4_decode_attention.launches
+        out = int4_decode_attention(q, *packed, length, window)
+        torch.cuda.synchronize()
+        assert int4_decode_attention.launches == before + 1
+        ref = int4_decode_attention_reference(q, *packed, length,
+                                              window).float()
+        assert out.dtype == q.dtype
+        err = (out.float() - ref).abs()
+        assert bool((err <= 1e-2 * ref.abs().clamp_min(1.0)).all()), \
+            (length, window, err.max().item())
+
+
+@pytest.mark.gpu
+def test_int4_kernel_rejects_what_it_cannot_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    k = torch.randn(1, 8, 2, 16, device="cuda").bfloat16()
+    q = torch.randn(1, 2, 16, device="cuda").bfloat16()
+    with pytest.raises(ValueError, match="head dims"):
+        int4_decode_attention(q, *quant_pack_kv(k, k), 4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [1, 2, 17, 64])
+def test_w8a8_dot_on_card_equals_cpu_int32_sums(M):
+    """The card's int8 product (rows padded to 17 below that) gives the
+    CPU's int32 sums bit for bit, and the same rescaled output."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    g = torch.Generator().manual_seed(M)
+    x = torch.randn(M, 1024, generator=g)
+    w = torch.randn(3072, 1024, generator=g) * 0.05
+    qt = quant.quantize_weight(w)
+    xq, _ = quant.quantize_acts(x)
+    cpu = quant.int_mm(xq, qt.w.t())
+    card = quant.int_mm(xq.cuda(), qt.w.cuda().t()).cpu()
+    assert card.shape == (M, 3072) and torch.equal(card, cpu)
+    qt_cuda = quant.QTensor(qt.w.cuda(), qt.scale.cuda(), qt.dtype)
+    torch.testing.assert_close(quant.w8a8_dot(x.cuda(), qt_cuda).cpu(),
+                               quant.w8a8_dot(x, qt), rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["two_step", "w8a8"])
+def test_serving_variant_tokens_on_card_match_cpu(mode):
+    """f32 debug model, greedy: two-step CFG and W8A8 give the CPU's tokens
+    on the card, where every single-step forward launches K1 per stream."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cpu = builders.get_debug_lm_model(device="cpu")
+    gpu = builders.get_debug_lm_model(device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    if mode == "w8a8":
+        quantize_lm_(cpu)
+        quantize_lm_(gpu)
+    gen = GenParams(use_sampling=False, two_step_cfg=mode == "two_step")
+    attrs = [ConditioningAttributes(text={"description": t}) for t in TEXTS]
+    kw = dict(conditions=attrs, max_gen_len=16, gen=gen)
+    a = cpu.generate(device="cpu", **kw)
+    before = decode_attention.launches
+    b = gpu.generate(device="cuda", **kw).cpu()
+    S = len(gpu.pattern_provider.get_pattern(16).layout)
+    streams = 2 if mode == "two_step" else 1
+    assert decode_attention.launches - before == \
+        gpu.num_layers * (S - 1) * streams
+    assert torch.equal(a, b)

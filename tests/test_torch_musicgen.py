@@ -79,26 +79,33 @@ def test_entry_points_without_device_raise_when_no_card(entry, monkeypatch):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Every module of the port (and chip_smoke.py) imports with `jax` and
-    `audiocraft_tpu` blocked, and no source names them in an import."""
+    """Every module of the port, chip_smoke.py and the port's scripts
+    (`scripts/torch_*.py`) import with `jax` and `audiocraft_tpu` blocked,
+    and no source names them in an import."""
     modules = sorted(
         ".".join(p.relative_to(ROOT).with_suffix("").parts)
         for p in PORT.rglob("*.py") if p.name != "__init__.py") + [
         "audiocraft_tpu_torch"]
+    scripts = sorted(str(p) for p in (ROOT / "scripts").glob("torch_*.py"))
+    assert any(p.endswith("torch_int4_decode.py") for p in scripts)
     script = (
-        "import sys, importlib\n"
+        "import sys, importlib, importlib.util\n"
         "for name in ('jax', 'jaxlib', 'flax', 'audiocraft_tpu'):\n"
         "    sys.modules[name] = None\n"
         f"for m in {modules!r}:\n"
         "    importlib.import_module(m)\n"
         "import chip_smoke\n"
+        f"for i, path in enumerate({scripts!r}):\n"
+        "    spec = importlib.util.spec_from_file_location(f's{i}', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "print('IMPORTS_OK')\n")
     proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert "IMPORTS_OK" in proc.stdout, proc.stderr[-3000:]
     pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|audiocraft_tpu)\b"
                          r"(?!_torch)", re.M)
-    for path in list(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]:
+    for path in (list(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+                 + [Path(p) for p in scripts]):
         assert not pattern.search(path.read_text()), path
 
 
