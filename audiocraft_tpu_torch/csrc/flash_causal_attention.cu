@@ -8,36 +8,51 @@
 //
 // Scores, the softmax and every product's accumulator are f32; the output is written in q's
 // dtype. The backward is three kernels: a pre-pass delta = rowsum(dO * O), a dK/dV kernel (one
-// block per key tile, looping over the query tiles from the diagonal down) and a dQ kernel
-// (one block per query tile, looping over the key tiles up to the diagonal). No T x T tensor
-// is written to device memory, and no float atomics are used, so the backward is
-// deterministic.
+// block per key tile, walking the query tiles from the diagonal down) and a dQ kernel (one
+// block per query tile, walking the key tiles up to the diagonal). dQ has its own pass rather
+// than float atomics, so the backward is deterministic: the same inputs give bit-identical
+// dq, dk, dv. No T x T tensor is written to device memory.
 //
 // What bounds it: tensor-core operations. At the training shape (B=16, T=1501, H=16, D=64,
 // bf16) the forward does 4 * B * H * D * T(T+1)/2 = 74 GFLOP of products on 0.2 GB of inputs
 // and outputs: about 370 operations per byte, above the H100's ~295 bf16 operations per byte
-// of HBM, so the bound is 989 TFLOP/s (0.075 ms forward, 2.5 times that backward).
+// of HBM, so the bound is 989 TFLOP/s (0.075 ms forward, 2.5 times that backward; the
+// separate dQ pass recomputes S and dP, 7 products where 5 would do).
 //
-// The design, simple first:
-//   * bf16 (the training dtype): mma.sync m16n8k16 on the tensor cores with f32 accumulators
-//     held in registers. A block of 4 warps owns a 64-row tile (queries, or keys in the dK/dV
-//     kernel); each warp owns 16 of its rows. Scores S (or S^T), the probabilities, dP and
-//     dS never leave registers: an accumulator tile is repacked in registers as the A operand
-//     of the next product (P V, P^T dO, dS^T Q, dS K). Only the 64-row tiles of q, k, v and
-//     dO go through shared memory; the streamed ones are double-buffered, the next tile
-//     copied by cp.async while the current one is used, and operand fragments are read with
-//     ldmatrix; the softmax runs in base 2 (exp2 of prescaled scores);
-//   * f32 (the checking dtype): a plain FMA loop over 32-row tiles in shared memory;
-//   * q, k, v are read through their strides, so the chunks of a fused qkv projection (row
-//     stride 3E) are read in place; rows are loaded with 16-byte vector loads;
-//   * the ragged last tile is masked, not padded: rows past T load as zeros and are never
-//     stored, and the backward gives them P = 0; tiles above the diagonal are never visited;
-//   * the tiles with the most work start first (causal load balance).
-// wgmma, TMA and warp-specialised producers are later work.
+// The design (bf16, the training dtype): every product is a wgmma.mma_async on tiles that TMA
+// loads into shared memory, swizzled 128B, through a ring of stages with full/empty mbarriers.
+// Warpgroup 0 of a block is the producer (one thread issues the TMA copies; setmaxnreg gives
+// its registers to the others); the consumer warpgroups, three at D = 64 and two at D = 128,
+// own 64 rows each (queries in the forward and dQ kernels, keys in the dK/dV kernel). Scores,
+// probabilities, dP and dS stay in registers: an accumulator repacked to bf16 is the register
+// A operand of the next product, and V, dO, Q and K enter the second products MN-major through
+// the transpose bit, so nothing is transposed in memory. The forward issues S_j = Q K_j^T with
+// O += P_{j-1} V_{j-1} and runs the softmax of S_j while P V finishes, and its consumers take
+// turns on named barriers so that one's softmax overlaps the others' products. Rows past T
+// arrive as zeros from TMA and are masked, never stored; tiles above the diagonal are never
+// loaded; within each (b, h) the tiles with the most work start first, and the tiles of one
+// (b, h) run side by side so that its K and V (or Q and dO) are read from HBM about once.
+// The f32 path (the checking dtype) is a plain FMA loop over 32-row tiles in shared memory.
+//
+// Measured (scripts/torch_kernel_ab.py, NVIDIA H100 80GB HBM3 at 700 W, B 16, T 1500, H 16,
+// D 64): forward 0.24 ms, backward 0.74 ms, against 0.41 / 1.59 ms for the mma.sync + cp.async
+// design it replaced. That is 310 and 250 TFLOP/s by the bound's count, about 0.31 and 0.25
+// of it. Neither the exp2 work, nor the P V product, nor the K/V loads held the two-consumer
+// forward back: removing each in turn moved it by at most 3 %, while a third consumer
+// warpgroup gained 11 %: the chain of dependent steps in each tile (wait for S, softmax, wait
+// for P V) is the suspect. A persistent grid alone gained nothing measurable. In the
+// full-width MusicGen-small train step (scripts/torch_profile_train.py, both designs in turns
+// on one card) the K2 kernels took 24.3 ms of a step instead of 48.8, and the step 0.220 s
+// instead of 0.245.
+//
+// Inputs are read through their strides (q, k, v as chunks of a fused [B, T, 3HD] projection):
+// each TMA map is 4-D (D, T, H, B) with the caller's strides.
 //
 // C interface (bound with ctypes): flash_causal_fwd_launch(...) and flash_causal_bwd_launch(...)
-// return cudaGetLastError() after their launches.
+// return cudaGetLastError() after their launches, or the error of a TMA map that could not be
+// built.
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is found at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -83,21 +98,28 @@ __device__ __forceinline__ void load_vector(float* dst, const float* src, int t0
 }
 
 // delta[b, h, t] = sum_d dO[b, t, h, d] * O[b, t, h, d] in f32; dO and O contiguous
-// [B, T, H, D]. One warp per (b, t, h) row, 8 rows per block.
-template <typename T>
+// [B, T, H, D]. Each thread reads 16 bytes of both; the D / VEC threads of a row sum by
+// shuffles.
+template <typename T, int D>
 __global__ void __launch_bounds__(256)
 delta_kernel(const T* __restrict__ dout, const T* __restrict__ out, float* __restrict__ delta,
-             int H, int T_len, int D, long long rows) {
-  const long long row = static_cast<long long>(blockIdx.x) * 8 + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= rows) return;
-  const T* a = dout + row * D;
-  const T* o = out + row * D;
+             int H, int T_len, long long rows) {
+  constexpr int VEC = 16 / sizeof(T);
+  constexpr int CPR = D / VEC;  // threads per row: 8 to 32, so a row never straddles warps
+  const long long idx = static_cast<long long>(blockIdx.x) * 256 + threadIdx.x;
+  const long long row = idx / CPR;
   float s = 0.f;
-  for (int d = lane; d < D; d += 32) s += to_f32<T>(a[d]) * to_f32<T>(o[d]);
+  if (row < rows) {
+    const uint4 a = __ldg(reinterpret_cast<const uint4*>(dout + row * D) + idx % CPR);
+    const uint4 o = __ldg(reinterpret_cast<const uint4*>(out + row * D) + idx % CPR);
+    const T* av = reinterpret_cast<const T*>(&a);
+    const T* ov = reinterpret_cast<const T*>(&o);
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-  if (lane == 0) {
+    for (int e = 0; e < VEC; ++e) s += to_f32<T>(av[e]) * to_f32<T>(ov[e]);
+  }
+#pragma unroll
+  for (int off = CPR / 2; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (row < rows && idx % CPR == 0) {
     const long long h = row % H;
     const long long t = (row / H) % T_len;
     const long long b = row / (static_cast<long long>(H) * T_len);
@@ -107,465 +129,732 @@ delta_kernel(const T* __restrict__ dout, const T* __restrict__ out, float* __res
 
 // =============================================================================== bf16 path
 //
-// Fragments of mma.sync.m16n8k16 (bf16 in, f32 accumulate), for lane = 4 * g + c:
-//   A 16x16 row-major, 4 x 32 bits: (g, 2c..2c+1), (g+8, 2c..), (g, 8+2c..), (g+8, 8+2c..)
-//   B 16x8 (k x n), 2 x 32 bits:   (k = 2c..2c+1, n = g), (k = 8+2c..8+2c+1, n = g)
-//   C 16x8 f32, 4 floats:          (g, 2c), (g, 2c+1), (g+8, 2c), (g+8, 2c+1)
-// A 16 x 64 accumulator tile is 8 C fragments ("n-tiles"); n-tiles 2k and 2k+1 repacked to
-// bf16 are exactly the A fragment of k-chunk k, so P, P^T and dS feed the next product
-// straight from registers.
+// Shared-memory tiles are written by TMA in 128-byte rows (64 bf16 of the head dim; D = 128 is
+// two such boxes side by side), swizzled 128B, every tile 1024-byte aligned: exactly the layout
+// a wgmma descriptor of swizzle mode 128B reads. Used K-major (the head dim is the product's
+// depth: Q K^T, dO V^T, K Q^T, V dO^T) a k-step of 16 moves the start address by 32 bytes
+// inside the 128-byte row; used MN-major (rows are the depth: P V, P^T dO, dS^T Q, dS K) a
+// k-step moves it by 16 rows, and the second 64-column box is the descriptor's leading offset.
+//
+// Accumulator of wgmma m64nN for thread t of a warpgroup (warp w = t / 32, lane = 4 g + c):
+// element i is row 16 w + g + 8 ((i / 2) % 2), column 8 (i / 4) + 2 c + i % 2. Elements
+// 8 k .. 8 k + 7 packed to bf16 pairs are the register A fragment of k-chunk k of the next
+// product, so P, P^T and dS^T never leave registers.
 
-namespace mma_path {
+namespace wgmma_path {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int BM = 64;         // rows of a tile (queries or keys); 16 per warp
-constexpr int NT = BM / 8;     // n-tiles of a 16 x BM score tile
-constexpr int PAD = 8;         // shared-memory row padding in bf16 elements
+constexpr int kRow = 128;                         // bytes of one swizzled row (64 bf16)
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
+
+__host__ __device__ constexpr int align1024(int bytes) { return (bytes + 1023) / 1024 * 1024; }
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---- mbarriers, TMA, cp.async, named barriers, register reallocation
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+// one arrival that also expects `bytes` of TMA traffic before the phase can complete
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+}
+
+// rows [t, t + box rows) x columns [d, d + 64) of head h of batch b; rows past T arrive as zeros
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int d,
+                                         int t, int h, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d), "r"(t), "r"(h), "r"(b)
+      : "memory");
+}
+
+// a [ROWS][D] tile as D / 64 boxes of [ROWS][64], ROWS * 128 bytes apart
+template <int D, int ROWS>
+__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar, int t,
+                                          int h, int b) {
+#pragma unroll
+  for (int nb = 0; nb < D / 64; ++nb) tma_load(dst + nb * ROWS * kRow, map, bar, nb * 64, t, h, b);
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const float* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// an arrival on `bar` once this thread's earlier cp.async copies have landed
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+
+// named barriers 1, 2, ...: each joins two consumer warpgroups, one waiting and one arriving
+__device__ __forceinline__ void bar_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+
+template <int N> __device__ __forceinline__ void reg_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N> __device__ __forceinline__ void reg_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// Warp roles, the same in the three kernels: warpgroup 0 produces (one thread or warp issues
+// every copy), the others consume, 64 rows each. Three consumers at D = 64 (a third chain of
+// dependent steps to interleave: 11 % faster forward, 8 % faster backward than two on an
+// H100), two at D = 128, whose accumulators need the registers; setmaxnreg splits the 65536.
+template <int D> struct Roles {
+  static constexpr int kWG = D == 64 ? 3 : 2;
+  static constexpr int kThreads = (kWG + 1) * 128;
+  static constexpr int kConsumerWarps = 4 * kWG;
+  static constexpr int kProducerRegs = kWG == 3 ? 32 : 40;
+  static constexpr int kConsumerRegs = kWG == 3 ? 160 : 232;
+};
+
+// A block's mbarriers: one for the tiles loaded once, then a ring of S stages, each with a
+// full barrier (the stage's copies have landed) and an empty one (lane 0 of every consumer
+// warp is done with it). Iteration j uses stage j % S in phase j / S.
+template <int S> struct Ring {
+  static constexpr int kBytes = 8 * (1 + 2 * S);
+  uint32_t at;
+  __device__ __forceinline__ uint32_t once() const { return at; }
+  __device__ __forceinline__ uint32_t full(int j) const { return at + 8 * (1 + j % S); }
+  __device__ __forceinline__ uint32_t empty(int j) const { return at + 8 * (1 + S + j % S); }
+  // by one thread, before the block's first __syncthreads
+  __device__ __forceinline__ void init(uint32_t full_arrivals, uint32_t empty_arrivals) const {
+    mbar_init(once(), 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full(s), full_arrivals);
+      mbar_init(empty(s), empty_arrivals);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __device__ __forceinline__ void wait_full(int j) const { mbar_wait(full(j), (j / S) & 1); }
+  __device__ __forceinline__ void wait_empty(int j) const {
+    mbar_wait(empty(j), ((j / S) & 1) ^ 1);
+  }
+};
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
 __device__ __forceinline__ uint32_t pack(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+// ---- wgmma
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-// Four 8x8 bf16 matrices from shared memory, one row address per lane (lanes 8m..8m+7 give
-// the rows of matrix m); lane 4g+c receives (row g, columns 2c, 2c+1) of matrix m in r[m],
-// or with `.trans` (row 2c and 2c+1, column g).
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(p))));
+// Pins registers that an asynchronous wgmma reads or writes at this point of the program.
+template <int N> __device__ __forceinline__ void keep(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N> __device__ __forceinline__ void keep(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(p))));
+// Shared-memory matrix descriptor, swizzle mode 128B: 8-row atoms 1024 bytes apart (stride
+// offset); `lbo` bytes between 64-column boxes (leading offset, read for MN-major operands).
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
 }
 
-// Asynchronous global -> shared copies (cp.async): 16 bytes, or 4, zero-filled where `valid`
-// is false; a commit closes a group, and a wait lets at most N groups stay in flight.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))), "l"(src),
-                  "r"(valid ? 16 : 0));
-}
+// wgmma.mma_async m64nNk16, bf16 in, f32 accumulators: ss() reads A and B from shared memory
+// (both K-major) and overwrites d when scale_d is 0; rs() takes A from registers and B
+// MN-major (the transpose bit), and accumulates.
+template <int N> struct Wgmma;
 
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))), "l"(src),
-                  "r"(valid ? 4 : 0));
-}
+#define FC_ACC8(i)                                                                          \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+#define FC_ACC16 FC_ACC8(0), FC_ACC8(8)
+#define FC_ACC32 FC_ACC16, FC_ACC8(16), FC_ACC8(24)
+#define FC_ACC64 FC_ACC32, FC_ACC8(32), FC_ACC8(40), FC_ACC8(48), FC_ACC8(56)
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-// Start copying rows [t0, t0 + BM) of one (b, h) slice into dst [BM][ld]; rows at or past T
-// are zero-filled.
-template <int D>
-__device__ __forceinline__ void copy_rows_async(bf16* dst, int ld, const bf16* src,
-                                                long long st, int t0, int T_len) {
-  constexpr int CPR = D / 8;  // 16-byte chunks per row
-  for (int idx = threadIdx.x; idx < BM * CPR; idx += kThreads) {
-    const int r = idx / CPR;
-    const int c = (idx % CPR) * 8;
-    const bool valid = t0 + r < T_len;
-    cp_async16(dst + r * ld + c, valid ? src + (t0 + r) * st + c : src, valid);
+template <> struct Wgmma<32> {
+  __device__ static __forceinline__ void ss(float (&d)[16], uint64_t a, uint64_t b,
+                                            uint32_t scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15} "
+        ", %16, %17, p, 1, 1, 0, 0;\n}\n"
+        : FC_ACC16
+        : "l"(a), "l"(b), "r"(scale_d));
   }
-}
-
-// A fragment of rows r0.., columns c0.. of a row-major bf16 tile: matrices (r0, c0),
-// (r0 + 8, c0), (r0, c0 + 8), (r0 + 8, c0 + 8).
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* s, int ld, int r0,
-                                       int c0) {
-  const int lane = threadIdx.x % 32;
-  ldmatrix_x4(a, s + (r0 + lane % 8 + (lane / 8 % 2) * 8) * ld + c0 + lane / 16 * 8);
-}
-
-// B fragments of n-tiles n0 and n0 + 8 whose transpose is stored:
-// B(k, n) = s[(n0 + n) * ld + k0 + k] (e.g. K^T from the rows of K).
-__device__ __forceinline__ void load_bt2(uint32_t (&b)[2][2], const bf16* s, int ld, int n0,
-                                         int k0) {
-  const int lane = threadIdx.x % 32;
-  uint32_t r[4];
-  ldmatrix_x4(r, s + (n0 + lane % 8 + lane / 16 * 8) * ld + k0 + (lane / 8 % 2) * 8);
-  b[0][0] = r[0];
-  b[0][1] = r[1];
-  b[1][0] = r[2];
-  b[1][1] = r[3];
-}
-
-// B fragments of n-tiles n0 and n0 + 8 stored row-major: B(k, n) = s[(k0 + k) * ld + n0 + n]
-// (e.g. V from its rows).
-__device__ __forceinline__ void load_b2(uint32_t (&b)[2][2], const bf16* s, int ld, int k0,
-                                        int n0) {
-  const int lane = threadIdx.x % 32;
-  uint32_t r[4];
-  ldmatrix_x4_trans(r, s + (k0 + lane % 8 + (lane / 8 % 2) * 8) * ld + n0 + lane / 16 * 8);
-  b[0][0] = r[0];
-  b[0][1] = r[1];
-  b[1][0] = r[2];
-  b[1][1] = r[3];
-}
-
-// The A fragment of k-chunk kc of a 16 x BM accumulator tile, rounded to bf16.
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&t)[NT][4], int kc) {
-  a[0] = pack(t[2 * kc][0], t[2 * kc][1]);
-  a[1] = pack(t[2 * kc][2], t[2 * kc][3]);
-  a[2] = pack(t[2 * kc + 1][0], t[2 * kc + 1][1]);
-  a[3] = pack(t[2 * kc + 1][2], t[2 * kc + 1][3]);
-}
-
-// acc[16 x BM] = A[rows r0.. of sa, D wide] . B^T where B's rows are the BM rows of sb.
-template <int D>
-__device__ __forceinline__ void scores(float (&acc)[NT][4], const bf16* sa, int r0,
-                                       const bf16* sb, int ld) {
-#pragma unroll
-  for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-#pragma unroll
-  for (int kc = 0; kc < D / 16; ++kc) {
-    uint32_t a[4];
-    load_a(a, sa, ld, r0, kc * 16);
-#pragma unroll
-    for (int n = 0; n < NT; n += 2) {
-      uint32_t b[2][2];
-      load_bt2(b, sb, ld, n * 8, kc * 16);
-      mma(acc[n], a, b[0]);
-      mma(acc[n + 1], a, b[1]);
-    }
+  __device__ static __forceinline__ void rs(float (&d)[16], const uint32_t (&a)[4],
+                                            uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15} "
+        ", {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : FC_ACC16
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
   }
-}
-
-// out[16 x D] += P[16 x BM] (registers) . S[BM x D] (rows of sb).
-template <int D>
-__device__ __forceinline__ void accumulate(float (&out)[D / 8][4], const float (&p)[NT][4],
-                                           const bf16* sb, int ld) {
-#pragma unroll
-  for (int kc = 0; kc < BM / 16; ++kc) {
-    uint32_t a[4];
-    acc_to_a(a, p, kc);
-#pragma unroll
-    for (int n = 0; n < D / 8; n += 2) {
-      uint32_t b[2][2];
-      load_b2(b, sb, ld, kc * 16, n * 8);
-      mma(out[n], a, b[0]);
-      mma(out[n + 1], a, b[1]);
-    }
-  }
-}
-
-// Rows g and g+8 of a warp's 16 x D accumulator, times mul (divided by div[0|1]), into rows
-// t_row.. of one (b, h) slice; rows at or past T are not stored.
-template <int D>
-__device__ __forceinline__ void store_acc(bf16* dst, long long st, const float (&acc)[D / 8][4],
-                                          int t_row, int T_len, float mul, const float (&div)[2]) {
-  const int lane = threadIdx.x % 32;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int t = t_row + lane / 4 + 8 * half;
-    if (t >= T_len) continue;
-    const float f = mul / div[half];
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<uint32_t*>(dst + t * st + n * 8 + 2 * (lane % 4)) =
-          pack(acc[n][2 * half] * f, acc[n][2 * half + 1] * f);
-  }
-}
-
-template <int D> struct Smem {
-  static constexpr int LD = D + PAD;
-  static constexpr int kTile = align128(BM * LD * 2);
 };
 
-// Grid (query tiles, B * H). Each warp owns 16 query rows and walks the key tiles 0..i with
-// an online softmax; S, P and O stay in registers.
+template <> struct Wgmma<64> {
+  __device__ static __forceinline__ void ss(float (&d)[32], uint64_t a, uint64_t b,
+                                            uint32_t scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+        "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31} "
+        ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : FC_ACC32
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+  __device__ static __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4],
+                                            uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+        "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31} "
+        ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : FC_ACC32
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <> struct Wgmma<128> {
+  __device__ static __forceinline__ void ss(float (&d)[64], uint64_t a, uint64_t b,
+                                            uint32_t scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+        "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+        "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+        "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63} "
+        ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : FC_ACC64
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+  __device__ static __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4],
+                                            uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+        "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+        "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+        "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63} "
+        ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : FC_ACC64
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+#undef FC_ACC8
+#undef FC_ACC16
+#undef FC_ACC32
+#undef FC_ACC64
+
+// acc[64 x N] = A . B^T: A's 64 rows at `a`, B's N rows at `b`, both [rows][D] K-major in
+// D / 64 boxes (a_box, b_box bytes apart).
+template <int D, int N>
+__device__ __forceinline__ void mma_abt(float (&acc)[N / 2], uint32_t a, uint32_t a_box, uint32_t b,
+                                        uint32_t b_box) {
+#pragma unroll
+  for (int k = 0; k < D / 16; ++k) {
+    const uint32_t off = (k % 4) * 32;
+    Wgmma<N>::ss(acc, desc(a + (k / 4) * a_box + off, 16), desc(b + (k / 4) * b_box + off, 16),
+                 k > 0);
+  }
+}
+
+// acc[64 x N] += A . B: A [64 x K] as register fragments, B [K rows][N] at `b` in N / 64 boxes
+// b_box bytes apart (MN-major).
+template <int K, int N>
+__device__ __forceinline__ void mma_ab(float (&acc)[N / 2], const uint32_t (&a)[K / 16][4],
+                                       uint32_t b, uint32_t b_box) {
+#pragma unroll
+  for (int k = 0; k < K / 16; ++k) Wgmma<N>::rs(acc, a[k], desc(b + k * 16 * kRow, b_box));
+}
+
+// The A fragments of the N / 16 k-chunks of a [64 x N] accumulator, rounded to bf16.
+template <int N>
+__device__ __forceinline__ void to_frags(uint32_t (&a)[N / 16][4], const float (&acc)[N / 2]) {
+#pragma unroll
+  for (int k = 0; k < N / 16; ++k) {
+    a[k][0] = pack(acc[8 * k], acc[8 * k + 1]);
+    a[k][1] = pack(acc[8 * k + 2], acc[8 * k + 3]);
+    a[k][2] = pack(acc[8 * k + 4], acc[8 * k + 5]);
+    a[k][3] = pack(acc[8 * k + 6], acc[8 * k + 7]);
+  }
+}
+
+// column (within the tile) and row half (0: row, 1: row + 8) of accumulator element i
+__device__ __forceinline__ int col_of(int i) { return 8 * (i / 4) + 2 * (threadIdx.x % 4) + i % 2; }
+__device__ __forceinline__ int half_of(int i) { return (i / 2) % 2; }
+
+// Rows `row` and `row + 8` of a [64 x D] accumulator, times mul / div[half], into a (b, h)
+// slice with row stride st; rows at or past T are not stored.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-           bf16* __restrict__ out, float* __restrict__ lse, int H, int T_len, Strides sq,
-           Strides sk, Strides sv, Strides so, float scale) {
-  constexpr int LD = Smem<D>::LD;
-  constexpr int kTile = Smem<D>::kTile;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  // two buffers each of K and V, kTile bytes apart: tile j + 1 is copied while tile j is used
-  bf16* sK = reinterpret_cast<bf16*>(smem + kTile);
-  bf16* sV = reinterpret_cast<bf16*>(smem + 3 * kTile);
-
-  const int i = gridDim.x - 1 - blockIdx.x;  // the longest rows first
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh % H;
-  const int t0 = i * BM;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int r0 = warp * 16;  // the warp's rows in the tile
-  const int tq[2] = {t0 + r0 + lane / 4, t0 + r0 + lane / 4 + 8};
-  const bf16* kb = k + b * sk.b + h * sk.h;
-  const bf16* vb = v + b * sv.b + h * sv.h;
-
-  load_rows<bf16, BM, D, kThreads>(sQ, LD, q + b * sq.b + h * sq.h, sq.t, t0, T_len);
-  const float scale2 = scale * kLog2e;  // scores in base 2: exp(x) = exp2(x * log2 e)
-  float o[D / 8][4] = {};
-  float m[2] = {-INFINITY, -INFINITY};
-  float l[2] = {0.f, 0.f};  // this lane's share of the row sums
-
-  constexpr int kBuf = kTile / 2;  // elements from one buffer to the other
-  copy_rows_async<D>(sK, LD, kb, sk.t, 0, T_len);
-  copy_rows_async<D>(sV, LD, vb, sv.t, 0, T_len);
-  cp_async_commit();
-  for (int j = 0; j <= i; ++j) {
-    const int cur = (j % 2) * kBuf;
-    const int next = kBuf - cur;
-    if (j < i) {  // the other buffers were released by the barrier ending tile j - 1
-      copy_rows_async<D>(sK + next, LD, kb, sk.t, (j + 1) * BM, T_len);
-      copy_rows_async<D>(sV + next, LD, vb, sv.t, (j + 1) * BM, T_len);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // tile j has landed for every warp
-    float s[NT][4];
-    scores<D>(s, sQ, r0, sK + cur, LD);
-    // scale (to base 2), causal mask (a key is allowed iff it is not after the query), row max
-    float mx[2] = {-INFINITY, -INFINITY};
+__device__ __forceinline__ void store_rows(bf16* dst, long long st, const float (&acc)[D / 2],
+                                           int row, int T_len, float mul, const float (&div)[2]) {
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int tk = j * BM + n * 8 + 2 * (lane % 4) + (e & 1);
-        const float x = (j < i || tk <= tq[e / 2]) ? s[n][e] * scale2 : -INFINITY;
-        s[n][e] = x;
-        mx[e / 2] = fmaxf(mx[e / 2], x);
-      }
-    float corr[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);  // finite: key 0 is allowed for every row
-      corr[r] = exp2f(m[r] - m_new);
-      m[r] = m_new;
-      l[r] *= corr[r];
-    }
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(s[n][e] - m[e / 2]);
-        s[n][e] = p;
-        l[e / 2] += p;
-      }
+  for (int r = 0; r < 2; ++r) {
+    const int t = row + 8 * r;
+    if (t >= T_len) continue;
+    const float f = mul / div[r];
 #pragma unroll
     for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[n][e] *= corr[e / 2];
-    accumulate<D>(o, s, sV + cur, LD);
-    __syncthreads();  // every warp is done with buffers `cur`
+      *reinterpret_cast<uint32_t*>(dst + t * st + n * 8 + 2 * (threadIdx.x % 4)) =
+          pack(acc[4 * n + 2 * r] * f, acc[4 * n + 2 * r + 1] * f);
   }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-  }
-  store_acc<D>(out + b * so.b + h * so.h, so.t, o, t0 + r0, T_len, 1.0f, l);
-  if (lane % 4 == 0)
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-      if (tq[r] < T_len)
-        lse[static_cast<long long>(bh) * T_len + tq[r]] = (m[r] + log2f(l[r])) * kLn2;
 }
 
-// Grid (key tiles, B * H). Each warp owns 16 keys, keeps their dK and dV rows in registers,
-// and walks the query tiles j..last computing S^T = K Q^T, P^T, dP^T = V dO^T and dS^T.
-// Capped at 170 registers so that 3 blocks share an SM (left alone, the compiler takes 184
-// and fits 2; measured 14 % faster with 3 on an H100 at B=16, T=1500, H=16, D=64, at the
-// price of a few spilled bytes).
-template <int D>
-__global__ void __launch_bounds__(kThreads, 3)
-dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-            const bf16* __restrict__ dout, const float* __restrict__ lse,
-            const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv, int H,
-            int T_len, Strides sq, Strides sk, Strides sv, Strides sd, float scale) {
-  constexpr int LD = Smem<D>::LD;
-  constexpr int kTile = Smem<D>::kTile;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = reinterpret_cast<bf16*>(smem + kTile);
-  // two buffers each of Q and dO (kTile bytes apart) and of lse and delta (BM floats apart):
-  // tile i + 1 is copied while tile i is used
-  bf16* sQ = reinterpret_cast<bf16*>(smem + 2 * kTile);
-  bf16* sDO = reinterpret_cast<bf16*>(smem + 4 * kTile);
-  float* sLse = reinterpret_cast<float*>(smem + 6 * kTile);
-  float* sDelta = sLse + 2 * BM;
-  constexpr int kBuf = kTile / 2;
+// One online-softmax step over a [64 x N] score tile of keys k0.. (raw Q K^T): masks keys after
+// the row on the diagonal tile, updates the running max m (base 2, scaled) and sum l, leaves
+// P = exp2(s * scale2 - m) in s and the factor for the earlier output in corr.
+template <int N>
+__device__ __forceinline__ void softmax_step(float (&s)[N / 2], float (&m)[2], float (&l)[2],
+                                             float (&corr)[2], bool diagonal, int k0, int row,
+                                             float scale2) {
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    if (diagonal && k0 + col_of(i) > row + 8 * half_of(i)) s[i] = -INFINITY;
+    mx[half_of(i)] = fmaxf(mx[half_of(i)], s[i]);
+  }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r] * scale2);  // finite: key 0 is allowed for every row
+    corr[r] = fast_exp2(m[r] - m_new);
+    m[r] = m_new;
+  }
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    const float p = fast_exp2(fmaf(s[i], scale2, -m[half_of(i)]));
+    s[i] = p;
+    sum[half_of(i)] += p;
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + sum[r];
+}
 
-  const int j = blockIdx.x;  // key tile; the first ones see the most query tiles
-  const int n_tiles = gridDim.x;
+// ---- forward
+
+template <int D> struct Fwd : Roles<D> {
+  static constexpr int BM = 64 * Roles<D>::kWG;  // query rows per block
+  static constexpr int BN = 128;                 // keys per stage
+  static constexpr int kStages = D == 64 ? 3 : 2;
+  static constexpr int kQ = BM * D * 2;
+  static constexpr int kKV = BN * D * 2;  // K, then V, in each stage
+  static constexpr int kStage = 2 * kKV;
+  static constexpr int kBars = kQ + kStages * kStage;
+  static constexpr int kSmem = kBars + Ring<kStages>::kBytes + 1024;  // + alignment slack
+};
+
+// Grid (query tiles, B * H): the tiles of one (b, h) run side by side and share its K and V in
+// L2. The producer loads the block's query rows once and streams the key tiles up to the
+// diagonal (K and V) through a ring of stages; each consumer warpgroup owns 64 query rows.
+// Iteration j issues S_j = Q K_j^T and O += P_{j-1} V_{j-1} together, then runs the softmax of
+// S_j while the P V product finishes; the consumers take turns issuing, in a ring of named
+// barriers, so that one's softmax overlaps the others' products. The products of a key tile
+// wholly after a warpgroup's rows are run all the same (a zero contribution): skipping them
+// measured slower, as a branch inside this loop or as empty turns after it.
+template <int D>
+__global__ void __launch_bounds__(Fwd<D>::kThreads, 1)
+fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+           const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ out,
+           float* __restrict__ lse, int H, int T_len, Strides so, float scale) {
+  using C = Fwd<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const Ring<C::kStages> ring{base + C::kBars};
+  auto stage = [&](int j) { return base + C::kQ + (j % C::kStages) * C::kStage; };
+
   const int bh = blockIdx.y;
   const int b = bh / H;
   const int h = bh % H;
-  const int tk0 = j * BM;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int r0 = warp * 16;
-  const int tk[2] = {tk0 + r0 + lane / 4, tk0 + r0 + lane / 4 + 8};
-  const bf16* qb = q + b * sq.b + h * sq.h;
-  const bf16* db = dout + b * sd.b + h * sd.h;
-  const float* lse_b = lse + static_cast<long long>(bh) * T_len;
-  const float* delta_b = delta + static_cast<long long>(bh) * T_len;
+  const int i = gridDim.x - 1 - blockIdx.x;  // the longest rows of each (b, h) first
+  const int q0 = i * C::BM;
+  // key tiles up to the block's last row, and none wholly past T
+  const int n_tiles = min((q0 + C::BM - 1) / C::BN + 1, (T_len + C::BN - 1) / C::BN);
+  if (threadIdx.x == 0) ring.init(1, C::kConsumerWarps);
+  __syncthreads();
 
-  load_rows<bf16, BM, D, kThreads>(sK, LD, k + b * sk.b + h * sk.h, sk.t, tk0, T_len);
-  load_rows<bf16, BM, D, kThreads>(sV, LD, v + b * sv.b + h * sv.h, sv.t, tk0, T_len);
-  float dk_acc[D / 8][4] = {};
-  float dv_acc[D / 8][4] = {};
-  // start copying query tile i into buffers `buf`
-  auto copy_tile = [&](int i, int buf) {
-    copy_rows_async<D>(sQ + buf * kBuf, LD, qb, sq.t, i * BM, T_len);
-    copy_rows_async<D>(sDO + buf * kBuf, LD, db, sd.t, i * BM, T_len);
-    const int r = threadIdx.x % BM;
-    const bool valid = i * BM + r < T_len;
-    const float* src = threadIdx.x < BM ? lse_b : delta_b;
-    float* dst = (threadIdx.x < BM ? sLse : sDelta) + buf * BM;
-    cp_async4(dst + r, valid ? src + i * BM + r : src, valid);
-    cp_async_commit();
-  };
-
-  copy_tile(j, 0);
-  for (int i = j; i < n_tiles; ++i) {
-    const int tq0 = i * BM;
-    const int cur = (i - j) % 2;
-    if (i + 1 < n_tiles) {  // the other buffers were released by the barrier ending tile i - 1
-      copy_tile(i + 1, 1 - cur);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // tile i has landed for every warp
-    const float* lse_t = sLse + cur * BM;
-    const float* delta_t = sDelta + cur * BM;
-    const bf16* q_t = sQ + cur * kBuf;
-    const bf16* do_t = sDO + cur * kBuf;
-    float p[NT][4];   // S^T, then P^T
-    float ds[NT][4];  // dP^T, then dS^T
-    scores<D>(p, sK, r0, q_t, LD);
-    scores<D>(ds, sV, r0, do_t, LD);
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = n * 8 + 2 * (lane % 4) + (e & 1);  // query column in the tile
-        const int tq = tq0 + c;
-        const bool allowed = tk[e / 2] <= tq && tq < T_len;
-        const float pe = allowed ? exp2f((p[n][e] * scale - lse_t[c]) * kLog2e) : 0.f;
-        p[n][e] = pe;
-        ds[n][e] = pe * (ds[n][e] - delta_t[c]);
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {  // producer: one thread issues every copy
+    reg_dealloc<C::kProducerRegs>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(ring.once(), C::kQ);
+      load_tile<D, C::BM>(base, &tm_q, ring.once(), q0, h, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        ring.wait_empty(j);
+        mbar_expect_tx(ring.full(j), C::kStage);
+        load_tile<D, C::BN>(stage(j), &tm_k, ring.full(j), j * C::BN, h, b);
+        load_tile<D, C::BN>(stage(j) + C::kKV, &tm_v, ring.full(j), j * C::BN, h, b);
       }
-    accumulate<D>(dv_acc, p, do_t, LD);  // dV += P^T dO
-    accumulate<D>(dk_acc, ds, q_t, LD);  // dK += dS^T Q
-    __syncthreads();  // every warp is done with buffers `cur`
+    }
+  } else {
+    reg_alloc<C::kConsumerRegs>();
+    const int c = wg - 1;
+    const int lane = threadIdx.x % 32;
+    const int row = q0 + 64 * c + 16 * (threadIdx.x % 128 / 32) + lane / 4;  // and row + 8
+    const uint32_t qa = base + c * 64 * kRow;  // this warpgroup's 64 query rows
+    const float scale2 = scale * kLog2e;       // scores in base 2: exp(x) = exp2(x log2 e)
+    // named barriers 1..kWG: consumer c issues after c - 1, consumer 0 first
+    const int me = 1 + c, next = 1 + (c + 1) % C::kWG;
+    const int first_masked = (q0 + 64 * c) / C::BN;  // the first key tile past a row here
+    float o[D / 2];
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) o[e] = 0.f;
+    float s[C::BN / 2];
+    uint32_t p[C::BN / 16][4];
+    float m[2] = {-INFINITY, -INFINITY};
+    float l[2] = {0.f, 0.f};  // this thread's share of the row sums
+    float corr[2];
+    if (c == C::kWG - 1) bar_arrive(1);
+    mbar_wait(ring.once(), 0);
+
+    ring.wait_full(0);
+    bar_sync(me);
+    wg_fence();
+    mma_abt<D, C::BN>(s, qa, C::BM * kRow, stage(0), C::BN * kRow);
+    wg_commit();
+    bar_arrive(next);
+    wg_wait<0>();
+    keep(s);
+    softmax_step<C::BN>(s, m, l, corr, first_masked == 0, 0, row, scale2);
+    to_frags<C::BN>(p, s);
+    for (int j = 1; j < n_tiles; ++j) {
+      ring.wait_full(j);
+      bar_sync(me);
+      wg_fence();
+      mma_abt<D, C::BN>(s, qa, C::BM * kRow, stage(j), C::BN * kRow);
+      wg_commit();
+      mma_ab<C::BN, D>(o, p, stage(j - 1) + C::kKV, C::BN * kRow);
+      wg_commit();
+      bar_arrive(next);
+      wg_wait<1>();
+      keep(s);
+      softmax_step<C::BN>(s, m, l, corr, j >= first_masked, j * C::BN, row, scale2);
+      wg_wait<0>();
+      keep(o);
+      keep(p);
+      if (lane == 0) mbar_arrive(ring.empty(j - 1));
+#pragma unroll
+      for (int e = 0; e < D / 2; ++e) o[e] *= corr[half_of(e)];
+      to_frags<C::BN>(p, s);
+    }
+    bar_sync(me);
+    wg_fence();
+    mma_ab<C::BN, D>(o, p, stage(n_tiles - 1) + C::kKV, C::BN * kRow);
+    wg_commit();
+    if (c != C::kWG - 1) bar_arrive(next);  // the last consumer arrived once ahead
+    wg_wait<0>();
+    keep(o);
+    keep(p);
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    }
+    store_rows<D>(out + b * so.b + h * so.h, so.t, o, row, T_len, 1.f, l);
+    if (lane % 4 == 0)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        if (row + 8 * r < T_len)
+          lse[static_cast<long long>(bh) * T_len + row + 8 * r] = (m[r] + log2f(l[r])) * kLn2;
   }
-  const float one[2] = {1.f, 1.f};
-  store_acc<D>(dk + b * sd.b + h * sd.h, sd.t, dk_acc, tk0 + r0, T_len, scale, one);
-  store_acc<D>(dv + b * sd.b + h * sd.h, sd.t, dv_acc, tk0 + r0, T_len, 1.f, one);
 }
 
-// Grid (query tiles, B * H). Each warp owns 16 queries, keeps their dQ rows in registers, and
-// walks the key tiles 0..i.
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-          const bf16* __restrict__ dout, const float* __restrict__ lse,
-          const float* __restrict__ delta, bf16* __restrict__ dq, int H, int T_len, Strides sq,
-          Strides sk, Strides sv, Strides sd, float scale) {
-  constexpr int LD = Smem<D>::LD;
-  constexpr int kTile = Smem<D>::kTile;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sDO = reinterpret_cast<bf16*>(smem + kTile);
-  // two buffers each of K and V, kTile bytes apart: tile j + 1 is copied while tile j is used
-  bf16* sK = reinterpret_cast<bf16*>(smem + 2 * kTile);
-  bf16* sV = reinterpret_cast<bf16*>(smem + 4 * kTile);
-  constexpr int kBuf = kTile / 2;
+// ---- backward
 
-  const int i = gridDim.x - 1 - blockIdx.x;  // the longest rows first
+template <int D> struct Dkdv : Roles<D> {
+  static constexpr int BK = 64 * Roles<D>::kWG;  // keys per block
+  static constexpr int BQ = D == 64 ? 64 : 32;   // queries per stage (registers cap it at D 128)
+  static constexpr int kStages = 3;
+  static constexpr int kKV = BK * D * 2;         // the K tile, then the V tile
+  static constexpr int kQ = BQ * D * 2;          // Q, then dO, then lse and delta in each stage
+  static constexpr int kStage = align1024(2 * kQ + 2 * BQ * 4);
+  static constexpr int kBars = 2 * kKV + kStages * kStage;
+  static constexpr int kSmem = kBars + Ring<kStages>::kBytes + 1024;
+};
+
+// Grid (key tiles, B * H). The producer warp loads the block's keys (K, V) once and streams
+// the query tiles from the diagonal down: Q and dO by TMA, lse and delta by cp.async, all
+// completing on the stage's barrier. Each consumer warpgroup owns 64 keys and keeps their dK
+// and dV in registers: S^T = K Q^T and dP^T = V dO^T, then P^T and dV += P^T dO while dP^T
+// finishes, then dS^T and dK += dS^T Q.
+template <int D>
+__global__ void __launch_bounds__(Dkdv<D>::kThreads, 1)
+dkdv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+            const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+            const float* __restrict__ lse, const float* __restrict__ delta,
+            bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int T_len, Strides sd,
+            float scale) {
+  using C = Dkdv<D>;
+  constexpr int BQ = C::BQ;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const Ring<C::kStages> ring{base + C::kBars};
+  auto stage = [&](int it) { return base + 2 * C::kKV + (it % C::kStages) * C::kStage; };
+
   const int bh = blockIdx.y;
   const int b = bh / H;
   const int h = bh % H;
-  const int tq0 = i * BM;
-  const int warp = threadIdx.x / 32;
+  const int k0 = blockIdx.x * C::BK;  // the first key tiles see the most query tiles
+  const int i0 = k0 / BQ;             // the first query tile reaching these keys
+  const int n_q = (T_len + BQ - 1) / BQ;
+  // a stage is full after the TMA arrival and the producer warp's 32 cp.async arrivals
+  if (threadIdx.x == 0) ring.init(1 + 32, C::kConsumerWarps);
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
   const int lane = threadIdx.x % 32;
-  const int r0 = warp * 16;
-  const int tq[2] = {tq0 + r0 + lane / 4, tq0 + r0 + lane / 4 + 8};
-  const bf16* kb = k + b * sk.b + h * sk.h;
-  const bf16* vb = v + b * sv.b + h * sv.h;
-
-  load_rows<bf16, BM, D, kThreads>(sQ, LD, q + b * sq.b + h * sq.h, sq.t, tq0, T_len);
-  load_rows<bf16, BM, D, kThreads>(sDO, LD, dout + b * sd.b + h * sd.h, sd.t, tq0, T_len);
-  float row_lse[2], row_delta[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const bool in = tq[r] < T_len;
-    row_lse[r] = in ? lse[static_cast<long long>(bh) * T_len + tq[r]] : 0.f;
-    row_delta[r] = in ? delta[static_cast<long long>(bh) * T_len + tq[r]] : 0.f;
-  }
-  float dq_acc[D / 8][4] = {};
-
-  copy_rows_async<D>(sK, LD, kb, sk.t, 0, T_len);
-  copy_rows_async<D>(sV, LD, vb, sv.t, 0, T_len);
-  cp_async_commit();
-  for (int j = 0; j <= i; ++j) {
-    const int tk0 = j * BM;
-    const int cur = (j % 2) * kBuf;
-    const int next = kBuf - cur;
-    if (j < i) {  // the other buffers were released by the barrier ending tile j - 1
-      copy_rows_async<D>(sK + next, LD, kb, sk.t, tk0 + BM, T_len);
-      copy_rows_async<D>(sV + next, LD, vb, sv.t, tk0 + BM, T_len);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // tile j has landed for every warp
-    float s[NT][4];   // S, then dS
-    float dp[NT][4];  // dP
-    scores<D>(s, sQ, r0, sK + cur, LD);
-    scores<D>(dp, sDO, r0, sV + cur, LD);
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int tkey = tk0 + n * 8 + 2 * (lane % 4) + (e & 1);
-        const int r = e / 2;
-        const bool allowed = tkey <= tq[r] && tq[r] < T_len;
-        const float pe = allowed ? exp2f((s[n][e] * scale - row_lse[r]) * kLog2e) : 0.f;
-        s[n][e] = pe * (dp[n][e] - row_delta[r]);
+  if (wg == 0) {
+    reg_dealloc<C::kProducerRegs>();
+    if (threadIdx.x < 32) {
+      const float* lse_b = lse + static_cast<long long>(bh) * T_len;
+      const float* delta_b = delta + static_cast<long long>(bh) * T_len;
+      if (lane == 0) {
+        mbar_expect_tx(ring.once(), 2 * C::kKV);
+        load_tile<D, C::BK>(base, &tm_k, ring.once(), k0, h, b);
+        load_tile<D, C::BK>(base + C::kKV, &tm_v, ring.once(), k0, h, b);
       }
-    accumulate<D>(dq_acc, s, sK + cur, LD);  // dQ += dS K
-    __syncthreads();  // every warp is done with buffers `cur`
+      for (int it = 0; i0 + it < n_q; ++it) {
+        const int t0 = (i0 + it) * BQ;
+        ring.wait_empty(it);
+        if (lane == 0) {
+          mbar_expect_tx(ring.full(it), 2 * C::kQ);
+          load_tile<D, BQ>(stage(it), &tm_q, ring.full(it), t0, h, b);
+          load_tile<D, BQ>(stage(it) + C::kQ, &tm_do, ring.full(it), t0, h, b);
+        }
+        for (int r = lane; r < BQ; r += 32) {
+          const bool valid = t0 + r < T_len;
+          const uint32_t dst = stage(it) + 2 * C::kQ + 4 * r;
+          cp_async4(dst, lse_b + (valid ? t0 + r : 0), valid);
+          cp_async4(dst + BQ * 4, delta_b + (valid ? t0 + r : 0), valid);
+        }
+        cp_async_arrive(ring.full(it));
+      }
+    }
+  } else {
+    reg_alloc<C::kConsumerRegs>();
+    const int c = wg - 1;
+    const int key = k0 + 64 * c + 16 * (threadIdx.x % 128 / 32) + lane / 4;  // and key + 8
+    const uint32_t ka = base + c * 64 * kRow;  // this warpgroup's 64 keys
+    const uint32_t va = ka + C::kKV;
+    const float scale2 = scale * kLog2e;
+    float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) dk_acc[e] = dv_acc[e] = 0.f;
+    float st[BQ / 2];   // S^T, then P^T
+    float dpt[BQ / 2];  // dP^T, then dS^T
+    uint32_t pa[BQ / 16][4], dsa[BQ / 16][4];
+    mbar_wait(ring.once(), 0);
+    for (int it = 0; i0 + it < n_q; ++it) {
+      const int q0 = (i0 + it) * BQ;
+      ring.wait_full(it);
+      if (k0 + 64 * c <= q0 + BQ - 1) {  // else every key here is after every query of the tile
+        const uint32_t sq = stage(it);
+        const uint32_t sdo = sq + C::kQ;
+        const float* s_lse = reinterpret_cast<const float*>(smem_raw + (sq + 2 * C::kQ - raw));
+        const float* s_delta = s_lse + BQ;
+        wg_fence();
+        mma_abt<D, BQ>(st, ka, C::BK * kRow, sq, BQ * kRow);
+        wg_commit();
+        mma_abt<D, BQ>(dpt, va, C::BK * kRow, sdo, BQ * kRow);
+        wg_commit();
+        wg_wait<1>();
+        keep(st);
+#pragma unroll
+        for (int e = 0; e < BQ / 2; ++e) {
+          const int tq = q0 + col_of(e);
+          const bool allowed = key + 8 * half_of(e) <= tq && tq < T_len;
+          st[e] = allowed ? fast_exp2(fmaf(st[e], scale2, -s_lse[col_of(e)] * kLog2e)) : 0.f;
+        }
+        to_frags<BQ>(pa, st);
+        wg_fence();
+        mma_ab<BQ, D>(dv_acc, pa, sdo, BQ * kRow);  // dV += P^T dO
+        wg_commit();
+        wg_wait<1>();
+        keep(dpt);
+#pragma unroll
+        for (int e = 0; e < BQ / 2; ++e) dpt[e] = st[e] * (dpt[e] - s_delta[col_of(e)]);
+        to_frags<BQ>(dsa, dpt);
+        wg_fence();
+        mma_ab<BQ, D>(dk_acc, dsa, sq, BQ * kRow);  // dK += dS^T Q
+        wg_commit();
+        wg_wait<0>();
+        keep(dk_acc);
+        keep(dv_acc);
+        keep(pa);
+        keep(dsa);
+      }
+      if (lane == 0) mbar_arrive(ring.empty(it));
+    }
+    const float one[2] = {1.f, 1.f};
+    store_rows<D>(dk + b * sd.b + h * sd.h, sd.t, dk_acc, key, T_len, scale, one);
+    store_rows<D>(dv + b * sd.b + h * sd.h, sd.t, dv_acc, key, T_len, 1.f, one);
   }
-  const float one[2] = {1.f, 1.f};
-  store_acc<D>(dq + b * sd.b + h * sd.h, sd.t, dq_acc, tq0 + r0, T_len, scale, one);
 }
 
-}  // namespace mma_path
+template <int D> struct Dq : Roles<D> {
+  static constexpr int BM = 64 * Roles<D>::kWG;  // query rows per block
+  static constexpr int BN = 64;                  // keys per stage
+  static constexpr int kStages = 3;
+  static constexpr int kQ = BM * D * 2;   // the Q tile, then the dO tile
+  static constexpr int kKV = BN * D * 2;  // K, then V, in each stage
+  static constexpr int kStage = 2 * kKV;
+  static constexpr int kBars = 2 * kQ + kStages * kStage;
+  static constexpr int kSmem = kBars + Ring<kStages>::kBytes + 1024;
+};
+
+// Grid (query tiles, B * H). The producer loads the block's Q and dO tiles once and streams the
+// key tiles up to the diagonal; each consumer warpgroup owns 64 query rows and keeps their dQ
+// in registers: S = Q K^T and dP = dO V^T, P and dS, then dQ += dS K.
+template <int D>
+__global__ void __launch_bounds__(Dq<D>::kThreads, 1)
+dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+          const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+          const float* __restrict__ lse, const float* __restrict__ delta, bf16* __restrict__ dq,
+          int H, int T_len, Strides sd, float scale) {
+  using C = Dq<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const Ring<C::kStages> ring{base + C::kBars};
+  auto stage = [&](int j) { return base + 2 * C::kQ + (j % C::kStages) * C::kStage; };
+
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int i = gridDim.x - 1 - blockIdx.x;  // the longest rows of each (b, h) first
+  const int q0 = i * C::BM;
+  const int n_k = min((q0 + C::BM - 1) / C::BN + 1, (T_len + C::BN - 1) / C::BN);
+  if (threadIdx.x == 0) ring.init(1, C::kConsumerWarps);
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  const int lane = threadIdx.x % 32;
+  if (wg == 0) {
+    reg_dealloc<C::kProducerRegs>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(ring.once(), 2 * C::kQ);
+      load_tile<D, C::BM>(base, &tm_q, ring.once(), q0, h, b);
+      load_tile<D, C::BM>(base + C::kQ, &tm_do, ring.once(), q0, h, b);
+      for (int j = 0; j < n_k; ++j) {
+        ring.wait_empty(j);
+        mbar_expect_tx(ring.full(j), C::kStage);
+        load_tile<D, C::BN>(stage(j), &tm_k, ring.full(j), j * C::BN, h, b);
+        load_tile<D, C::BN>(stage(j) + C::kKV, &tm_v, ring.full(j), j * C::BN, h, b);
+      }
+    }
+  } else {
+    reg_alloc<C::kConsumerRegs>();
+    const int c = wg - 1;
+    const int row = q0 + 64 * c + 16 * (threadIdx.x % 128 / 32) + lane / 4;  // and row + 8
+    const uint32_t qa = base + c * 64 * kRow;
+    const uint32_t da = qa + C::kQ;
+    const float scale2 = scale * kLog2e;
+    float lse2[2], dlt[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const bool in = row + 8 * r < T_len;
+      const long long at = static_cast<long long>(bh) * T_len + row + 8 * r;
+      lse2[r] = in ? lse[at] * kLog2e : 0.f;
+      dlt[r] = in ? delta[at] : 0.f;
+    }
+    float dq_acc[D / 2];
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) dq_acc[e] = 0.f;
+    float s[C::BN / 2];   // S, then P
+    float dp[C::BN / 2];  // dP, then dS
+    uint32_t dsa[C::BN / 16][4];
+    mbar_wait(ring.once(), 0);
+    for (int j = 0; j < n_k; ++j) {
+      ring.wait_full(j);
+      if (j * C::BN <= q0 + 64 * c + 63) {  // else every key of the tile is after every row
+        const uint32_t kt = stage(j);
+        wg_fence();
+        mma_abt<D, C::BN>(s, qa, C::BM * kRow, kt, C::BN * kRow);
+        wg_commit();
+        mma_abt<D, C::BN>(dp, da, C::BM * kRow, kt + C::kKV, C::BN * kRow);
+        wg_commit();
+        wg_wait<1>();
+        keep(s);
+#pragma unroll
+        for (int e = 0; e < C::BN / 2; ++e) {
+          const int t = row + 8 * half_of(e);
+          const bool allowed = j * C::BN + col_of(e) <= t && t < T_len;
+          s[e] = allowed ? fast_exp2(fmaf(s[e], scale2, -lse2[half_of(e)])) : 0.f;
+        }
+        wg_wait<0>();
+        keep(dp);
+#pragma unroll
+        for (int e = 0; e < C::BN / 2; ++e) dp[e] = s[e] * (dp[e] - dlt[half_of(e)]);
+        to_frags<C::BN>(dsa, dp);
+        wg_fence();
+        mma_ab<C::BN, D>(dq_acc, dsa, kt, C::BN * kRow);  // dQ += dS K
+        wg_commit();
+        wg_wait<0>();
+        keep(dq_acc);
+        keep(dsa);
+      }
+      if (lane == 0) mbar_arrive(ring.empty(j));
+    }
+    const float one[2] = {1.f, 1.f};
+    store_rows<D>(dq + b * sd.b + h * sd.h, sd.t, dq_acc, row, T_len, scale, one);
+  }
+}
+
+}  // namespace wgmma_path
 
 // ================================================================================ f32 path
 //
@@ -863,69 +1152,150 @@ Strides strides_at(const long long* s, int which) {
   return {s[3 * which], s[3 * which + 1], s[3 * which + 2]};
 }
 
-// Shared-memory bytes and threads of each kernel of a dtype.
-template <typename T, int D> struct Plan;
-template <int D> struct Plan<bf16, D> {
-  static constexpr int BM = mma_path::BM;
-  static constexpr int kThreads = mma_path::kThreads;
-  static constexpr int kFwd = 5 * mma_path::Smem<D>::kTile;   // q, 2 x (k, v)
-  // k, v, 2 x (q, dO), 2 x (lse, delta)
-  static constexpr int kDkdv = 6 * mma_path::Smem<D>::kTile + align128(4 * BM * 4);
-  static constexpr int kDq = 6 * mma_path::Smem<D>::kTile;    // q, dO, 2 x (k, v)
-  static constexpr auto fwd = mma_path::fwd_kernel<D>;
-  static constexpr auto dkdv = mma_path::dkdv_kernel<D>;
-  static constexpr auto dq = mma_path::dq_kernel<D>;
-};
-template <int D> struct Plan<float, D> {
-  static constexpr int BM = fma_path::BM;
-  static constexpr int kThreads = fma_path::kThreads;
-  static constexpr int kFwd = fma_path::Smem<D>::kFwdBytes;
-  static constexpr int kDkdv = fma_path::Smem<D>::kDkdvBytes;
-  static constexpr int kDq = fma_path::Smem<D>::kDqBytes;
-  static constexpr auto fwd = fma_path::fwd_kernel<D>;
-  static constexpr auto dkdv = fma_path::dkdv_kernel<D>;
-  static constexpr auto dq = fma_path::dq_kernel<D>;
-};
+// cuTensorMapEncodeTiled is a driver-API function: it is looked up through the runtime, so the
+// library links against nothing but the runtime.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-template <typename T, int D>
-int fwd(const void* q, const void* k, const void* v, void* out, void* lse, int B, int H,
-        int T_len, const long long* s, cudaStream_t stream) {
-  using P = Plan<T, D>;
-  if (int err = set_smem(P::fwd, P::kFwd)) return err;
-  const dim3 grid((T_len + P::BM - 1) / P::BM, B * H);
-  P::fwd<<<grid, P::kThreads, P::kFwd, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), static_cast<float*>(lse), H, T_len, strides_at(s, 0),
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A TMA map over one bf16 [B, T, H, D] operand read through its element strides s: boxes of
+// `rows` rows by 64 columns (one 128-byte swizzled row each), rows past T zero-filled.
+int tensor_map(CUtensorMap* map, const void* ptr, int B, int T_len, int H, int D, Strides s,
+               int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(T_len),
+                              static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s.t) * 2,
+                                 static_cast<cuuint64_t>(s.h) * 2,
+                                 static_cast<cuuint64_t>(s.b) * 2};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                            strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <int D>
+int fwd_bf16(const void* q, const void* k, const void* v, void* out, void* lse, int B, int H,
+             int T_len, const long long* s, cudaStream_t stream) {
+  using C = wgmma_path::Fwd<D>;
+  CUtensorMap mq, mk, mv;
+  if (int err = tensor_map(&mq, q, B, T_len, H, D, strides_at(s, 0), C::BM)) return err;
+  if (int err = tensor_map(&mk, k, B, T_len, H, D, strides_at(s, 1), C::BN)) return err;
+  if (int err = tensor_map(&mv, v, B, T_len, H, D, strides_at(s, 2), C::BN)) return err;
+  const auto kernel = wgmma_path::fwd_kernel<D>;
+  if (int err = set_smem(kernel, C::kSmem)) return err;
+  const dim3 grid((T_len + C::BM - 1) / C::BM, B * H);
+  kernel<<<grid, C::kThreads, C::kSmem, stream>>>(
+      mq, mk, mv, static_cast<bf16*>(out), static_cast<float*>(lse), H, T_len, strides_at(s, 3),
+      1.0f / sqrtf(static_cast<float>(D)));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int fwd_f32(const void* q, const void* k, const void* v, void* out, void* lse, int B, int H,
+            int T_len, const long long* s, cudaStream_t stream) {
+  using L = fma_path::Smem<D>;
+  const auto kernel = fma_path::fwd_kernel<D>;
+  if (int err = set_smem(kernel, L::kFwdBytes)) return err;
+  const dim3 grid((T_len + fma_path::BM - 1) / fma_path::BM, B * H);
+  kernel<<<grid, fma_path::kThreads, L::kFwdBytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(out), static_cast<float*>(lse), H, T_len, strides_at(s, 0),
       strides_at(s, 1), strides_at(s, 2), strides_at(s, 3), 1.0f / sqrtf(static_cast<float>(D)));
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int D>
-int bwd(const void* q, const void* k, const void* v, const void* out, const void* dout,
-        const void* lse, void* delta, void* dq, void* dk, void* dv, int B, int H, int T_len,
-        const long long* s, cudaStream_t stream) {
-  using P = Plan<T, D>;
-  const float scale = 1.0f / sqrtf(static_cast<float>(D));
+int launch_delta(const void* dout, const void* out, void* delta, int B, int H, int T_len,
+                 cudaStream_t stream) {
   const long long rows = static_cast<long long>(B) * T_len * H;
-  delta_kernel<T><<<static_cast<unsigned>((rows + 7) / 8), 256, 0, stream>>>(
+  const long long threads = rows * (D * static_cast<int>(sizeof(T)) / 16);
+  delta_kernel<T, D><<<static_cast<unsigned>((threads + 255) / 256), 256, 0, stream>>>(
       static_cast<const T*>(dout), static_cast<const T*>(out), static_cast<float*>(delta), H,
-      T_len, D, rows);
+      T_len, rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// strides: q, k, v, then dO, whose contiguous layout out, dq, dk and dv share
+template <int D>
+int bwd_bf16(const void* q, const void* k, const void* v, const void* out, const void* dout,
+             const void* lse, void* delta, void* dq, void* dk, void* dv, int B, int H, int T_len,
+             const long long* s, cudaStream_t stream) {
+  using KV = wgmma_path::Dkdv<D>;
+  using Q = wgmma_path::Dq<D>;
+  const float scale = 1.0f / sqrtf(static_cast<float>(D));
+  if (int err = launch_delta<bf16, D>(dout, out, delta, B, H, T_len, stream)) return err;
+  CUtensorMap mq, mk, mv, mdo;
+  if (int err = tensor_map(&mq, q, B, T_len, H, D, strides_at(s, 0), KV::BQ)) return err;
+  if (int err = tensor_map(&mk, k, B, T_len, H, D, strides_at(s, 1), KV::BK)) return err;
+  if (int err = tensor_map(&mv, v, B, T_len, H, D, strides_at(s, 2), KV::BK)) return err;
+  if (int err = tensor_map(&mdo, dout, B, T_len, H, D, strides_at(s, 3), KV::BQ)) return err;
+  const auto dkdv = wgmma_path::dkdv_kernel<D>;
+  if (int err = set_smem(dkdv, KV::kSmem)) return err;
+  dkdv<<<dim3((T_len + KV::BK - 1) / KV::BK, B * H), KV::kThreads, KV::kSmem, stream>>>(
+      mq, mk, mv, mdo, static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, T_len, strides_at(s, 3), scale);
   if (int err = static_cast<int>(cudaGetLastError())) return err;
-  if (int err = set_smem(P::dkdv, P::kDkdv)) return err;
-  if (int err = set_smem(P::dq, P::kDq)) return err;
-  const dim3 grid((T_len + P::BM - 1) / P::BM, B * H);
-  // strides: q, k, v, then dO, whose contiguous layout out, dq, dk and dv share
-  P::dkdv<<<grid, P::kThreads, P::kDkdv, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv), H, T_len,
-      strides_at(s, 0), strides_at(s, 1), strides_at(s, 2), strides_at(s, 3), scale);
-  if (int err = static_cast<int>(cudaGetLastError())) return err;
-  P::dq<<<grid, P::kThreads, P::kDq, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<T*>(dq), H, T_len, strides_at(s, 0),
+  if (int err = tensor_map(&mq, q, B, T_len, H, D, strides_at(s, 0), Q::BM)) return err;
+  if (int err = tensor_map(&mk, k, B, T_len, H, D, strides_at(s, 1), Q::BN)) return err;
+  if (int err = tensor_map(&mv, v, B, T_len, H, D, strides_at(s, 2), Q::BN)) return err;
+  if (int err = tensor_map(&mdo, dout, B, T_len, H, D, strides_at(s, 3), Q::BM)) return err;
+  const auto dq_k = wgmma_path::dq_kernel<D>;
+  if (int err = set_smem(dq_k, Q::kSmem)) return err;
+  dq_k<<<dim3((T_len + Q::BM - 1) / Q::BM, B * H), Q::kThreads, Q::kSmem, stream>>>(
+      mq, mk, mv, mdo, static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<bf16*>(dq), H, T_len, strides_at(s, 3), scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int bwd_f32(const void* q, const void* k, const void* v, const void* out, const void* dout,
+            const void* lse, void* delta, void* dq, void* dk, void* dv, int B, int H, int T_len,
+            const long long* s, cudaStream_t stream) {
+  using L = fma_path::Smem<D>;
+  const float scale = 1.0f / sqrtf(static_cast<float>(D));
+  if (int err = launch_delta<float, D>(dout, out, delta, B, H, T_len, stream)) return err;
+  const auto dkdv = fma_path::dkdv_kernel<D>;
+  const auto dq_k = fma_path::dq_kernel<D>;
+  if (int err = set_smem(dkdv, L::kDkdvBytes)) return err;
+  if (int err = set_smem(dq_k, L::kDqBytes)) return err;
+  const dim3 grid((T_len + fma_path::BM - 1) / fma_path::BM, B * H);
+  const auto* qf = static_cast<const float*>(q);
+  const auto* kf = static_cast<const float*>(k);
+  const auto* vf = static_cast<const float*>(v);
+  const auto* df = static_cast<const float*>(dout);
+  dkdv<<<grid, fma_path::kThreads, L::kDkdvBytes, stream>>>(
+      qf, kf, vf, df, static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<float*>(dk), static_cast<float*>(dv), H, T_len, strides_at(s, 0),
       strides_at(s, 1), strides_at(s, 2), strides_at(s, 3), scale);
+  if (int err = static_cast<int>(cudaGetLastError())) return err;
+  dq_k<<<grid, fma_path::kThreads, L::kDqBytes, stream>>>(
+      qf, kf, vf, df, static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<float*>(dq), H, T_len, strides_at(s, 0), strides_at(s, 1), strides_at(s, 2),
+      strides_at(s, 3), scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -937,10 +1307,10 @@ extern "C" int flash_causal_fwd_launch(const void* q, const void* k, const void*
                                        const long long* strides, void* stream) {
   if (B <= 0 || T <= 0 || H <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == kBF16 && D == 64) return fwd<bf16, 64>(q, k, v, out, lse, B, H, T, strides, st);
-  if (dtype == kBF16 && D == 128) return fwd<bf16, 128>(q, k, v, out, lse, B, H, T, strides, st);
-  if (dtype == kF32 && D == 64) return fwd<float, 64>(q, k, v, out, lse, B, H, T, strides, st);
-  if (dtype == kF32 && D == 128) return fwd<float, 128>(q, k, v, out, lse, B, H, T, strides, st);
+  if (dtype == kBF16 && D == 64) return fwd_bf16<64>(q, k, v, out, lse, B, H, T, strides, st);
+  if (dtype == kBF16 && D == 128) return fwd_bf16<128>(q, k, v, out, lse, B, H, T, strides, st);
+  if (dtype == kF32 && D == 64) return fwd_f32<64>(q, k, v, out, lse, B, H, T, strides, st);
+  if (dtype == kF32 && D == 128) return fwd_f32<128>(q, k, v, out, lse, B, H, T, strides, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -954,10 +1324,10 @@ extern "C" int flash_causal_bwd_launch(const void* q, const void* k, const void*
   if (B <= 0 || T <= 0 || H <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define FC_BWD_ARGS q, k, v, out, dout, lse, delta, dq, dk, dv, B, H, T, strides, st
-  if (dtype == kBF16 && D == 64) return bwd<bf16, 64>(FC_BWD_ARGS);
-  if (dtype == kBF16 && D == 128) return bwd<bf16, 128>(FC_BWD_ARGS);
-  if (dtype == kF32 && D == 64) return bwd<float, 64>(FC_BWD_ARGS);
-  if (dtype == kF32 && D == 128) return bwd<float, 128>(FC_BWD_ARGS);
+  if (dtype == kBF16 && D == 64) return bwd_bf16<64>(FC_BWD_ARGS);
+  if (dtype == kBF16 && D == 128) return bwd_bf16<128>(FC_BWD_ARGS);
+  if (dtype == kF32 && D == 64) return bwd_f32<64>(FC_BWD_ARGS);
+  if (dtype == kF32 && D == 128) return bwd_f32<128>(FC_BWD_ARGS);
 #undef FC_BWD_ARGS
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -9,7 +9,9 @@ Phases, each printing one JSON line:
   kernel_check / kernel_timing  hold each kernel (decode attention K1, causal
            flash attention K2 forward and backward) against its plain PyTorch
            version at the main paths' shapes, and time kernel, plain version
-           and a library call;
+           and a library call; K2 is checked at the edges of its tiles (T 127,
+           128, 129, 1501; D 64 and 128), its backward twice on the same
+           inputs for bit-identical gradients, and timed at T 1500 and 1501;
   reference  the debug MusicGen, greedy in f32: tokens on the card equal the
            CPU's; then a train step of a small K2-eligible LM in f32: CE and
            every gradient on the card match the CPU's, and
@@ -95,15 +97,23 @@ def phase_build():
     from audiocraft_tpu_torch.ops import _build
     t0 = time.perf_counter()
     logs = _build.build(_build.KERNELS)
-    report = [line.strip() for log in logs.values() for line in log.splitlines()
-              if "registers" in line or "spill" in line]
-    regs = sorted({int(line.split("Used ")[1].split()[0])
-                   for line in report if "Used " in line})
-    spills = [line for line in report if "spill" in line
-              and "0 bytes spill stores, 0 bytes spill loads" not in line]
+    regs, spills, warnings = set(), [], []
+    for log in logs.values():
+        function = ""
+        for line in log.splitlines():
+            if "Function properties for " in line:
+                function = line.split("Function properties for ")[1].strip()
+            elif "Used " in line and "registers" in line:
+                regs.add(int(line.split("Used ")[1].split()[0]))
+            elif "spill" in line and " 0 bytes spill stores, 0 bytes spill loads" \
+                    not in line:
+                spills.append(f"{function[-70:]}: {line.strip()}")
+            elif "warning" in line.lower():
+                warnings.append(line.strip()[-160:])
     emit("build", kernels=list(_build.KERNELS),
          seconds=round(time.perf_counter() - t0, 3),
-         registers_per_thread=regs, spill_lines=spills[:8])
+         registers_per_thread=sorted(regs), spill_lines=spills[:8],
+         ptxas_warnings=warnings[:8])
 
 
 def _cache(torch, B, S, H, D, kind, g):
@@ -236,20 +246,21 @@ def _flash_bytes_and_ops(B, T, H, D, backward):
 
 
 def phase_flash_kernels(torch):
-    """K2 forward and backward vs their plain version, then timings."""
-    import torch.nn.functional as F
+    """K2 forward and backward vs their plain version, a determinism check,
+    then timings at T 1500 and the training length 1501."""
     from audiocraft_tpu_torch.ops.flash_causal_attention import (
         _backward, _forward, flash_causal_attention,
         flash_causal_attention_reference)
-    from audiocraft_tpu_torch.utils.timing import time_ms
     H = 16
     g = torch.Generator("cuda").manual_seed(1)
     tol = {"float32": {"out": 1e-5, "grad": 1e-4},
            "bfloat16": {"out": 2e-2, "grad": 2e-2}}
     worst = {}
     checks = 0
-    cases = [(B, T, 64) for B in (1, 4, 16) for T in (1, 63, 64, 65, 300, 1500)]
-    cases.append((4, 300, 128))
+    # T at the edges of the 64- and 128-row tiles, and the training length
+    lengths = (1, 63, 64, 65, 127, 128, 129, 300, 1500, 1501)
+    cases = [(B, T, 64) for B in (1, 4, 16) for T in lengths]
+    cases += [(4, 300, 128), (2, 257, 128)]
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
         for B, T, D in cases:
@@ -277,16 +288,41 @@ def phase_flash_kernels(torch):
                 worst[f"{name}_{kind}"] = max(worst.get(f"{name}_{kind}", 0.0),
                                               err.max().item())
             checks += 1
+    # the backward is deterministic: two calls on the same inputs, bit for bit
+    B, T, D = 16, 1501, 64
+    _, (q, k, v) = _fused_qkv(torch, B, T, H, D, torch.bfloat16, g)
+    q, k, v = (t.detach() for t in (q, k, v))
+    dout = torch.randn(B, T, H, D, device="cuda", generator=g).to(torch.bfloat16)
+    out, lse = _forward(q, k, v)
+    first = _backward(q, k, v, out, lse, dout)
+    second = _backward(q, k, v, out, lse, dout)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        raise AssertionError("flash_causal_attention backward: two calls on the "
+                             "same inputs differ")
+    del first, second
     emit("kernel_check", kernel="flash_causal_attention", checks=checks,
-         shapes=dict(B=[1, 4, 16], T=[1, 63, 64, 65, 300, 1500], H=H, D=64,
-                     also=dict(B=4, T=300, D=128)),
+         shapes=dict(B=[1, 4, 16], T=list(lengths), H=H, D=64,
+                     also=[dict(B=4, T=300, D=128), dict(B=2, T=257, D=128)]),
+         backward_bit_identical=dict(B=B, T=T, H=H, D=D, dtype="bfloat16",
+                                     calls=2, identical=True),
          inputs="chunks of one fused [B, T, 3HD] tensor (row stride 3HD)",
          compared="output and dq, dk, dv from a seeded dO, against the plain "
                   "version in f32 on the same inputs",
          max_abs_err=worst, tolerance="|err| <= tol * (1 + |plain|)",
          tol=tol)
 
-    B, T, D = 16, 1500, 64
+    timings = {T: _time_flash(torch, 16, T, H, 64, g) for T in (1500, 1501)}
+    return worst, timings
+
+
+def _time_flash(torch, B, T, H, D, g):
+    """K2 forward and backward at one bf16 shape beside the plain version and
+    scaled_dot_product_attention, L2 flushed."""
+    import torch.nn.functional as F
+    from audiocraft_tpu_torch.ops.flash_causal_attention import (
+        _backward, _forward, flash_causal_attention_reference)
+    from audiocraft_tpu_torch.utils.timing import time_ms
     flush = 128 << 20
     _, (q, k, v) = _fused_qkv(torch, B, T, H, D, torch.bfloat16, g)
     q, k, v = (t.detach() for t in (q, k, v))
@@ -331,7 +367,7 @@ def phase_flash_kernels(torch):
          library="torch.nn.functional.scaled_dot_product_attention(is_causal="
                  "True) on [B, H, T, D] copies; backward alone through "
                  "torch.autograd.grad", **timing)
-    return worst, timing
+    return timing
 
 
 def phase_reference(torch):
@@ -878,7 +914,8 @@ def main() -> int:
 
     main_t = timings[0]
     k1_err = max(list(worst.values()) + list(variants_worst.values()))
-    fwd, bwd = flash_timing["forward"], flash_timing["backward"]
+    fwd, bwd = flash_timing[1500]["forward"], flash_timing[1500]["backward"]
+    fwd1501, bwd1501 = flash_timing[1501]["forward"], flash_timing[1501]["backward"]
     int4_t = int4_timings[0]  # the JAX script's length, S - S // 4
     print(json.dumps({"kernels": [{
         "name": "decode_attention", "route": "cuda",
@@ -903,7 +940,14 @@ def main() -> int:
         "backward_bound_by": bwd["bound_by"],
         "backward_library_ms": bwd["library_ms"],
         "shape": {"B": 16, "T": 1500, "H": 16, "D": 64,
-                  "dtype": "bfloat16"}}, {
+                  "dtype": "bfloat16"},
+        "design": "wgmma+tma",
+        "t1501": {"ms": fwd1501["ms"], "library_ms": fwd1501["library_ms"],
+                  "bound_ms": fwd1501["bound_ms"],
+                  "backward_ms": bwd1501["ms"],
+                  "backward_library_ms": bwd1501["library_ms"],
+                  "backward_bound_ms": bwd1501["bound_ms"]},
+        "replaced_design": "mma.sync+cp.async"}, {
         "name": "int4_decode_attention", "route": "cuda",
         "source": "audiocraft_tpu_torch/csrc/int4_decode_attention.cu",
         "replaces": "scripts/pallas_int4_decode.py:190",

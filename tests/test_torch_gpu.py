@@ -104,17 +104,21 @@ def test_greedy_tokens_on_card_match_cpu():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("T, D", [(1, 64), (63, 64), (64, 64), (65, 64),
-                                  (130, 64), (301, 128)])
+@pytest.mark.parametrize("B, H, T, D", [
+    (2, 3, 1, 64), (2, 3, 63, 64), (2, 3, 64, 64), (2, 3, 65, 64),
+    (2, 3, 127, 64), (2, 3, 128, 64), (2, 3, 129, 64), (2, 3, 130, 64),
+    (2, 3, 301, 128),
+    # B * H blocks per tile row beyond the card's 132 SMs: more than one wave
+    (9, 16, 129, 64), (9, 16, 257, 128)])
 @pytest.mark.parametrize("fused", [False, True])
-def test_flash_causal_kernel_matches_reference(dtype, T, D, fused):
-    """Forward and dq, dk, dv against the plain version, ragged T included;
-    `fused` feeds q, k, v as strided chunks of one [B, T, 3HD] tensor."""
+def test_flash_causal_kernel_matches_reference(dtype, B, H, T, D, fused):
+    """Forward and dq, dk, dv against the plain version at the edges of the
+    kernels' 64- and 128-row tiles, ragged T included; `fused` feeds q, k, v
+    as strided chunks of one [B, T, 3HD] tensor."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
     torch.manual_seed(0)
     dt = getattr(torch, dtype)
-    B, H = 2, 3
     if fused:
         x = torch.randn(B, T, 3 * H * D, device="cuda").to(dt).requires_grad_()
         q, k, v = (t.reshape(B, T, H, D) for t in x.chunk(3, dim=-1))
@@ -139,6 +143,25 @@ def test_flash_causal_kernel_matches_reference(dtype, T, D, fused):
         assert got.dtype == dt
         torch.testing.assert_close(got.float(), want, atol=grad_tol,
                                    rtol=grad_tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T, D", [(1501, 64), (300, 128)])
+def test_flash_causal_backward_is_bit_identical_across_calls(T, D):
+    """The backward keeps dQ out of float atomics: two calls on the same
+    inputs give the same dq, dk, dv bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    torch.manual_seed(0)
+    B, H = 2, 16
+    x = torch.randn(B, T, 3 * H * D, device="cuda").bfloat16().requires_grad_()
+    q, k, v = (t.reshape(B, T, H, D) for t in x.chunk(3, dim=-1))
+    dout = torch.randn(B, T, H, D, device="cuda").bfloat16()
+    first = torch.autograd.grad(flash_causal_attention(q, k, v), (q, k, v), dout)
+    second = torch.autograd.grad(flash_causal_attention(q, k, v), (q, k, v), dout)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.gpu
