@@ -2,10 +2,11 @@
 
 Each `csrc/<name>.cu` exposes a plain C interface and compiles on its own into
 `build/kernels/lib<name>-<digest>.so` at the root of the checkout; the digest
-covers the source and the flags, so an edited source is rebuilt and a stale
-library is never loaded. Nothing is compiled when a module is imported: the
-first launch on a CUDA tensor builds what it needs, and `build()` compiles
-several sources at once (one nvcc process each).
+covers the source, every shared header `csrc/*.cuh` and the flags, so an
+edited source or header is rebuilt and a stale library is never loaded.
+Nothing is compiled when a module is imported: the first launch on a CUDA
+tensor builds what it needs, and `build()` compiles several sources at once
+(one nvcc process each).
 """
 import ctypes
 import hashlib
@@ -34,9 +35,11 @@ def _nvcc() -> str:
     return path
 
 
-def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+def library_path(name: str, csrc: Path = CSRC) -> Path:
+    digest = hashlib.sha1((csrc / f"{name}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 

@@ -3,8 +3,14 @@
 Counterpart of `audiocraft_tpu/ops/flash_attention.py::decode_attention`, the
 Pallas TPU kernel. On CUDA tensors `decode_attention` launches the hand-written
 Hopper kernel `csrc/decode_attention.cu` (see its header for the design: it is
-bound by the HBM bytes of the valid cache prefix); on CPU tensors it computes
-the same function with `decode_attention_reference`. There is no other route.
+bound by the HBM bytes of the valid window); on CPU tensors it computes the
+same function with `decode_attention_reference`. There is no other route.
+
+The kernel splits the window across the blocks of a thread-block cluster:
+`split_count` chooses the cluster size, `tile_shares` gives each block's
+slots, and `decode_attention_split` is the plain version of that split (the
+per-share partials of the online softmax and their combine, in the kernel's
+order), which the CPU tests hold against the TPU kernel.
 
 Layouts: q [B, H, D]; k/v caches [B, S, H, D] (f32, bf16, or int8 with
 per-(step, head) bf16 scales [B, S, H] or [B, S, H, 1]); `length` a host int,
@@ -12,6 +18,8 @@ the number of valid slots (the current step is the last valid one). Returns
 [B, H, D] in q's dtype.
 """
 import ctypes
+import functools
+import math
 import typing as tp
 
 import torch
@@ -21,6 +29,12 @@ from . import _build
 NEG_INF = -1e30
 # online-softmax max floor of the TPU kernel (`_M_FLOOR`)
 M_FLOOR = -1e4
+LOG2E = 1.4426950408889634
+# the kernels' split-S: slots per tile, the largest (portable) cluster, and
+# the blocks per SM the cluster size aims for
+TILE = 32
+MAX_SPLIT = 8
+BLOCKS_PER_SM = 2
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _launch_fn = None
@@ -31,6 +45,59 @@ def _window(length: int, past_context: tp.Optional[int]) -> tp.Tuple[int, int]:
     s >= length - 1 - past_context (`make_causal_bias` with q_pos = length-1)."""
     lo = 0 if past_context is None else max(0, length - 1 - past_context)
     return lo, length
+
+
+def split_count(B: int, H: int, window: int, sm_count: int,
+                tile: int = TILE) -> int:
+    """Blocks per (row, head) of the decode kernels (their cluster size): the
+    fewest that put BLOCKS_PER_SM blocks on every SM, at most MAX_SPLIT and
+    at most one per `tile` slots of the window (so at least 1 and never more
+    than the window's slots)."""
+    want = -(-BLOCKS_PER_SM * sm_count // (B * H))
+    return max(1, min(MAX_SPLIT, want, window // tile))
+
+
+def tile_shares(lo: int, hi: int, n: int,
+                tile: int = TILE) -> tp.List[tp.Tuple[int, int]]:
+    """Slots [begin, end) of each of the n blocks over the window [lo, hi),
+    as the kernels deal it (`decode_common.cuh::tile_share`): the window's
+    tiles (`tile` slots at multiples of `tile`) in contiguous shares of
+    ceil(tiles / n); trailing shares may be empty (begin == end)."""
+    first, last = lo // tile, -(-hi // tile)
+    per = -(-(last - first) // n)
+    shares = []
+    for rank in range(n):
+        begin = first + rank * per
+        end = min(last, begin + per)
+        shares.append((max(begin * tile, lo), min(end * tile, hi))
+                      if end > begin else (hi, hi))
+    return shares
+
+
+def tiles(begin: int, end: int,
+          tile: int = TILE) -> tp.Iterator[tp.Tuple[int, int]]:
+    """The slots [a, b) of each tile that meets [begin, end)."""
+    if begin >= end:
+        return
+    for base in range(begin - begin % tile, end, tile):
+        yield max(base, begin), min(base + tile, end)
+
+
+def combine_shares(parts: tp.Sequence[tp.Tuple[torch.Tensor, torch.Tensor,
+                                               torch.Tensor]]) -> torch.Tensor:
+    """The cluster's combine (`decode_common.cuh::cluster_combine_store`):
+    base-2 partials (m [B, H], l [B, H], acc [B, H, D]) rescaled to their
+    common max and summed in rank order; returns acc / l in f32."""
+    m = parts[0][0].clamp_min(M_FLOOR * LOG2E)
+    for part in parts[1:]:
+        m = torch.maximum(m, part[0])
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(parts[0][2])
+    for pm, pl, pacc in parts:
+        w = torch.exp2(pm - m)
+        l = l + pl * w
+        acc = acc + pacc * w[..., None]
+    return acc / l[..., None]
 
 
 def _check(q, k_cache, v_cache, length, past_context, k_scale, v_scale):
@@ -84,12 +151,56 @@ def decode_attention_reference(q: torch.Tensor, k_cache: torch.Tensor,
     return out.to(q.dtype)
 
 
+def decode_attention_split(q: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor, length: int, n_split: int,
+                           past_context: tp.Optional[int] = None,
+                           k_scale: tp.Optional[torch.Tensor] = None,
+                           v_scale: tp.Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """The kernel's arithmetic in plain PyTorch: n_split shares of the window
+    (`tile_shares`), each an online softmax over its tiles in base 2 (one max
+    and one rescale per tile, the int8 scales applied to the score and to the
+    weight), then `combine_shares`."""
+    _check(q, k_cache, v_cache, length, past_context, k_scale, v_scale)
+    B, S, H, D = k_cache.shape
+    lo, hi = _window(length, past_context)
+    qs = q.float() * (LOG2E / math.sqrt(D))
+    if k_scale is not None:
+        k_scale = k_scale.reshape(B, S, H).float()
+        v_scale = v_scale.reshape(B, S, H).float()
+    parts = []
+    for begin, end in tile_shares(lo, hi, n_split):
+        m = torch.full((B, H), M_FLOOR * LOG2E)
+        l = torch.zeros(B, H)
+        acc = torch.zeros(B, H, D)
+        for a, b in tiles(begin, end):
+            scores = torch.einsum("bhd,bshd->bhs", qs, k_cache[:, a:b].float())
+            p_scale = 1.0
+            if k_scale is not None:
+                scores = scores * k_scale[:, a:b].transpose(1, 2)
+                p_scale = v_scale[:, a:b].transpose(1, 2)
+            m_new = torch.maximum(m, scores.amax(dim=-1))
+            alpha = torch.exp2(m - m_new)
+            p = torch.exp2(scores - m_new[..., None])
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhs,bshd->bhd", p * p_scale, v_cache[:, a:b].float())
+            m = m_new
+        parts.append((m, l, acc))
+    return combine_shares(parts).to(q.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _launcher():
     global _launch_fn
     if _launch_fn is None:
         fn = _build.load("decode_attention").decode_attention_launch
         fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
-                       + [ctypes.c_void_p])
+                       + [ctypes.c_void_p, ctypes.c_int])
         fn.restype = ctypes.c_int
         _launch_fn = fn
     return _launch_fn
@@ -103,7 +214,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     """softmax(q.K^T/sqrt(D) + validity mask).V for one query per (row, head).
 
     CPU tensors take `decode_attention_reference`; CUDA tensors launch the
-    kernel on the current stream (no synchronisation) or raise."""
+    kernel on the current stream (no synchronisation), in clusters of
+    `split_count` blocks, or raise."""
     if q.device.type == "cpu":
         return decode_attention_reference(q, k_cache, v_cache, length,
                                           past_context, k_scale, v_scale)
@@ -131,6 +243,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
         raise ValueError("k/v caches must be 16-byte aligned")
     lo, hi = _window(length, past_context)
+    n_split = split_count(B, H, hi - lo, _sm_count(q.device.index))
     out = torch.empty_like(q)
     err = _launcher()(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
@@ -138,7 +251,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         v_scale.data_ptr() if v_scale is not None else None,
         out.data_ptr(), B, S, H, D, lo, hi, _DTYPE_CODES[q.dtype],
         _DTYPE_CODES[k_cache.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+        torch.cuda.current_stream(q.device).cuda_stream, n_split)
     if err:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
                            f"error {err}")

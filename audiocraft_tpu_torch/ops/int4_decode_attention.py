@@ -20,8 +20,12 @@ dot_lo * ks[plane 0] + dot_hi * ks[plane 1] in f32; valid slots s < length
 and, with a window, s >= length - 1 - past_context; the softmax max floored
 at -1e4; the weights e * vs per plane rounded to bf16 before the V product;
 out = acc / l in q's dtype. The TPU kernel keeps a running max per block of
-256 slots; the plain version and the CUDA kernel take one max over the whole
-window, which changes the bf16 rounding of the weights by at most one ulp.
+256 slots and the CUDA kernel one per tile of 128 slots (`TILE`), each block
+of a cluster over its share of the window, so their bf16 weights follow a
+running max; the plain version takes one max over the whole window, which
+changes the bf16 rounding of a weight by at most one ulp.
+`int4_decode_attention_split` is the plain version of the kernel's split
+(`decode_attention.tile_shares`, per-tile running max, `combine_shares`).
 """
 import ctypes
 import math
@@ -30,11 +34,12 @@ import typing as tp
 import torch
 
 from . import _build
+from .decode_attention import (LOG2E, _sm_count, combine_shares, split_count,
+                               tile_shares, tiles)
 from .quant import div_scalar
 
 M_FLOOR = -1e4
-# the kernel keeps two f32 rows of the window in shared memory (227 KB a block)
-MAX_WINDOW = 28 * 1024
+TILE = 128  # slots per tile of the kernel (and per running max)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _launch_fn = None
@@ -133,12 +138,55 @@ def int4_decode_attention_reference(q: torch.Tensor, k4: torch.Tensor,
     return (out / e.sum(dim=1)[..., None]).to(q.dtype)
 
 
+def int4_decode_attention_split(q: torch.Tensor, k4: torch.Tensor,
+                                v4t: torch.Tensor, k_scale: torch.Tensor,
+                                v_scale: torch.Tensor, length: int,
+                                n_split: int,
+                                past_context: tp.Optional[int] = None
+                                ) -> torch.Tensor:
+    """The kernel's arithmetic in plain PyTorch: n_split shares of the window
+    (`tile_shares`), each an online softmax over its tiles in base 2 whose
+    bf16 weights e * vs follow the running max, then `combine_shares`."""
+    _check(q, k4, v4t, k_scale, v_scale, length, past_context)
+    B, H, D = q.shape
+    D2 = D // 2
+    lo, hi = _window(length, past_context)
+    qs = (q.float() * (1.0 / math.sqrt(D))).to(torch.bfloat16).float()
+    parts = []
+    for begin, end in tile_shares(lo, hi, n_split, TILE):
+        m = torch.full((B, H), M_FLOOR * LOG2E)
+        l = torch.zeros(B, H)
+        acc = torch.zeros(B, H, D)
+        for a, b in tiles(begin, end, TILE):
+            n = b - a
+            k_lo, k_hi = _nibbles(k4[:, a:b].reshape(B, n, H, D2))
+            ks = k_scale[:, a:b].float()                    # [B, n, 2, H]
+            scores = (torch.einsum("bshd,bhd->bhs", k_lo, qs[..., :D2])
+                      * ks[:, :, 0].transpose(1, 2)
+                      + torch.einsum("bshd,bhd->bhs", k_hi, qs[..., D2:])
+                      * ks[:, :, 1].transpose(1, 2)) * LOG2E
+            m_new = torch.maximum(m, scores.amax(dim=-1))
+            alpha = torch.exp2(m - m_new)
+            e = torch.exp2(scores - m_new[..., None])       # [B, H, n]
+            l = l * alpha + e.sum(dim=-1)
+            vs = v_scale[:, a:b].float()
+            g_lo = (e * vs[:, :, 0].transpose(1, 2)).to(torch.bfloat16).float()
+            g_hi = (e * vs[:, :, 1].transpose(1, 2)).to(torch.bfloat16).float()
+            v_lo, v_hi = _nibbles(v4t[:, :, a:b].reshape(B, H, D2, n))
+            acc = acc * alpha[..., None] + torch.cat(
+                [torch.einsum("bhds,bhs->bhd", v_lo, g_lo),
+                 torch.einsum("bhds,bhs->bhd", v_hi, g_hi)], dim=-1)
+            m = m_new
+        parts.append((m, l, acc))
+    return combine_shares(parts).to(q.dtype)
+
+
 def _launcher():
     global _launch_fn
     if _launch_fn is None:
         fn = _build.load("int4_decode_attention").int4_decode_attention_launch
         fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
-                       + [ctypes.c_void_p])
+                       + [ctypes.c_void_p, ctypes.c_int])
         fn.restype = ctypes.c_int
         _launch_fn = fn
     return _launch_fn
@@ -153,7 +201,8 @@ def int4_decode_attention(q: torch.Tensor, k4: torch.Tensor,
     query per (row, head): q [B, H, D] -> [B, H, D] in q's dtype.
 
     CPU tensors take `int4_decode_attention_reference`; CUDA tensors launch
-    the kernel on the current stream (no synchronisation) or raise."""
+    the kernel on the current stream (no synchronisation), in clusters of
+    `split_count` blocks, or raise."""
     if q.device.type == "cpu":
         return int4_decode_attention_reference(q, k4, v4t, k_scale, v_scale,
                                                length, past_context)
@@ -177,13 +226,13 @@ def int4_decode_attention(q: torch.Tensor, k4: torch.Tensor,
     if k4.data_ptr() % 16 or v4t.data_ptr() % 16:
         raise ValueError("packed caches must be 16-byte aligned")
     lo, hi = _window(length, past_context)
-    if hi - lo > MAX_WINDOW:
-        raise ValueError(f"window of {hi - lo} slots exceeds {MAX_WINDOW}")
+    n_split = split_count(B, H, hi - lo, _sm_count(q.device.index), TILE)
     out = torch.empty_like(q)
     err = _launcher()(
         q.data_ptr(), k4.data_ptr(), v4t.data_ptr(), k_scale.data_ptr(),
         v_scale.data_ptr(), out.data_ptr(), B, S, H, D, lo, hi,
-        _DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+        _DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
+        n_split)
     if err:
         raise RuntimeError(f"int4_decode_attention kernel launch failed: CUDA "
                            f"error {err}")

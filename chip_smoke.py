@@ -9,7 +9,10 @@ Phases, each printing one JSON line:
   kernel_check / kernel_timing  hold each kernel (decode attention K1, causal
            flash attention K2 forward and backward) against its plain PyTorch
            version at the main paths' shapes, and time kernel, plain version
-           and a library call; K2 is checked at the edges of its tiles (T 127,
+           and a library call; K1 also over cases that reach every cluster
+           size 1..8 and every load path (B 1-512, S 504 and 1500, H 5/16/24,
+           D 64/66/128, windows 0 and 64) and is timed at B 4 bf16, B 32 int8
+           and B 512 int8 and bf16; K2 is checked at the edges of its tiles (T 127,
            128, 129, 1501; D 64 and 128), its backward twice on the same
            inputs for bit-identical gradients, and timed at T 1500 and 1501;
   reference  the debug MusicGen, greedy in f32: tokens on the card equal the
@@ -27,8 +30,9 @@ Phases, each printing one JSON line:
            and falling CE and that every self-attention forward and backward
            launched K2;
   int4_kernel_check / int4_kernel_timing  hold the int4-KV decode attention
-           K3 against its plain version (B 1, 4, 512; D 64, 128; S 504, 512;
-           lengths 1, 33, 384, S; with and without a window of 7), then time
+           K3 against its plain version (B 1, 2, 4, 512; D 64, 128; S 504, 512;
+           lengths 1, 33, 384, S; with and without a window of 7; and a
+           30,000-slot cache with windows past 28,672 slots), then time
            it at scripts/pallas_int4_decode.py's shape (B 512, H 16, S 512,
            D 64) beside its plain version and K1 over the int8 and the bf16
            cache of the same K/V;
@@ -136,7 +140,7 @@ def _kernel_bytes_and_ops(B, H, D, length, kind, q_dtype_bytes):
     ops = 4 * n * D  # q.k and p.v multiply-adds
     if kind == "int8":
         bytes_ += 2 * n * 2       # bf16 scales
-        ops += 2 * n * D          # dequantization
+        ops += 2 * n              # one scale on each score and weight
     return bytes_, ops
 
 
@@ -181,19 +185,74 @@ def check_decode_attention(torch, batches, S, path, seed=0):
     return worst
 
 
+def check_decode_attention_splits(torch, seed=5):
+    """K1 vs its plain version over the cases that reach every cluster size
+    1..8 of `split_count` and every load path: B 1, 2, 4 and 512; S 504 and
+    1500; (H, D) (16, 64), (5, 66) (rows 4- or 2-byte aligned) and (24, 128);
+    lengths 1, 33, 100, 130, 200, 250, S - 1 and S; windows of 0 and 64 at
+    the end of the long cache and of 64 at S // 2; f32, bf16 and int8
+    caches. Emits one `kernel_check` line; returns the worst error per
+    cache."""
+    from audiocraft_tpu_torch.ops.decode_attention import (
+        _sm_count, _window, decode_attention, decode_attention_reference,
+        split_count)
+    g = torch.Generator("cuda").manual_seed(seed)
+    shapes = [(B, S, H, D) for B in (1, 2, 4) for S in (504, 1500)
+              for H, D in ((16, 64), (5, 66), (24, 128))] + [(512, 504, 16, 64)]
+    worst, splits, checks = {}, set(), 0
+    for B, S, H, D in shapes:
+        cases = [(length, None) for length in
+                 (1, 33, 100, 130, 200, 250, S - 1, S)]
+        cases += [(S, 0), (S, 64), (S // 2, 64)]
+        for kind in ("float32", "bfloat16", "int8"):
+            q_dtype = torch.float32 if kind == "float32" else torch.bfloat16
+            q = torch.randn(B, H, D, device="cuda", generator=g).to(q_dtype)
+            k, v, scales = _cache(torch, B, S, H, D, kind, g)
+            for length, window in cases:
+                lo, hi = _window(length, window)
+                splits.add(split_count(B, H, hi - lo, _sm_count(0)))
+                out = decode_attention(q, k, v, length, past_context=window,
+                                       **scales)
+                torch.cuda.synchronize()
+                ref = decode_attention_reference(q, k, v, length,
+                                                 past_context=window, **scales)
+                err = (out.float() - ref.float()).abs().max().item()
+                if not err <= K1_TOL[kind]:
+                    raise AssertionError(
+                        f"decode_attention B={B} S={S} H={H} D={D} {kind} "
+                        f"length={length} window={window}: max abs err {err} "
+                        f"> {K1_TOL[kind]}")
+                worst[kind] = max(worst.get(kind, 0.0), err)
+                checks += 1
+            del k, v, scales
+    if splits != set(range(1, 9)):
+        raise AssertionError(f"the split cases reached cluster sizes "
+                             f"{sorted(splits)}, not 1..8")
+    emit("kernel_check", kernel="decode_attention", path="splits",
+         checks=checks, shapes=[dict(B=B, S=S, H=H, D=D)
+                                for B, S, H, D in shapes],
+         lengths=[1, 33, 100, 130, 200, 250, "S-1", "S"],
+         windows=[["S", 0], ["S", 64], ["S//2", 64]],
+         cluster_sizes=sorted(splits), max_abs_err=worst, tolerance=K1_TOL)
+    return worst
+
+
 def phase_kernels(torch, S):
     """K1 vs its plain version at the slice path's shapes, then timings."""
     import torch.nn.functional as F
     from audiocraft_tpu_torch.ops.decode_attention import (
-        decode_attention, decode_attention_reference)
+        _sm_count, decode_attention, decode_attention_reference, split_count)
     from audiocraft_tpu_torch.utils.timing import time_ms
     H, D = 16, 64
     worst = check_decode_attention(torch, (4, 8, 32, 64), S, "slice")
+    for kind, err in check_decode_attention_splits(torch).items():
+        worst[kind] = max(worst[kind], err)
     g = torch.Generator("cuda").manual_seed(0)
 
     timings = []
     for B, kind, length in ((32, "int8", S), (4, "bfloat16", S),
-                            (32, "int8", S // 2)):
+                            (32, "int8", S // 2), (512, "int8", S),
+                            (512, "bfloat16", S)):
         q = torch.randn(B, H, D, device="cuda", generator=g).to(torch.bfloat16)
         k, v, scales = _cache(torch, B, S, H, D, kind, g)
         flush = 128 << 20  # > 50 MB of L2
@@ -213,7 +272,9 @@ def phase_kernels(torch, S):
                               flush_bytes=flush)
         nbytes, ops = _kernel_bytes_and_ops(B, H, D, length, kind, 2)
         bound = max(nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS) * 1e3
+        del kd, vd, kl, vl
         timings.append(dict(B=B, S=S, H=H, D=D, length=length, cache=kind,
+                            n_split=split_count(B, H, length, _sm_count(0)),
                             ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                             bound_ms=bound,
                             bound_by="bytes" if nbytes / HBM_BYTES_PER_S
@@ -648,33 +709,36 @@ def phase_int4_kernels(torch):
     H, tol = 16, 1e-2
     g = torch.Generator("cuda").manual_seed(4)
     worst, checks = 0.0, 0
-    for B in (1, 4, 512):
-        for D in (64, 128):
-            for S in (504, 512):
-                k, v = (torch.randn(B, S, H, D, device="cuda", generator=g)
-                        .to(torch.bfloat16) for _ in range(2))
-                q = torch.randn(B, H, D, device="cuda",
-                                generator=g).to(torch.bfloat16)
-                packed = quant_pack_kv(k, v)
-                for length in (1, 33, 384, S):
-                    for window in (None, 7):
-                        out = int4_decode_attention(q, *packed, length, window)
-                        torch.cuda.synchronize()
-                        ref = int4_decode_attention_reference(
-                            q, *packed, length, window).float()
-                        err = (out.float() - ref).abs()
-                        if not bool((err <= tol * ref.abs().clamp_min(1.0)).all()):
-                            raise AssertionError(
-                                f"int4_decode_attention B={B} D={D} S={S} "
-                                f"length={length} window={window}: max abs "
-                                f"err {err.max().item()} beyond "
-                                f"{tol} * max(1, |plain|)")
-                        worst = max(worst, err.max().item())
-                        checks += 1
-                del k, v, packed
+    # (B, D, S, lengths, windows); the last case's windows pass the 28,672
+    # slots the kernel's earlier design held in shared memory
+    cases = [(B, D, S, (1, 33, 384, S), (None, 7)) for B in (1, 2, 4, 512)
+             for D in (64, 128) for S in (504, 512)]
+    cases.append((2, 64, 30_000, (30_000, 29_001), (None, 7, 28_800)))
+    for B, D, S, lengths, windows in cases:
+        k, v = (torch.randn(B, S, H, D, device="cuda", generator=g)
+                .to(torch.bfloat16) for _ in range(2))
+        q = torch.randn(B, H, D, device="cuda", generator=g).to(torch.bfloat16)
+        packed = quant_pack_kv(k, v)
+        for length in lengths:
+            for window in windows:
+                out = int4_decode_attention(q, *packed, length, window)
+                torch.cuda.synchronize()
+                ref = int4_decode_attention_reference(
+                    q, *packed, length, window).float()
+                err = (out.float() - ref).abs()
+                if not bool((err <= tol * ref.abs().clamp_min(1.0)).all()):
+                    raise AssertionError(
+                        f"int4_decode_attention B={B} D={D} S={S} "
+                        f"length={length} window={window}: max abs err "
+                        f"{err.max().item()} beyond {tol} * max(1, |plain|)")
+                worst = max(worst, err.max().item())
+                checks += 1
+        del k, v, packed
     emit("int4_kernel_check", kernel="int4_decode_attention", checks=checks,
-         shapes=dict(B=[1, 4, 512], H=H, D=[64, 128], S=[504, 512],
-                     lengths=[1, 33, 384, "S"], window=[None, 7]),
+         shapes=dict(B=[1, 2, 4, 512], H=H, D=[64, 128], S=[504, 512],
+                     lengths=[1, 33, 384, "S"], window=[None, 7],
+                     long=dict(B=2, D=64, S=30_000, lengths=[30_000, 29_001],
+                               window=[None, 7, 28_800])),
          inputs="seeded bf16 K/V packed by quant_pack_kv, bf16 q",
          max_abs_err=worst, tolerance="|err| <= 1e-2 * max(1, |plain|)")
 
@@ -920,13 +984,19 @@ def main() -> int:
     print(json.dumps({"kernels": [{
         "name": "decode_attention", "route": "cuda",
         "source": "audiocraft_tpu_torch/csrc/decode_attention.cu",
-        "replaces": "audiocraft_tpu/ops/flash_attention.py:94",
+        "replaces": "audiocraft_tpu/ops/flash_attention.py:95",
         "launches": launches, "max_abs_err": k1_err,
         "ms": main_t["ms"], "plain_ms": main_t["plain_ms"],
         "bound_ms": main_t["bound_ms"], "bound_by": main_t["bound_by"],
         "library_ms": main_t["library_ms"],
         "shape": {k: main_t[k] for k in ("B", "S", "H", "D", "length",
-                                          "cache")}}, {
+                                          "cache")},
+        "design": "cluster split-S + cp.async ring + scale folding",
+        "timings": [{k: t[k] for k in ("B", "length", "cache", "n_split",
+                                       "ms", "plain_ms", "library_ms",
+                                       "bound_ms", "roofline_share")}
+                    for t in timings],
+        "replaced_design": "block per (head, row), register loads"}, {
         "name": "flash_causal_attention", "route": "cuda",
         "source": "audiocraft_tpu_torch/csrc/flash_causal_attention.cu",
         "replaces": "audiocraft_tpu/ops/attention.py:65",
@@ -956,7 +1026,10 @@ def main() -> int:
         "bound_ms": int4_t["bound_ms"], "bound_by": int4_t["bound_by"],
         "library_ms": None, "k1_int8_ms": int4_t["k1_int8_ms"],
         "k1_bf16_ms": int4_t["k1_bf16_ms"],
-        "shape": {k: int4_t[k] for k in ("B", "S", "H", "D", "length")}}]}),
+        "shape": {k: int4_t[k] for k in ("B", "S", "H", "D", "length")},
+        "design": "cluster split-S + cp.async ring, running max per tile",
+        "replaced_design": "block per (head, row), three phases over the "
+                           "window in shared memory"}]}),
         flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

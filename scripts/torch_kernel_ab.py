@@ -1,62 +1,84 @@
 #!/usr/bin/env python3
-"""Time variants of the causal flash-attention kernel source against each
-other on one card, in one process.
+"""Time variants of one kernel source against each other on one card, in one
+process.
 
     python3 scripts/torch_kernel_ab.py A.cu B.cu [...] [--shape 16,1500,16,64]
+    python3 scripts/torch_kernel_ab.py --kernel decode_attention A.cu B.cu
+    python3 scripts/torch_kernel_ab.py --kernel int4_decode_attention A.cu B.cu
 
-Each source must export the C interface of
-`audiocraft_tpu_torch/csrc/flash_causal_attention.cu`. Every variant is
-compiled with the port's nvcc flags into its own library under
-`build/kernels/ab/`, then run on the same bf16 inputs (q, k, v as chunks of
-one fused [B, T, 3HD] tensor): forward, then backward, each the mean of 30
-back-to-back launches between CUDA events after a warm-up. The variants run
-in turns, first to last and then last to first, so that a drift of the card
-shows as a difference between a variant's two rows. Prints one JSON line per
-run with the largest difference of its outputs and gradients from the first
-variant's, and the card's name and power limit. Needs one CUDA card.
+Each source must export the C interface of the same file under
+`audiocraft_tpu_torch/csrc/` (`--kernel`, default flash_causal_attention).
+Every variant is compiled with the port's nvcc flags (and `-I csrc`, for the
+shared headers) into its own library under `build/kernels/ab/`, then run on
+the same inputs. The variants run in turns, first to last and then last to
+first, so that a drift of the card shows as a difference between a variant's
+two rows. Prints one JSON line per run and case with the largest difference
+of its outputs from the first variant's, and the card's name and power limit.
+Needs one CUDA card.
+
+  flash_causal_attention  bf16 q, k, v as chunks of one fused [B, T, 3HD]
+      tensor (--shape B,T,H,D): forward, then backward, each the mean of 30
+      back-to-back launches between CUDA events after a warm-up.
+  decode_attention  K1 at MusicGen-small's decode shape (H 16, D 64, cache
+      S 504, bf16 q): B 4 over a bf16 cache, B 32 and B 512 over an int8
+      cache, B 512 over a bf16 cache, all at length 504 (or --cases
+      B:cache:length,...). A source whose `decode_attention_launch` takes
+      `n_split` gets the wrapper's `split_count` (or --split); an older one
+      gets none.
+  int4_decode_attention  K3 at scripts/pallas_int4_decode.py's shape
+      (B 512, H 16, S 512, D 64, bf16 q) at lengths 384 and 512; `n_split`
+      as for decode_attention.
+For the decode kernels each time is `utils.timing.time_ms` (median of 50
+calls, each with its own CUDA events, L2 flushed), as in `chip_smoke.py`.
 """
 import argparse
 import ctypes
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+DECODE_CASES = "4:bfloat16:504,32:int8:504,512:int8:504,512:bfloat16:504"
 
 
-def main() -> int:
-    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("sources", nargs="+")
-    parser.add_argument("--shape", default="16,1500,16,64",
-                        help="B,T,H,D of the bf16 inputs")
-    parser.add_argument("--calls", type=int, default=30)
-    args = parser.parse_args()
-    sys.path.insert(0, str(ROOT))
-    import torch
-
+def _compile(sources):
+    """A ctypes library for each source, compiled in parallel."""
     from audiocraft_tpu_torch.ops import _build
-
-    if not torch.cuda.is_available():
-        print("torch_kernel_ab: no CUDA device is available", file=sys.stderr)
-        return 1
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, timeout=60).stdout.strip()
     out_dir = _build.BUILD_DIR / "ab"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = []
-    for i, src in enumerate(args.sources):
+    for i, src in enumerate(sources):
         lib = out_dir / f"variant{i}.so"
         procs.append((subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), src],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib))
-    fns = []
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o",
+             str(lib), src], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True), lib))
+    libs = []
     for proc, lib in procs:
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {lib}:\n{log}")
-        cdll = ctypes.CDLL(str(lib))
+        libs.append(ctypes.CDLL(str(lib)))
+    return libs
+
+
+def _takes_split(src: str, symbol: str) -> bool:
+    """Whether the source's C function `symbol` takes an `n_split` argument."""
+    match = re.search(r'extern "C" int ' + symbol + r"\s*\(([^)]*)\)",
+                      Path(src).read_text())
+    return bool(match and "n_split" in match.group(1))
+
+
+def _in_turns(n):
+    order = list(range(n))
+    return order + order[::-1]
+
+
+def ab_flash(torch, args, card):
+    fns = []
+    for cdll in _compile(args.sources):
         fwd, bwd = cdll.flash_causal_fwd_launch, cdll.flash_causal_bwd_launch
         fwd.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                         + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
@@ -103,8 +125,7 @@ def main() -> int:
         return start.elapsed_time(end) / args.calls
 
     first = None
-    order = list(range(len(fns)))
-    for i in order + order[::-1]:
+    for i in _in_turns(len(fns)):
         fwd, bwd = fns[i]
         run_fwd(fwd)
         run_bwd(bwd)
@@ -117,6 +138,136 @@ def main() -> int:
             "backward_ms": mean_ms(lambda: run_bwd(bwd)),
             "max_diff_from_first": (result - first).abs().max().item()}),
             flush=True)
+
+
+def _decode_fns(args, symbol, n_ints):
+    """(launch function, takes n_split) per source; the pointer arguments,
+    n_ints ints and the stream, then n_split where the source takes it."""
+    fns = []
+    for src, cdll in zip(args.sources, _compile(args.sources)):
+        fn = getattr(cdll, symbol)
+        split = _takes_split(src, symbol)
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * n_ints
+                       + [ctypes.c_void_p] + ([ctypes.c_int] if split else []))
+        fn.restype = ctypes.c_int
+        fns.append((fn, split))
+    return fns
+
+
+def _run_cases(torch, args, card, fns, cases):
+    """cases: [(name, fields, launch(fn, split, out) -> err, out)]; each
+    variant on each case in turns, timed by `time_ms`."""
+    from audiocraft_tpu_torch.utils.timing import time_ms
+    first = {}
+    for i in _in_turns(len(fns)):
+        fn, split = fns[i]
+        for name, fields, launch, out in cases:
+            def call():
+                err = launch(fn, split, out)
+                assert err == 0, f"{name}: launch failed: CUDA error {err}"
+            call()
+            torch.cuda.synchronize()
+            result = out.float().clone()
+            first.setdefault(name, result)
+            ms = time_ms(call, flush_bytes=128 << 20)
+            print(json.dumps({
+                "kernel": args.kernel, "source": args.sources[i],
+                "case": name, **fields, "n_split": fields["n_split"]
+                if split else None, "card": card, "ms": ms,
+                "max_diff_from_first": (result - first[name]).abs().max()
+                .item()}), flush=True)
+
+
+def ab_decode(torch, args, card):
+    from audiocraft_tpu_torch.modules.transformer import KVCache
+    from audiocraft_tpu_torch.ops.decode_attention import (
+        _DTYPE_CODES, _sm_count, split_count)
+    fns = _decode_fns(args, "decode_attention_launch", 8)
+    H, D, S = 16, 64, 504
+    g = torch.Generator("cuda").manual_seed(0)
+    stream = torch.cuda.current_stream().cuda_stream
+    cases = []
+    for case in args.cases.split(","):
+        B, kind, length = case.split(":")
+        B, length = int(B), int(length)
+        q = torch.randn(B, H, D, device="cuda", generator=g).bfloat16()
+        k, v = (torch.randn(B, S, H, D, device="cuda", generator=g)
+                for _ in range(2))
+        ks = vs = None
+        if kind == "int8":
+            (k, ks), (v, vs) = KVCache._quantize(k), KVCache._quantize(v)
+        else:
+            k, v = k.to(getattr(torch, kind)), v.to(getattr(torch, kind))
+        n = args.split or split_count(B, H, length, _sm_count(q.device.index))
+        out = torch.empty_like(q)
+
+        def launch(fn, split, out, q=q, k=k, v=v, ks=ks, vs=vs, B=B,
+                   length=length, n=n):
+            return fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      ks.data_ptr() if ks is not None else None,
+                      vs.data_ptr() if vs is not None else None,
+                      out.data_ptr(), B, S, H, D, 0, length,
+                      _DTYPE_CODES[q.dtype], _DTYPE_CODES[k.dtype], stream,
+                      *([n] if split else []))
+        cases.append((case, dict(B=B, S=S, H=H, D=D, length=length,
+                                 cache=kind, n_split=n), launch, out))
+    _run_cases(torch, args, card, fns, cases)
+
+
+def ab_int4(torch, args, card):
+    from audiocraft_tpu_torch.ops.decode_attention import _sm_count, split_count
+    from audiocraft_tpu_torch.ops.int4_decode_attention import (
+        _DTYPE_CODES, quant_pack_kv)
+    fns = _decode_fns(args, "int4_decode_attention_launch", 7)
+    B, H, S, D = 512, 16, 512, 64
+    g = torch.Generator("cuda").manual_seed(0)
+    q = torch.randn(B, H, D, device="cuda", generator=g).bfloat16()
+    k, v = (torch.randn(B, S, H, D, device="cuda", generator=g).bfloat16()
+            for _ in range(2))
+    packed = quant_pack_kv(k, v)
+    del k, v
+    stream = torch.cuda.current_stream().cuda_stream
+    cases = []
+    for length in (384, 512):
+        n = args.split or split_count(B, H, length, _sm_count(q.device.index))
+        out = torch.empty_like(q)
+
+        def launch(fn, split, out, length=length, n=n):
+            return fn(q.data_ptr(), *(t.data_ptr() for t in packed),
+                      out.data_ptr(), B, S, H, D, 0, length,
+                      _DTYPE_CODES[q.dtype], stream, *([n] if split else []))
+        cases.append((f"length_{length}", dict(B=B, S=S, H=H, D=D,
+                                               length=length, n_split=n),
+                      launch, out))
+    _run_cases(torch, args, card, fns, cases)
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("sources", nargs="+")
+    parser.add_argument("--kernel", default="flash_causal_attention",
+                        choices=["flash_causal_attention", "decode_attention",
+                                 "int4_decode_attention"])
+    parser.add_argument("--shape", default="16,1500,16,64",
+                        help="B,T,H,D of flash_causal_attention's inputs")
+    parser.add_argument("--cases", default=DECODE_CASES,
+                        help="decode_attention's B:cache:length,...")
+    parser.add_argument("--calls", type=int, default=30)
+    parser.add_argument("--split", type=int, default=0,
+                        help="cluster size for sources that take n_split "
+                             "(default: the wrapper's split_count)")
+    args = parser.parse_args()
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_kernel_ab: no CUDA device is available", file=sys.stderr)
+        return 1
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    {"flash_causal_attention": ab_flash, "decode_attention": ab_decode,
+     "int4_decode_attention": ab_int4}[args.kernel](torch, args, card)
     return 0
 
 

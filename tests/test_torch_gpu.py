@@ -22,12 +22,15 @@ from audiocraft_tpu_torch.modules import transformer
 from audiocraft_tpu_torch.modules.conditioners import (ConditioningAttributes,
                                                        LUTConditioner)
 from audiocraft_tpu_torch.ops.decode_attention import (
-    decode_attention, decode_attention_reference)
+    _DTYPE_CODES as K1_DTYPE_CODES, _launcher as k1_launcher,
+    _window as k1_window, decode_attention, decode_attention_reference)
 from audiocraft_tpu_torch.ops import quant
 from audiocraft_tpu_torch.ops.flash_causal_attention import (
     flash_causal_attention, flash_causal_attention_reference)
 from audiocraft_tpu_torch.ops.int4_decode_attention import (
-    int4_decode_attention, int4_decode_attention_reference, quant_pack_kv)
+    _DTYPE_CODES as K3_DTYPE_CODES, _launcher as k3_launcher,
+    _window as k3_window, int4_decode_attention,
+    int4_decode_attention_reference, quant_pack_kv)
 from audiocraft_tpu_torch.solvers.builders import get_optimizer
 from audiocraft_tpu_torch.solvers.musicgen import train_step
 
@@ -65,6 +68,95 @@ def test_cuda_kernel_matches_reference(dtype, D):
         ref = decode_attention_reference(q, k, v, length, past_context=window,
                                          **scales)
         torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_split", list(range(1, 9)))
+@pytest.mark.parametrize("dtype, D", [("float32", 64), ("bfloat16", 66),
+                                      ("bfloat16", 128), ("int8", 66),
+                                      ("int8", 64)])
+def test_cuda_kernel_every_split_count(dtype, D, n_split):
+    """K1's C launcher at each cluster size 1..8 (the wrapper's choice aside)
+    over windows that leave some shares empty, against the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    g = torch.Generator("cuda").manual_seed(n_split)
+    B, S, H = 2, 300, 3
+    q_dtype = torch.float32 if dtype == "float32" else torch.bfloat16
+    q = torch.randn(B, H, D, device="cuda", generator=g).to(q_dtype)
+    k = torch.randn(B, S, H, D, device="cuda", generator=g)
+    v = torch.randn(B, S, H, D, device="cuda", generator=g)
+    scales = {}
+    if dtype == "int8":
+        (k, ks), (v, vs) = (transformer.KVCache._quantize(t) for t in (k, v))
+        scales = dict(k_scale=ks, v_scale=vs)
+    else:
+        k, v = k.to(q_dtype), v.to(q_dtype)
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    for length, window in [(1, None), (37, None), (S, None), (290, 64),
+                           (200, 0)]:
+        lo, hi = k1_window(length, window)
+        out = torch.empty_like(q)
+        err = k1_launcher()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            scales["k_scale"].data_ptr() if scales else None,
+            scales["v_scale"].data_ptr() if scales else None, out.data_ptr(),
+            B, S, H, D, lo, hi, K1_DTYPE_CODES[q.dtype],
+            K1_DTYPE_CODES[k.dtype],
+            torch.cuda.current_stream().cuda_stream, n_split)
+        assert err == 0
+        torch.cuda.synchronize()
+        ref = decode_attention_reference(q, k, v, length, past_context=window,
+                                         **scales)
+        torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_split", list(range(1, 9)))
+@pytest.mark.parametrize("D, S", [(32, 301), (64, 504), (128, 300)])
+def test_int4_kernel_every_split_count(D, S, n_split):
+    """K3's C launcher at each cluster size 1..8, against the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    g = torch.Generator("cuda").manual_seed(n_split)
+    B, H = 2, 3
+    k, v = (torch.randn(B, S, H, D, device="cuda", generator=g).bfloat16()
+            for _ in range(2))
+    q = torch.randn(B, H, D, device="cuda", generator=g).bfloat16()
+    packed = quant_pack_kv(k, v)
+    for length, window in [(1, None), (37, None), (S, None), (290, 64),
+                           (200, 0)]:
+        lo, hi = k3_window(length, window)
+        out = torch.empty_like(q)
+        err = k3_launcher()(
+            q.data_ptr(), *(t.data_ptr() for t in packed), out.data_ptr(),
+            B, S, H, D, lo, hi, K3_DTYPE_CODES[q.dtype],
+            torch.cuda.current_stream().cuda_stream, n_split)
+        assert err == 0
+        torch.cuda.synchronize()
+        ref = int4_decode_attention_reference(q, *packed, length,
+                                              window).float()
+        err = (out.float() - ref).abs()
+        assert bool((err <= 1e-2 * ref.abs().clamp_min(1.0)).all()), \
+            (length, window, err.max().item())
+
+
+@pytest.mark.gpu
+def test_int4_kernel_takes_a_window_past_the_old_cap():
+    """30,000 valid slots: above the 28,672 the kernel once held in shared
+    memory."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    g = torch.Generator("cuda").manual_seed(0)
+    B, S, H, D = 2, 30_000, 4, 64
+    k, v = (torch.randn(B, S, H, D, device="cuda", generator=g).bfloat16()
+            for _ in range(2))
+    q = torch.randn(B, H, D, device="cuda", generator=g).bfloat16()
+    packed = quant_pack_kv(k, v)
+    out = int4_decode_attention(q, *packed, S)
+    ref = int4_decode_attention_reference(q, *packed, S).float()
+    err = (out.float() - ref).abs()
+    assert bool((err <= 1e-2 * ref.abs().clamp_min(1.0)).all()), err.max()
 
 
 @pytest.mark.gpu

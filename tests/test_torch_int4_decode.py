@@ -1,12 +1,15 @@
 """Int4-KV decode attention (K3): the port's packing and plain version vs
 `scripts/pallas_int4_decode.py` (its Pallas kernel in interpret mode on the
-CPU, as the script runs it off the TPU), and the wrapper's routing and
-checks. The CUDA kernel itself is tested on the card in `test_torch_gpu.py`.
+CPU, as the script runs it off the TPU), the plain version of the CUDA
+kernel's split of the window (`int4_decode_attention_split`) against both,
+and the wrapper's routing and checks. The CUDA kernel itself is tested on the
+card in `test_torch_gpu.py`.
 
 Tolerances: the packed bytes and scales are bit-equal (the same bf16 steps);
 the plain version is within 1e-2 * max(1, |jax|) of the kernel, whose running
 max per 256-slot block can move a bf16-rounded weight by one ulp (it agrees
 bit for bit when the window fits one block)."""
+import functools
 import importlib.util
 from pathlib import Path
 
@@ -17,7 +20,8 @@ import pytest
 import torch
 
 from audiocraft_tpu_torch.ops.int4_decode_attention import (
-    int4_decode_attention, int4_decode_attention_reference, quant_pack_kv)
+    int4_decode_attention, int4_decode_attention_reference,
+    int4_decode_attention_split, quant_pack_kv)
 
 SCRIPT = Path(__file__).resolve().parents[1] / "scripts" / "pallas_int4_decode.py"
 TOL = 1e-2
@@ -141,3 +145,68 @@ def test_wrapper_rejects_bad_arguments(bad):
         q = q.to("meta")
     with pytest.raises(ValueError):
         int4_decode_attention(q, k4, v4t, ks, vs, length, window)
+
+
+# The kernel's split-S (128-slot tiles, n shares combined in rank order), as
+# `int4_decode_attention_split` computes it. B, S, H, D, length,
+# past_context; S = 384 spans three tiles, so 3 and 8 shares leave some empty
+# and 2 shares hold two tiles and one.
+SPLIT_CASES = {
+    "length_1": (2, 384, 2, 64, 1, None),
+    "length_37": (2, 384, 2, 64, 37, None),
+    "length_s": (2, 384, 2, 64, 384, None),
+    "window_0": (1, 384, 2, 32, 300, 0),
+    "window_7": (1, 384, 3, 128, 260, 7),
+    "window_200": (1, 384, 2, 64, 380, 200),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _split_case(name):
+    B, S, H, D, length, past_context = SPLIT_CASES[name]
+    spec = importlib.util.spec_from_file_location("pallas_int4_decode", SCRIPT)
+    module = importlib.util.module_from_spec(spec)
+    before = jax.config.jax_compilation_cache_dir
+    try:
+        spec.loader.exec_module(module)
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)
+    q, k, v = _inputs(B, S, H, D, seed=len(name) + 20)
+    packed = module.quant_pack_kv(jnp.asarray(k, jnp.bfloat16),
+                                  jnp.asarray(v, jnp.bfloat16))
+    want = np.asarray(module.int4_decode_attention(
+        jnp.asarray(q, jnp.bfloat16), *packed, jnp.int32(length),
+        past_context=past_context, s_blk=32).astype(jnp.float32))
+    tq = torch.from_numpy(q).bfloat16()
+    tpacked = [torch.from_numpy(np.array(t)) if t.dtype == jnp.int8 else
+               torch.from_numpy(np.array(t.astype(jnp.float32))).bfloat16()
+               for t in packed]
+    return want, (tq, *tpacked, length), past_context
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 3, 8])
+@pytest.mark.parametrize("name", list(SPLIT_CASES))
+def test_split_combine_matches_pallas_kernel_and_plain_version(name, n_split):
+    want, args, past_context = _split_case(name)
+    got = int4_decode_attention_split(*args, n_split, past_context)
+    assert got.dtype == torch.bfloat16
+    for ref in (want, int4_decode_attention_reference(
+            *args, past_context).float().numpy()):
+        err = np.abs(got.float().numpy() - ref)
+        assert (err <= TOL * np.maximum(1.0, np.abs(ref))).all(), err.max()
+
+
+def test_wrapper_takes_windows_past_the_old_cap():
+    """No window cap: 30,000 valid slots (above the 28,672 that the kernel
+    once held in shared memory) go through the wrapper's checks."""
+    B, S, H, D = 1, 30_000, 1, 32
+    rs = np.random.RandomState(9)
+    k, v = (torch.from_numpy(rs.randn(B, S, H, D).astype(np.float32))
+            for _ in range(2))
+    q = torch.from_numpy(rs.randn(B, H, D).astype(np.float32))
+    packed = quant_pack_kv(k, v)
+    out = int4_decode_attention(q, *packed, S)
+    assert out.shape == (B, H, D) and bool(torch.isfinite(out).all())
+    torch.testing.assert_close(
+        out, int4_decode_attention_split(q, *packed, S, 8), atol=1e-2,
+        rtol=1e-2)
