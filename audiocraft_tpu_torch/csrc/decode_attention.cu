@@ -6,7 +6,9 @@
 //     out[b, h] = softmax_s(q[b, h] . K[b, s, h] / sqrt(D)) . V[b, s, h]
 //
 // over the valid slots s in [lo, hi): hi = length, lo = max(0, length - 1 - past_context)
-// (lo = 0 without a window). Scores, the online softmax and the accumulators are f32; the
+// (lo = 0 without a window, past_context < 0). `length` is an int32 in device memory (the
+// TPU kernel's length_ref), read by every block and clamped to [1, S], so a CUDA graph can
+// replay the same launch as the cache fills. Scores, the online softmax and the accumulators are f32; the
 // running max is floored at -1e4 (_M_FLOOR of the TPU kernel), so an empty share of the window
 // contributes exactly 0. An int8 cache carries one bf16 scale per (slot, head); the output is
 // written in q's dtype.
@@ -16,10 +18,12 @@
 // 2 * B * (hi - lo) * H bf16 scales), plus q and out. What the design does about it (machinery
 // shared with int4_decode_attention.cu in decode_common.cuh):
 //   * split-S over a thread-block cluster: the grid is (n, H, B) in clusters of n (1 to 8,
-//     chosen by the wrapper from B, H, the window and the SM count), so a small batch still
-//     puts two or more blocks on every SM; each block walks its share of the window's 32-slot
-//     tiles and the cluster combines the shares' (m, l, acc) through distributed shared
-//     memory, in rank order, in the same launch (no workspace, no second pass, no atomics);
+//     chosen by the wrapper from B, H, the cache's capacity S and the SM count: the host does
+//     not know the window), so a small batch still puts two or more blocks on every SM; each
+//     block walks its share of the window's 32-slot tiles (a share past the window's end is
+//     empty and contributes 0) and the cluster combines the shares' (m, l, acc) through
+//     distributed shared memory, in rank order, in the same launch (no workspace, no second
+//     pass, no atomics);
 //   * loads kept in flight: each tile's K and V rows (and the int8 scales) come through a ring
 //     of 4 shared-memory stages (2 for f32 caches) by cp.async, 16-byte copies where a row is
 //     16-byte aligned, 8 or 4 where it is less, a plain copy where it is only 2-byte aligned
@@ -35,7 +39,8 @@
 //     the mantissa of 2^23 and one subtraction, bf16 by a shift.
 //
 // C interface (bound with ctypes): decode_attention_launch(...) returns the launch's error or
-// cudaGetLastError(); n_split is the cluster size.
+// cudaGetLastError(); `length` points to one int32 on the device, past_context < 0 means no
+// window, n_split is the cluster size.
 
 #include "decode_common.cuh"
 
@@ -122,8 +127,9 @@ template <typename TQ, typename TKV, int DMAX, int L>
 __global__ void __launch_bounds__(kThreads)
 decode_attn_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
                    const TKV* __restrict__ v, const __nv_bfloat16* __restrict__ k_scale,
-                   const __nv_bfloat16* __restrict__ v_scale, TQ* __restrict__ out, int S, int H,
-                   int D, int lo, int hi, float q_scale) {
+                   const __nv_bfloat16* __restrict__ v_scale, TQ* __restrict__ out,
+                   const int* __restrict__ length, int S, int H, int D, int past_context,
+                   float q_scale) {
   constexpr bool kQuant = sizeof(TKV) == 1;
   constexpr int kStages = stages<TKV>();
   constexpr int kEpc = 16 / sizeof(TKV);            // elements per 16-byte chunk
@@ -140,6 +146,9 @@ decode_attn_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
 
   const int h = blockIdx.y;
   const int b = blockIdx.z;
+  // the valid window, from the device-resident length (clamped to [1, S])
+  const int hi = min(max(__ldg(length), 1), S);
+  const int lo = past_context < 0 ? 0 : max(0, hi - 1 - past_context);
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -354,24 +363,26 @@ decode_attn_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
 
 template <typename TQ, typename TKV, int DMAX, int L>
 int launch(const void* q, const void* k, const void* v, const void* ks, const void* vs,
-           void* out, int B, int S, int H, int D, int lo, int hi, cudaStream_t stream,
-           int n_split) {
+           void* out, const int* length, int B, int S, int H, int D, int past_context,
+           cudaStream_t stream, int n_split) {
   const size_t smem = static_cast<size_t>(stages<TKV>()) * stage_bytes<TKV, L>(D);
   const float q_scale = kLog2e / sqrtf(static_cast<float>(D));
   return static_cast<int>(launch_cluster<decode_attn_kernel<TQ, TKV, DMAX, L>>(
       n_split, H, B, smem, stream, static_cast<const TQ*>(q), static_cast<const TKV*>(k),
       static_cast<const TKV*>(v), static_cast<const __nv_bfloat16*>(ks),
-      static_cast<const __nv_bfloat16*>(vs), static_cast<TQ*>(out), S, H, D, lo, hi, q_scale));
+      static_cast<const __nv_bfloat16*>(vs), static_cast<TQ*>(out), length, S, H, D,
+      past_context, q_scale));
 }
 
 // The wide path where a row is 4, 8 or 16 chunks of 16 bytes of a bf16 or int8 cache (D 32,
 // 64 or 128 in bf16; 64 or 128 in int8); the pair path for every other D and the f32 cache.
 template <typename TQ, typename TKV>
 int dispatch(const void* q, const void* k, const void* v, const void* ks, const void* vs,
-             void* out, int B, int S, int H, int D, int lo, int hi, cudaStream_t stream,
-             int n_split) {
+             void* out, const int* length, int B, int S, int H, int D, int past_context,
+             cudaStream_t stream, int n_split) {
 #define DA_LAUNCH(DMAX, L) \
-  launch<TQ, TKV, DMAX, L>(q, k, v, ks, vs, out, B, S, H, D, lo, hi, stream, n_split)
+  launch<TQ, TKV, DMAX, L>(q, k, v, ks, vs, out, length, B, S, H, D, past_context, stream, \
+                           n_split)
   if constexpr (sizeof(TKV) == 2) {
     if (D == 32) return DA_LAUNCH(64, 4);
     if (D == 64) return DA_LAUNCH(64, 8);
@@ -389,13 +400,14 @@ int dispatch(const void* q, const void* k, const void* v, const void* ks, const 
 
 extern "C" int decode_attention_launch(const void* q, const void* k, const void* v,
                                        const void* k_scale, const void* v_scale, void* out,
-                                       int B, int S, int H, int D, int lo, int hi,
-                                       int q_dtype, int kv_dtype, void* stream, int n_split) {
-  if (D <= 0 || D > 128 || D % 2 != 0 || lo < 0 || hi > S || lo >= hi || B <= 0 || H <= 0 ||
+                                       const int* length, int B, int S, int H, int D,
+                                       int past_context, int q_dtype, int kv_dtype, void* stream,
+                                       int n_split) {
+  if (D <= 0 || D > 128 || D % 2 != 0 || S <= 0 || B <= 0 || H <= 0 || length == nullptr ||
       n_split < 1 || n_split > kMaxSplit)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define DA_ARGS q, k, v, k_scale, v_scale, out, B, S, H, D, lo, hi, st, n_split
+#define DA_ARGS q, k, v, k_scale, v_scale, out, length, B, S, H, D, past_context, st, n_split
   if (q_dtype == kF32) {
     if (kv_dtype == kKVF32) return dispatch<float, float>(DA_ARGS);
     if (kv_dtype == kKVBF16) return dispatch<float, __nv_bfloat16>(DA_ARGS);

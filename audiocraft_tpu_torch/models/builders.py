@@ -9,9 +9,10 @@ import torch
 
 from ..modules.conditioners import (BaseConditioner, ConditionFuser,
                                     LUTConditioner, T5Conditioner)
-from ..modules.patterns import (CodebooksPatternProvider,
-                                DelayedPatternProvider,
-                                ParallelPatternProvider)
+from ..modules.patterns import (CoarseFirstPattern, CodebooksPatternProvider,
+                                DelayedPatternProvider, MusicLMPattern,
+                                ParallelPatternProvider,
+                                UnrolledPatternProvider)
 from ..modules.seanet import SEANetDecoder, SEANetEncoder
 from ..quantization import ResidualVectorQuantizer
 from ..utils.utils import resolve_device
@@ -48,6 +49,52 @@ def get_encodec(sample_rate: int, ratios, n_filters: int, dimension: int,
                              channels=1)
         model.reset_parameters(seed)
     return model.eval()
+
+
+def get_compression_model(cfg: dict, device=None) -> EncodecModel:
+    """The EnCodec model of a config (`compression_model: encodec` with an
+    `encodec` group: `seanet` with its `encoder`/`decoder` overrides, `rvq`,
+    `sample_rate`, `channels`), as the JAX package's `get_compression_model`
+    builds it; torch's default init. Training-only quantizer settings (EMA
+    decay, k-means, dead-code and orthogonal terms) are read and dropped."""
+    device = resolve_device(device)
+    if cfg.get("compression_model", "encodec") != "encodec":
+        raise KeyError(f"unexpected compression model "
+                       f"{cfg.get('compression_model')!r}")
+    enc = dict(cfg.get("encodec", {}) or {})
+    if enc.get("autoencoder", "seanet") != "seanet" or \
+            enc.get("quantizer", "rvq") != "rvq":
+        raise NotImplementedError(f"only the seanet autoencoder and the rvq "
+                                  f"quantizer are ported, got {enc}")
+    if enc.get("renormalize") or enc.get("renorm"):
+        raise NotImplementedError("renormalizing EnCodec is not ported "
+                                  "(ROADMAP, slice F)")
+    seanet = dict(enc.get("seanet", {}) or {})
+    overrides = {part: dict(seanet.pop(part, {}) or {})
+                 for part in ("encoder", "decoder")}
+    activation = seanet.pop("activation", "ELU")
+    if str(activation).lower() != "elu":
+        raise NotImplementedError(f"SEANet activation {activation!r} is not "
+                                  f"ported")
+    seanet["elu_alpha"] = dict(seanet.pop("activation_params", None)
+                               or {}).get("alpha", 1.0)
+    if seanet.pop("norm_params", None):
+        raise NotImplementedError("SEANet norm_params are not ported")
+    for key in ("ratios", "kernel_sizes", "dilations"):
+        if key in seanet:
+            seanet[key] = tuple(seanet[key])
+    encoder = SEANetEncoder(**{**seanet, **overrides["encoder"]},
+                            device=device)
+    decoder = SEANetDecoder(**{**seanet, **overrides["decoder"]},
+                            device=device)
+    rvq = dict(enc.get("rvq", {}) or {})
+    quantizer = ResidualVectorQuantizer(encoder.dimension, rvq.get("n_q", 8),
+                                        rvq.get("bins", 1024), device=device)
+    sample_rate = enc["sample_rate"]
+    return EncodecModel(encoder, decoder, quantizer,
+                        frame_rate=sample_rate // encoder.hop_length,
+                        sample_rate=sample_rate,
+                        channels=enc["channels"]).eval()
 
 
 def get_debug_compression_model(device=None, seed: int = 0) -> EncodecModel:
@@ -142,11 +189,6 @@ def get_wrapped_compression_model(compression_model: CompressionModel,
     return compression_model
 
 
-# transformer_lm keys of features the port does not have, with the only
-# value it takes (ROADMAP, slice A item 4)
-_UNPORTED_LM_KEYS = {"layer_scale": None, "positional_embedding": "sin",
-                     "xpos": False, "qk_layer_norm": False,
-                     "qk_layer_norm_cross": False, "kv_repeat": 1}
 # keys that only shape the JAX program or its optimizer (`layer_scan`, `dtype`
 # and the per-module lr/weight decay, which the solver reads), or that the
 # JAX builder also drops
@@ -182,27 +224,29 @@ def get_conditioners(output_dim: int, cfg: dict, device=None,
                                       output_dim=output_dim, device=device,
                                       dtype=dtype, **args)
         elif kind == "lut":
-            tokenizer = args.pop("tokenizer", "whitespace")
-            if tokenizer != "whitespace":
-                raise NotImplementedError(f"lut tokenizer {tokenizer!r} is not "
-                                          f"ported")
-            out[name] = LUTConditioner(output_dim=output_dim, device=device,
-                                       dtype=dtype, **args)
+            # the JAX package's LUTConditioner defaults to the noop tokenizer
+            out[name] = LUTConditioner(output_dim=output_dim,
+                                       tokenizer=args.pop("tokenizer", "noop"),
+                                       device=device, dtype=dtype, **args)
         else:
             raise NotImplementedError(f"conditioner {kind!r} is not ported "
                                       f"(ROADMAP, slice C)")
     return out
 
 
+PATTERN_PROVIDERS = {"parallel": ParallelPatternProvider,
+                     "delay": DelayedPatternProvider,
+                     "unroll": UnrolledPatternProvider,
+                     "coarse_first": CoarseFirstPattern,
+                     "musiclm": MusicLMPattern}
+
+
 def get_codebooks_pattern_provider(n_q: int, cfg: dict
                                    ) -> CodebooksPatternProvider:
     name = cfg["modeling"]
-    kwargs = dict(cfg.get(name, {}) or {})
-    if name == "delay":
-        return DelayedPatternProvider(n_q, **kwargs)
-    if name == "parallel":
-        return ParallelPatternProvider(n_q, **kwargs)
-    raise NotImplementedError(f"codebooks pattern {name!r} is not ported")
+    if name not in PATTERN_PROVIDERS:
+        raise KeyError(f"unknown codebooks pattern {name!r}")
+    return PATTERN_PROVIDERS[name](n_q, **dict(cfg.get(name, {}) or {}))
 
 
 def get_lm_model(cfg: dict, device=None, seed: int = 0) -> LMModel:
@@ -214,10 +258,6 @@ def get_lm_model(cfg: dict, device=None, seed: int = 0) -> LMModel:
     applies with autocast."""
     device = resolve_device(device)
     kwargs = dict(cfg["transformer_lm"])
-    for key, value in _UNPORTED_LM_KEYS.items():
-        if kwargs.pop(key, value) != value:
-            raise NotImplementedError(f"transformer_lm.{key} != {value!r} is "
-                                      f"not ported (ROADMAP)")
     for key in _DROPPED_LM_KEYS:
         kwargs.pop(key, None)
     weight_init = kwargs.pop("weight_init", None)

@@ -26,11 +26,20 @@ class BaseGenModel:
         self.duration = max_duration
         self.extend_stride: tp.Optional[float] = None
         self.generation_params: dict = {}
+        self._progress_callback: tp.Optional[tp.Callable[[int, int], None]] = None
         self.generator = torch.Generator(self.device)
         self.set_seed(0)
 
     def set_seed(self, seed: int):
         self.generator.manual_seed(seed)
+
+    def set_custom_progress_callback(
+            self, progress_callback: tp.Optional[tp.Callable[[int, int],
+                                                             None]] = None):
+        """Store a (generated, total) progress callback, as the JAX package
+        does. Neither package calls it from inside its decode program (the
+        JAX package's compiled scan, the port's CUDA graph)."""
+        self._progress_callback = progress_callback
 
     @property
     def frame_rate(self) -> float:

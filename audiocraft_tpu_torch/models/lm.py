@@ -7,17 +7,24 @@ Module attributes follow upstream audiocraft's state-dict keys (`emb.{k}`,
 
 `compute_predictions` is the training forward: codes -> the interleaved
 pattern sequence -> logits reverted onto the codes' time axis, with the mask
-of valid positions. `generate` runs one prefill forward, then one forward
-per pattern step in a Python loop. The KV cache is allocated once at the full sequence length and
-the decode-attention kernel reads only its valid prefix. The loop keeps every
-value it branches on on the host (step offsets, the pattern's index tables),
-so it never waits for the device. Classifier-free guidance runs batched (the
-conditional and null rows in one batch) or in two steps (two streams, each
-with its own conditions, cache and forward). `quantize_lm_` puts the model in
-the W8A8 int8 serving mode.
+of valid positions. `generate` is the port of the JAX package's compiled
+decode program (`_get_decode_fn`: a prefill, then `lax.scan` over the
+offsets): one step function reads the pattern step at a device offset, runs
+every stream's forward, combines CFG, samples, writes the masked token and
+advances the offset, all on the device. The KV caches are allocated once at
+the full sequence length, written at their device index, and the
+decode-attention kernel reads only their valid prefix. On the CPU the step
+runs in a plain loop; on CUDA the prefill and the first single-token step
+run eagerly (the warm-up), then one step is captured into a
+`torch.cuda.CUDAGraph` and replayed for the remaining offsets. Classifier-free
+guidance runs batched (the conditional and null rows in one batch) or in
+two steps (two streams, each with its own conditions, cache and forward).
+`quantize_lm_` puts the model in the W8A8 int8 serving mode; it runs through
+the same graph.
 """
 import dataclasses
 import math
+import time
 import typing as tp
 
 import torch
@@ -29,6 +36,7 @@ from ..modules.conditioners import (BaseConditioner,
                                     ConditioningProvider, ConditionType)
 from ..modules.patterns import CodebooksPatternProvider
 from ..modules.transformer import LayerCache, StreamingTransformer
+from ..ops.decode_attention import decode_attention
 from ..ops.quant import QTensor, quantize_weight, w8a8_heads
 from ..utils.utils import check_module_device, resolve_device, sample_tokens
 
@@ -80,6 +88,10 @@ class LMModel(nn.Module):
                  bias_ff: bool = True, bias_attn: bool = True,
                  causal: bool = True, past_context: tp.Optional[int] = None,
                  attention_as_float32: bool = False,
+                 layer_scale: tp.Optional[float] = None,
+                 positional_embedding: str = "sin", xpos: bool = False,
+                 qk_layer_norm: bool = False, qk_layer_norm_cross: bool = False,
+                 kv_repeat: int = 1,
                  cross_attention: bool = False, activation: str = "gelu",
                  checkpointing: str = "none", device=None, dtype=None):
         super().__init__()
@@ -103,8 +115,12 @@ class LMModel(nn.Module):
             attention_dropout=attention_dropout, bias_ff=bias_ff,
             bias_attn=bias_attn, causal=causal, past_context=past_context,
             attention_as_float32=attention_as_float32,
-            cross_attention=cross_attention, norm_first=norm_first,
-            activation=activation, checkpointing=checkpointing, **factory)
+            cross_attention=cross_attention, layer_scale=layer_scale,
+            positional_embedding=positional_embedding, xpos=xpos,
+            qk_layer_norm=qk_layer_norm,
+            qk_layer_norm_cross=qk_layer_norm_cross, kv_repeat=kv_repeat,
+            norm_first=norm_first, activation=activation,
+            checkpointing=checkpointing, **factory)
         self.out_norm = (nn.LayerNorm(dim, eps=1e-5, **factory)
                          if norm_first else None)
         self.linears = nn.ModuleList([nn.Linear(dim, card, bias=bias_proj,
@@ -122,8 +138,8 @@ class LMModel(nn.Module):
         """Seeded random weights after upstream's 'gaussian' LM init with
         depthwise scaling: every matrix (embeddings included) ~
         N(0, 1/fan_in) truncated at 3 std; inside layer i (1-based) the std
-        is further divided by sqrt(2 i); biases zero; norms one/zero.
-        Conditioners keep their own init."""
+        is further divided by sqrt(2 i); biases zero; norms one/zero;
+        layer scales keep their init. Conditioners keep their own init."""
         g = torch.Generator(self.emb[0].weight.device).manual_seed(seed)
 
         def trunc_normal_(t: torch.Tensor, std: float):
@@ -142,6 +158,8 @@ class LMModel(nn.Module):
                     p.fill_(1.0) if name.endswith("weight") else p.zero_()
                 elif name.endswith("bias"):
                     p.zero_()
+                elif name.startswith("layer_scale"):
+                    continue
                 else:  # [out, in] matrices
                     trunc_normal_(p, 1 / math.sqrt(p.shape[1]) / depth_scale)
         if self.out_norm is not None:
@@ -285,9 +303,17 @@ class LMModel(nn.Module):
                 self.transformer.precompute_cross_kv(cross_src.to(cross_dt),
                                                      caches)
             caches_list.append(caches)
+        # the pattern step that the next step samples, on the device
+        offset = torch.full((1,), start, dtype=torch.long, device=device)
 
-        def step(offset: int, tokens: torch.Tensor):
-            """Forward `tokens` [B, K, t], sample step `offset`, write it."""
+        def step(tokens: tp.Optional[torch.Tensor] = None) -> None:
+            """Forward `tokens` [B, K, t] (default: the step before the
+            offset), sample the step at the offset, write it where it is
+            still unknown (the special token where the pattern has no
+            code), and advance the offset. Only device ops: the step never
+            waits for the device, so it can be captured."""
+            if tokens is None:
+                tokens = gen_sequence.index_select(2, offset - 1)
             if len(streams) == 1:
                 seq_in = torch.cat([tokens] * cfg_mult) if cfg_mult > 1 else tokens
                 logits = self(seq_in, streams[0], caches=caches_list[0])
@@ -299,20 +325,97 @@ class LMModel(nn.Module):
             next_token = sample_tokens(
                 logits[:, :, -1], use_sampling=gen.use_sampling, temp=gen.temp,
                 top_k=gen.top_k, top_p=gen.top_p, generator=generator)[..., 0]
-            next_token = next_token.masked_fill(~seq_mask[:, offset], special)
-            cur = gen_sequence[..., offset]
-            gen_sequence[..., offset] = torch.where(cur == unknown, next_token,
-                                                    cur)
+            valid = seq_mask.index_select(1, offset)[:, 0]  # [K]
+            next_token = torch.where(valid, next_token, special)
+            cur = gen_sequence.index_select(2, offset)[..., 0]
+            gen_sequence.index_copy_(2, offset, torch.where(
+                cur == unknown, next_token, cur)[..., None])
+            offset.add_(1)
 
-        step(start, gen_sequence[..., :start])
-        for offset in range(start + 1, S):
-            step(offset, gen_sequence[..., offset - 1:offset])
+        step(gen_sequence[..., :start])  # the prefill
+        decode_steps = S - 1 - start
+        if device.type == "cuda":
+            _replay_decode_steps(step, decode_steps, device, generator)
+        else:
+            for _ in range(decode_steps):
+                step()
 
         gen_sequence = torch.where(seq_mask[None], gen_sequence,
                                    torch.full_like(gen_sequence, special))
         out_codes, _, _ = pattern.revert_pattern_sequence(
             gen_sequence, special_token=unknown)
         return out_codes[..., :max_gen_len]
+
+
+@dataclasses.dataclass
+class DecodeGraphStats:
+    """What the decode graphs of this process did: captures, replays, the
+    host seconds and device bytes (the graph's private memory pool, as
+    `torch.cuda.memory_reserved` grew) of the last capture, and CUDA events
+    around the last generate's replays."""
+    captures: int = 0
+    replays: int = 0
+    last_capture_s: float = 0.0
+    last_capture_bytes: int = 0
+    last_replays: tp.Optional[tp.Tuple[torch.cuda.Event, torch.cuda.Event,
+                                       int]] = None
+
+    def last_replay_ms_per_step(self) -> float:
+        """Device milliseconds from the start of the last generate's first
+        replay to the end of its last, per replay (waits for them)."""
+        start, end, count = self.last_replays
+        end.synchronize()
+        return start.elapsed_time(end) / count
+
+
+decode_graph_stats = DecodeGraphStats()
+
+
+def _replay_decode_steps(step: tp.Callable[[], None], steps: int,
+                         device: torch.device,
+                         generator: tp.Optional[torch.Generator]) -> None:
+    """Run `steps` decode steps on the card: the first eagerly (the warm-up:
+    kernel builds, cuBLAS workspaces, the kernels' shared-memory
+    attributes), then the rest as replays of one CUDA graph of the step.
+    Warm-up and capture share a side stream. The request's generator is
+    registered with the graph, so each replay draws new numbers from it.
+    A replay skips the kernel wrappers, so the K1 launches captured into
+    the graph are counted once per replay instead of at capture."""
+    if steps <= 0:
+        return
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        step()
+    if steps == 1:
+        torch.cuda.current_stream(device).wait_stream(side)
+        return
+    graph = torch.cuda.CUDAGraph()
+    if generator is not None:
+        graph.register_generator_state(generator)
+    launches = decode_attention.launches
+    torch.cuda.synchronize(device)
+    torch.cuda.empty_cache()
+    reserved, t0 = torch.cuda.memory_reserved(device), time.perf_counter()
+    with torch.cuda.graph(graph, stream=side,
+                          capture_error_mode="thread_local"):
+        step()
+    stats = decode_graph_stats
+    stats.last_capture_s = time.perf_counter() - t0
+    stats.last_capture_bytes = torch.cuda.memory_reserved(device) - reserved
+    stats.captures += 1
+    captured = decode_attention.launches - launches
+    decode_attention.launches = launches  # nothing ran at capture
+    stream = torch.cuda.current_stream(device)
+    stream.wait_stream(side)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record(stream)
+    for _ in range(steps - 1):
+        graph.replay()
+        decode_attention.launches += captured
+    end.record(stream)
+    stats.replays += steps - 1
+    stats.last_replays = (start, end, steps - 1)
 
 
 @torch.no_grad()

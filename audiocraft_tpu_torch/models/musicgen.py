@@ -4,6 +4,19 @@ import typing as tp
 
 from .genmodel import BaseGenModel
 
+# upstream's names of the released checkpoints, resolved as local paths
+HF_MODEL_CHECKPOINTS_MAP = {
+    "small": "facebook/musicgen-small",
+    "medium": "facebook/musicgen-medium",
+    "large": "facebook/musicgen-large",
+    "melody": "facebook/musicgen-melody",
+    "style": "facebook/musicgen-style",
+    "stereo-small": "facebook/musicgen-stereo-small",
+    "stereo-medium": "facebook/musicgen-stereo-medium",
+    "stereo-large": "facebook/musicgen-stereo-large",
+    "stereo-melody": "facebook/musicgen-stereo-melody",
+}
+
 
 class MusicGen(BaseGenModel):
     """Text -> music. Defaults: duration 15 s (capped by `max_duration`),
@@ -18,21 +31,30 @@ class MusicGen(BaseGenModel):
     @staticmethod
     def get_pretrained(name: str = "debug", device=None) -> "MusicGen":
         """The `debug` model or its interleaved-stereo twin `debug-stereo`
-        (tiny, seeded random weights). Loading upstream checkpoints is not
-        ported yet."""
-        if name not in ("debug", "debug-stereo"):
-            raise NotImplementedError(
-                f"{name!r}: only the 'debug' and 'debug-stereo' models can be "
-                "built; loading upstream MusicGen checkpoints is not ported yet")
-        from . import builders
-        codec = builders.get_debug_compression_model(device=device)
-        if name == "debug":
-            lm = builders.get_debug_lm_model(device=device)
-        else:
-            codec = builders.get_wrapped_compression_model(
-                codec, {"interleave_stereo_codebooks": {"use": True}})
-            lm = builders.get_debug_stereo_lm_model(device=device)
-        return MusicGen(name, codec, lm, max_duration=30, device=device)
+        (tiny, seeded random weights), or a checkpoint from local files:
+        `name` (a released model's short name like 'small' maps to its
+        upstream name first) is a directory or file of audiocraft export
+        packages, or one under `AUDIOCRAFT_CACHE_DIR`
+        (`models/loaders.py`). Nothing is downloaded: a name with no local
+        files raises FileNotFoundError."""
+        from . import builders, loaders
+        if name in ("debug", "debug-stereo"):
+            codec = builders.get_debug_compression_model(device=device)
+            if name == "debug":
+                lm = builders.get_debug_lm_model(device=device)
+            else:
+                codec = builders.get_wrapped_compression_model(
+                    codec, {"interleave_stereo_codebooks": {"use": True}})
+                lm = builders.get_debug_stereo_lm_model(device=device)
+            return MusicGen(name, codec, lm, max_duration=30, device=device)
+        name = HF_MODEL_CHECKPOINTS_MAP.get(name, name)
+        codec = loaders.load_compression_model(name, device=device)
+        lm, cfg = loaders.load_lm_model(name, device=device)
+        # stereo checkpoints name the interleave in their config
+        codec = builders.get_wrapped_compression_model(codec, cfg)
+        return MusicGen(name, codec, lm,
+                        max_duration=cfg["dataset"]["segment_duration"],
+                        device=device)
 
     def set_generation_params(self, use_sampling: bool = True, top_k: int = 250,
                               top_p: float = 0.0, temperature: float = 1.0,

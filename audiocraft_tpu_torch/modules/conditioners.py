@@ -63,6 +63,27 @@ class WhiteSpaceTokenizer:
         return padded, mask
 
 
+class NoopTokenizer:
+    """One token per whole text: the hash of the string into `n_bins`; a
+    missing text is the pad token with length 0. Returns tokens [B, 1] and
+    the mask [B, 1]."""
+
+    def __init__(self, n_bins: int, pad_idx: int = 0):
+        self.n_bins = n_bins
+        self.pad_idx = pad_idx
+
+    def __call__(self, texts: tp.List[tp.Optional[str]]
+                 ) -> tp.Tuple[np.ndarray, np.ndarray]:
+        tokens = [self.pad_idx if text is None
+                  else hash_trick(text, self.n_bins) for text in texts]
+        lengths = [0 if text is None else 1 for text in texts]
+        return (np.array(tokens, dtype=np.int32)[:, None],
+                length_to_mask(np.array(lengths)))
+
+
+TOKENIZERS = {"whitespace": WhiteSpaceTokenizer, "noop": NoopTokenizer}
+
+
 class BaseConditioner(nn.Module):
     """Host `tokenize` + device `forward`, with an output projection."""
 
@@ -81,13 +102,17 @@ class BaseConditioner(nn.Module):
 
 
 class LUTConditioner(BaseConditioner):
-    """Lookup-table text conditioner over the whitespace tokenizer."""
+    """Lookup-table text conditioner over the whitespace tokenizer (a token
+    per word) or the noop one (a token per text)."""
 
     def __init__(self, n_bins: int, dim: int, output_dim: int,
-                 pad_idx: int = 0, device=None, dtype=None):
+                 pad_idx: int = 0, tokenizer: str = "whitespace",
+                 device=None, dtype=None):
         super().__init__(dim, output_dim, device, dtype)
+        if tokenizer not in TOKENIZERS:
+            raise ValueError(f"unrecognized tokenizer {tokenizer!r}")
         self.embed = nn.Embedding(n_bins, dim, device=device, dtype=dtype)
-        self.tokenizer = WhiteSpaceTokenizer(n_bins, pad_idx=pad_idx)
+        self.tokenizer = TOKENIZERS[tokenizer](n_bins, pad_idx=pad_idx)
 
     def tokenize(self, x: tp.List[tp.Optional[str]]):
         return self.tokenizer(x)

@@ -1,6 +1,7 @@
 """Codebook interleaving patterns (counterpart of
 `audiocraft_tpu/modules/patterns.py`: `Pattern`, `CodebooksPatternProvider`,
-`DelayedPatternProvider`, `ParallelPatternProvider`).
+`DelayedPatternProvider`, `ParallelPatternProvider`,
+`UnrolledPatternProvider`, `CoarseFirstPattern`, `MusicLMPattern`).
 
 The layout and the index tables are host-side numpy, computed once per
 (timesteps, n_q); building or reverting a sequence is one gather on the
@@ -218,3 +219,83 @@ class ParallelPatternProvider(DelayedPatternProvider):
 
     def __init__(self, n_q: int, empty_initial: int = 0):
         super().__init__(n_q, [0] * n_q, empty_initial=empty_initial)
+
+
+class UnrolledPatternProvider(CodebooksPatternProvider):
+    """Codebooks flattened into inner steps: `flattening[q]` is the inner
+    step of codebook q (codebooks that share one are predicted together)
+    and `delays[q]` shifts that inner step by whole timesteps. Each timestep
+    spans as many sequence steps as there are inner steps."""
+
+    def __init__(self, n_q: int, flattening: tp.Optional[tp.List[int]] = None,
+                 delays: tp.Optional[tp.List[int]] = None):
+        super().__init__(n_q)
+        flattening = list(range(n_q)) if flattening is None else flattening
+        delays = [0] * n_q if delays is None else delays
+        assert len(flattening) == n_q and len(delays) == n_q
+        assert sorted(flattening) == flattening and sorted(delays) == delays
+        # inner step -> (its codebooks, their common delay)
+        self._inner: tp.Dict[int, tp.Tuple[tp.List[int], int]] = {}
+        for q, (inner, delay) in enumerate(zip(flattening, delays)):
+            codebooks, known = self._inner.setdefault(inner, ([], delay))
+            assert known == delay, ("codebooks flattened to one inner step "
+                                    "must share their delay")
+            codebooks.append(q)
+        self.max_delay = max(delays)
+
+    def get_pattern(self, timesteps: int) -> Pattern:
+        n_inner = max(self._inner) + 1
+        horizon = timesteps + self.max_delay
+        # (sort key, coords): an inner step of timestep t sits at t + delay;
+        # equal keys order by their coordinates, empty steps first; a
+        # missing inner step leaves an empty sequence step
+        steps: tp.List[tp.Tuple[int, tp.List[LayoutCoord]]] = [(-1, [])]
+        for t in range(horizon):
+            for inner in range(n_inner):
+                if inner not in self._inner:
+                    steps.append((t, []))
+                    continue
+                codebooks, delay = self._inner[inner]
+                if t + delay < horizon:
+                    steps.append((t + delay,
+                                  [LayoutCoord(t, q) for q in codebooks]))
+        layout = [coords for _, coords in sorted(steps)]
+        return Pattern(layout, n_q=self.n_q, timesteps=timesteps)
+
+
+class CoarseFirstPattern(CodebooksPatternProvider):
+    """Codebook 0 over every timestep first, then codebooks 1.. together,
+    codebook q + 1 delayed by `delays[q]`. The fine codebooks see all of the
+    coarse one, so generate the whole duration at once."""
+
+    def __init__(self, n_q: int, delays: tp.Optional[tp.List[int]] = None):
+        super().__init__(n_q)
+        self.delays = [0] * (n_q - 1) if delays is None else delays
+        assert len(self.delays) == n_q - 1
+        assert sorted(self.delays) == self.delays
+
+    def get_pattern(self, timesteps: int) -> Pattern:
+        layout: PatternLayout = [[]]
+        layout += [[LayoutCoord(t, 0)] for t in range(timesteps)]
+        for t in range(timesteps + max(self.delays)):
+            layout.append([LayoutCoord(t - delay, q + 1)
+                           for q, delay in enumerate(self.delays)
+                           if t - delay >= 0])
+        return Pattern(layout, n_q=self.n_q, timesteps=timesteps)
+
+
+class MusicLMPattern(CodebooksPatternProvider):
+    """Groups of `group_by` codebooks, one group after the other; inside a
+    group every timestep lists its codebooks one per sequence step."""
+
+    def __init__(self, n_q: int, group_by: int = 2):
+        super().__init__(n_q)
+        self.group_by = group_by
+
+    def get_pattern(self, timesteps: int) -> Pattern:
+        layout: PatternLayout = [[]]
+        for first in range(0, self.n_q, self.group_by):
+            for t in range(timesteps):
+                layout += [[LayoutCoord(t, q)]
+                           for q in range(first, first + self.group_by)]
+        return Pattern(layout, n_q=self.n_q, timesteps=timesteps)

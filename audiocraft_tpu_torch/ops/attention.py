@@ -6,6 +6,10 @@ import typing as tp
 
 import torch
 
+# the head dims that the flash causal-attention kernel takes
+# (`ops/flash_causal_attention.py`); eligibility follows them
+FLASH_CAUSAL_HEAD_DIMS = (64, 128)
+
 
 def repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
     """GQA repeat-interleave on the heads axis."""
@@ -37,12 +41,13 @@ def make_causal_bias(q_pos: torch.Tensor, k_pos: torch.Tensor,
 def flash_causal_eligible(q_len: int, k_len: int, head_dim: int) -> bool:
     """True when `ops.flash_causal_attention` serves a full-sequence causal
     self-attention: square q/k (no cache offset) and a head dim the kernel
-    takes. The JAX package also asked for the TPU backend, T >= 256 and an
+    takes (`FLASH_CAUSAL_HEAD_DIMS`; any other goes to the plain attention,
+    on the card too). The JAX package also asked for the TPU backend, T >= 256 and an
     opt-in switch (default off), all from measurements on a TPU, where the
     Pallas kernel's backward recompute stacked on the layer remat's; none of
     that carries over to the H100, so an eligible CUDA call always launches
     the kernel."""
-    return q_len == k_len and head_dim % 64 == 0
+    return q_len == k_len and head_dim in FLASH_CAUSAL_HEAD_DIMS
 
 
 def dropout(x: torch.Tensor, p: float,

@@ -12,10 +12,18 @@ slots, and `decode_attention_split` is the plain version of that split (the
 per-share partials of the online softmax and their combine, in the kernel's
 order), which the CPU tests hold against the TPU kernel.
 
+The number of valid slots `length` lives on the device, as the TPU kernel's
+`length_ref`: an int32 tensor of one element on q's device (a host int is
+turned into one). The kernel reads it and derives the window itself, so a
+CUDA graph can replay one launch while the cache fills; the host sizes the
+grid and the cluster from the cache's capacity S alone, and the shares past
+the window's end are empty. On the CPU the plain versions read the length
+with `.item()`.
+
 Layouts: q [B, H, D]; k/v caches [B, S, H, D] (f32, bf16, or int8 with
-per-(step, head) bf16 scales [B, S, H] or [B, S, H, 1]); `length` a host int,
-the number of valid slots (the current step is the last valid one). Returns
-[B, H, D] in q's dtype.
+per-(step, head) bf16 scales [B, S, H] or [B, S, H, 1]); `length` the number
+of valid slots (the current step is the last valid one), 1 <= length <= S
+(the kernel clamps to that range). Returns [B, H, D] in q's dtype.
 """
 import ctypes
 import functools
@@ -38,6 +46,21 @@ BLOCKS_PER_SM = 2
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _launch_fn = None
+
+Length = tp.Union[int, torch.Tensor]
+
+
+def length_tensor(length: Length, device) -> torch.Tensor:
+    """`length` as the int32 tensor of one element on `device` that the
+    kernel reads; a tensor already in that form is returned as it is."""
+    if isinstance(length, torch.Tensor):
+        return length
+    return torch.tensor([length], dtype=torch.int32, device=device)
+
+
+def _host_length(length: Length) -> int:
+    """The length as a host int (reads a device tensor: CPU paths only)."""
+    return int(length.item()) if isinstance(length, torch.Tensor) else length
 
 
 def _window(length: int, past_context: tp.Optional[int]) -> tp.Tuple[int, int]:
@@ -101,6 +124,9 @@ def combine_shares(parts: tp.Sequence[tp.Tuple[torch.Tensor, torch.Tensor,
 
 
 def _check(q, k_cache, v_cache, length, past_context, k_scale, v_scale):
+    """Shapes, dtypes and arguments. A length on the host or the CPU is
+    checked against the capacity; one on the card is left to the kernel,
+    which clamps it (reading it here would wait for the device)."""
     if q.dim() != 3 or k_cache.dim() != 4 or k_cache.shape != v_cache.shape:
         raise ValueError(f"expected q [B, H, D] and k/v [B, S, H, D], got "
                          f"{tuple(q.shape)}, {tuple(k_cache.shape)}, "
@@ -109,8 +135,15 @@ def _check(q, k_cache, v_cache, length, past_context, k_scale, v_scale):
     if tuple(q.shape) != (B, H, D):
         raise ValueError(f"q {tuple(q.shape)} does not match cache "
                          f"{tuple(k_cache.shape)}")
-    if not 1 <= length <= S:
-        raise ValueError(f"length {length} outside [1, {S}]")
+    if isinstance(length, torch.Tensor):
+        if (length.dtype != torch.int32 or length.numel() != 1
+                or length.device != q.device):
+            raise ValueError(f"a length tensor must be one int32 on "
+                             f"{q.device}, got {length.dtype} "
+                             f"{tuple(length.shape)} on {length.device}")
+    if not isinstance(length, torch.Tensor) or length.device.type == "cpu":
+        if not 1 <= _host_length(length) <= S:
+            raise ValueError(f"length {_host_length(length)} outside [1, {S}]")
     if past_context is not None and past_context < 0:
         raise ValueError(f"past_context must be >= 0, got {past_context}")
     if (k_scale is None) != (v_scale is None):
@@ -128,7 +161,7 @@ def _check(q, k_cache, v_cache, length, past_context, k_scale, v_scale):
 
 
 def decode_attention_reference(q: torch.Tensor, k_cache: torch.Tensor,
-                               v_cache: torch.Tensor, length: int,
+                               v_cache: torch.Tensor, length: Length,
                                past_context: tp.Optional[int] = None,
                                k_scale: tp.Optional[torch.Tensor] = None,
                                v_scale: tp.Optional[torch.Tensor] = None
@@ -136,6 +169,7 @@ def decode_attention_reference(q: torch.Tensor, k_cache: torch.Tensor,
     """Plain PyTorch version of the kernel: same window, same f32 math, same
     max floor; reads only the valid slots."""
     _check(q, k_cache, v_cache, length, past_context, k_scale, v_scale)
+    length = _host_length(length)
     B, S, H, D = k_cache.shape
     lo, hi = _window(length, past_context)
     k = k_cache[:, lo:hi].float()
@@ -152,7 +186,7 @@ def decode_attention_reference(q: torch.Tensor, k_cache: torch.Tensor,
 
 
 def decode_attention_split(q: torch.Tensor, k_cache: torch.Tensor,
-                           v_cache: torch.Tensor, length: int, n_split: int,
+                           v_cache: torch.Tensor, length: Length, n_split: int,
                            past_context: tp.Optional[int] = None,
                            k_scale: tp.Optional[torch.Tensor] = None,
                            v_scale: tp.Optional[torch.Tensor] = None
@@ -160,8 +194,11 @@ def decode_attention_split(q: torch.Tensor, k_cache: torch.Tensor,
     """The kernel's arithmetic in plain PyTorch: n_split shares of the window
     (`tile_shares`), each an online softmax over its tiles in base 2 (one max
     and one rescale per tile, the int8 scales applied to the score and to the
-    weight), then `combine_shares`."""
+    weight), then `combine_shares`. The kernel's n_split comes from the
+    capacity (`split_count(B, H, S, ...)`), so shares past the window's end
+    may be empty."""
     _check(q, k_cache, v_cache, length, past_context, k_scale, v_scale)
+    length = _host_length(length)
     B, S, H, D = k_cache.shape
     lo, hi = _window(length, past_context)
     qs = q.float() * (LOG2E / math.sqrt(D))
@@ -199,7 +236,7 @@ def _launcher():
     global _launch_fn
     if _launch_fn is None:
         fn = _build.load("decode_attention").decode_attention_launch
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
                        + [ctypes.c_void_p, ctypes.c_int])
         fn.restype = ctypes.c_int
         _launch_fn = fn
@@ -207,15 +244,17 @@ def _launcher():
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, length: int,
+                     v_cache: torch.Tensor, length: Length,
                      past_context: tp.Optional[int] = None,
                      k_scale: tp.Optional[torch.Tensor] = None,
                      v_scale: tp.Optional[torch.Tensor] = None) -> torch.Tensor:
     """softmax(q.K^T/sqrt(D) + validity mask).V for one query per (row, head).
 
     CPU tensors take `decode_attention_reference`; CUDA tensors launch the
-    kernel on the current stream (no synchronisation), in clusters of
-    `split_count` blocks, or raise."""
+    kernel on the current stream (no synchronisation, so the launch can be
+    captured into a CUDA graph), in clusters of `split_count(B, H, S)`
+    blocks, or raise. Given a device length, the launch reads nothing of
+    the device on the host."""
     if q.device.type == "cpu":
         return decode_attention_reference(q, k_cache, v_cache, length,
                                           past_context, k_scale, v_scale)
@@ -242,14 +281,15 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError(f"head dim must be even and <= 128, got {D}")
     if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
         raise ValueError("k/v caches must be 16-byte aligned")
-    lo, hi = _window(length, past_context)
-    n_split = split_count(B, H, hi - lo, _sm_count(q.device.index))
+    length = length_tensor(length, q.device)
+    n_split = split_count(B, H, S, _sm_count(q.device.index))
     out = torch.empty_like(q)
     err = _launcher()(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         k_scale.data_ptr() if k_scale is not None else None,
         v_scale.data_ptr() if v_scale is not None else None,
-        out.data_ptr(), B, S, H, D, lo, hi, _DTYPE_CODES[q.dtype],
+        out.data_ptr(), length.data_ptr(), B, S, H, D,
+        -1 if past_context is None else past_context, _DTYPE_CODES[q.dtype],
         _DTYPE_CODES[k_cache.dtype],
         torch.cuda.current_stream(q.device).cuda_stream, n_split)
     if err:

@@ -21,10 +21,10 @@ import math
 import torch
 
 from . import _build
+from .attention import FLASH_CAUSAL_HEAD_DIMS as _HEAD_DIMS
 from .attention import make_causal_bias
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
 _launchers: dict = {}
 
 

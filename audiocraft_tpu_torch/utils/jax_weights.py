@@ -8,7 +8,9 @@ Dense `[in, out]` -> Linear `[out, in]`; fused `in_proj_weight` `[E, 3E]` ->
 `[3E, E]`; stacked `emb` `[K, V, D]` / `linears` `[K, D, card]` -> K modules;
 conv `[W, Cin, Cout]` -> `[Cout, Cin, W]` (transposed conv -> `[Cin, Cout, W]`)
 with weight-norm `g`/`v`; LSTM `w_ih` `[C, 4H]` -> `weight_ih_l{n}` `[4H, C]`;
-RVQ codebooks `[n_q, C, D]` -> one codebook per level.
+RVQ codebooks `[n_q, C, D]` -> one codebook per level; LayerScale `scale`
+and the qk layer norms keep their names (`layer_scale_1.scale`,
+`self_attn.q_layer_norm.weight`, ...).
 """
 import typing as tp
 
@@ -53,6 +55,9 @@ def _mha(p: Tree, prefix: str, out: dict) -> None:
     if "in_proj_bias" in p:
         out[prefix + "in_proj_bias"] = p["in_proj_bias"]
     _dense(p["out_proj"], prefix + "out_proj.", out)
+    for name in ("q_layer_norm", "k_layer_norm"):
+        if name in p:
+            _norm(p[name], prefix + name + ".", out)
 
 
 def t5_state(params: Tree, num_layers: int, prefix: str = "") -> dict:
@@ -96,6 +101,9 @@ def transformer_state(p: Tree, num_layers: int, prefix: str = "") -> dict:
         if "cross_attn" in lp:
             _mha(lp["cross_attn"], rp + "cross_attention.", out)
             _norm(lp["norm_cross"], rp + "norm_cross.", out)
+        for name in ("layer_scale_1", "layer_scale_2", "layer_scale_cross"):
+            if name in lp:
+                out[rp + name + ".scale"] = lp[name]["scale"]
     return out
 
 

@@ -12,7 +12,11 @@ Phases, each printing one JSON line:
            and a library call; K1 also over cases that reach every cluster
            size 1..8 and every load path (B 1-512, S 504 and 1500, H 5/16/24,
            D 64/66/128, windows 0 and 64) and is timed at B 4 bf16, B 32 int8
-           and B 512 int8 and bf16; K2 is checked at the edges of its tiles (T 127,
+           and B 512 int8 and bf16, and at S/8 and S/2 of the cache, its
+           length always read from the device; K1 is then captured into a
+           CUDA graph whose replays step its device length from 1 to S,
+           each output held against the plain version; K2 is checked at
+           the edges of its tiles (T 127,
            128, 129, 1501; D 64 and 128), its backward twice on the same
            inputs for bit-identical gradients, and timed at T 1500 and 1501;
   reference  the debug MusicGen, greedy in f32: tokens on the card equal the
@@ -22,8 +26,13 @@ Phases, each printing one JSON line:
   slice    full-width MusicGen-small (T5-base text encoder, 24-layer LM,
            EnCodec 32 kHz decoder; seeded random weights, bf16) answers 3
            requests of 2 texts x 10 s, then one 16-prompt LM generation over
-           an int8 KV cache; checks shapes, finiteness, code range, and that
-           every decode-attention step launched the hand-written kernel;
+           an int8 KV cache; checks shapes, finiteness, code range, that
+           every generate decoded through one captured CUDA graph and that
+           every decode-attention step launched the hand-written kernel
+           (replays count the launches they hold); then 1 s of greedy
+           tokens from the graph equals the same step run eagerly on the
+           card (bf16 and int8 caches), and a profile at 100 frames gives
+           wall and device ms per forward and the idle share;
   train    the MusicGen solver config at full width (T5-base, 24 layers,
            f32 parameters, bf16 autocast, AdamW) takes 5 steps on 16 x 30 s
            of seeded audio encoded by the full-width EnCodec; checks finite
@@ -152,7 +161,7 @@ def check_decode_attention(torch, batches, S, path, seed=0):
     f32, bf16 and int8 caches; lengths 1, 37, S - 1, S and a window of 64.
     Emits one `kernel_check` line and returns the worst error per cache."""
     from audiocraft_tpu_torch.ops.decode_attention import (
-        decode_attention, decode_attention_reference)
+        decode_attention, decode_attention_reference, length_tensor)
     H, D = 16, 64
     g = torch.Generator("cuda").manual_seed(seed)
     window_length = min(300, S - 4)
@@ -165,8 +174,8 @@ def check_decode_attention(torch, batches, S, path, seed=0):
             k, v, scales = _cache(torch, B, S, H, D, kind, g)
             for length, window in ((1, None), (37, None), (S - 1, None),
                                    (S, None), (window_length, 64)):
-                out = decode_attention(q, k, v, length, past_context=window,
-                                       **scales)
+                out = decode_attention(q, k, v, length_tensor(length, "cuda"),
+                                       past_context=window, **scales)
                 torch.cuda.synchronize()
                 ref = decode_attention_reference(q, k, v, length,
                                                  past_context=window, **scales)
@@ -187,32 +196,33 @@ def check_decode_attention(torch, batches, S, path, seed=0):
 
 def check_decode_attention_splits(torch, seed=5):
     """K1 vs its plain version over the cases that reach every cluster size
-    1..8 of `split_count` and every load path: B 1, 2, 4 and 512; S 504 and
-    1500; (H, D) (16, 64), (5, 66) (rows 4- or 2-byte aligned) and (24, 128);
-    lengths 1, 33, 100, 130, 200, 250, S - 1 and S; windows of 0 and 64 at
-    the end of the long cache and of 64 at S // 2; f32, bf16 and int8
-    caches. Emits one `kernel_check` line; returns the worst error per
-    cache."""
+    1..8 of `split_count` (sized by the cache's capacity S) and every load
+    path: B 1, 2, 4 and 512; S 504 and 1500, and S 64, 96, 128 and 224 at
+    B 1; (H, D) (16, 64), (5, 66) (rows 4- or 2-byte aligned) and (24, 128);
+    lengths 1, 33, 100, 130, 200, 250, S - 1 and S (those within S);
+    windows of 0 and 64 at the end of the cache and of 64 at S // 2; f32,
+    bf16 and int8 caches; lengths on the device. Emits one `kernel_check`
+    line; returns the worst error per cache."""
     from audiocraft_tpu_torch.ops.decode_attention import (
-        _sm_count, _window, decode_attention, decode_attention_reference,
+        _sm_count, decode_attention, decode_attention_reference, length_tensor,
         split_count)
     g = torch.Generator("cuda").manual_seed(seed)
     shapes = [(B, S, H, D) for B in (1, 2, 4) for S in (504, 1500)
               for H, D in ((16, 64), (5, 66), (24, 128))] + [(512, 504, 16, 64)]
+    shapes += [(1, S, 16, 64) for S in (64, 96, 128, 224)]
     worst, splits, checks = {}, set(), 0
     for B, S, H, D in shapes:
         cases = [(length, None) for length in
-                 (1, 33, 100, 130, 200, 250, S - 1, S)]
+                 (1, 33, 100, 130, 200, 250, S - 1, S) if length <= S]
         cases += [(S, 0), (S, 64), (S // 2, 64)]
+        splits.add(split_count(B, H, S, _sm_count(0)))
         for kind in ("float32", "bfloat16", "int8"):
             q_dtype = torch.float32 if kind == "float32" else torch.bfloat16
             q = torch.randn(B, H, D, device="cuda", generator=g).to(q_dtype)
             k, v, scales = _cache(torch, B, S, H, D, kind, g)
             for length, window in cases:
-                lo, hi = _window(length, window)
-                splits.add(split_count(B, H, hi - lo, _sm_count(0)))
-                out = decode_attention(q, k, v, length, past_context=window,
-                                       **scales)
+                out = decode_attention(q, k, v, length_tensor(length, "cuda"),
+                                       past_context=window, **scales)
                 torch.cuda.synchronize()
                 ref = decode_attention_reference(q, k, v, length,
                                                  past_context=window, **scales)
@@ -241,7 +251,8 @@ def phase_kernels(torch, S):
     """K1 vs its plain version at the slice path's shapes, then timings."""
     import torch.nn.functional as F
     from audiocraft_tpu_torch.ops.decode_attention import (
-        _sm_count, decode_attention, decode_attention_reference, split_count)
+        _sm_count, decode_attention, decode_attention_reference, length_tensor,
+        split_count)
     from audiocraft_tpu_torch.utils.timing import time_ms
     H, D = 16, 64
     worst = check_decode_attention(torch, (4, 8, 32, 64), S, "slice")
@@ -250,14 +261,18 @@ def phase_kernels(torch, S):
     g = torch.Generator("cuda").manual_seed(0)
 
     timings = []
+    # the main shapes at the full cache and, as early decode steps see it,
+    # at S / 8 and S / 2 (the cluster stays sized by the capacity S)
     for B, kind, length in ((32, "int8", S), (4, "bfloat16", S),
                             (32, "int8", S // 2), (512, "int8", S),
-                            (512, "bfloat16", S)):
+                            (512, "bfloat16", S), (4, "bfloat16", S // 8),
+                            (4, "bfloat16", S // 2), (32, "int8", S // 8)):
         q = torch.randn(B, H, D, device="cuda", generator=g).to(torch.bfloat16)
         k, v, scales = _cache(torch, B, S, H, D, kind, g)
         flush = 128 << 20  # > 50 MB of L2
-        ms = time_ms(lambda: decode_attention(q, k, v, length, **scales),
-                      flush_bytes=flush)
+        device_length = length_tensor(length, "cuda")
+        ms = time_ms(lambda: decode_attention(q, k, v, device_length,
+                                              **scales), flush_bytes=flush)
         plain_ms = time_ms(lambda: decode_attention_reference(
             q, k, v, length, **scales), flush_bytes=flush)
         if scales:
@@ -274,7 +289,7 @@ def phase_kernels(torch, S):
         bound = max(nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS) * 1e3
         del kd, vd, kl, vl
         timings.append(dict(B=B, S=S, H=H, D=D, length=length, cache=kind,
-                            n_split=split_count(B, H, length, _sm_count(0)),
+                            n_split=split_count(B, H, S, _sm_count(0)),
                             ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                             bound_ms=bound,
                             bound_by="bytes" if nbytes / HBM_BYTES_PER_S
@@ -285,6 +300,58 @@ def phase_kernels(torch, S):
          library="torch.nn.functional.scaled_dot_product_attention on the "
                  "dequantized bf16 cache [B, H, len, D]", timings=timings)
     return worst, timings
+
+
+def phase_graph_kernel(torch, S):
+    """K1 with a device length captured once into a CUDA graph, as the
+    decode step replays it: each replay adds one to the length on the
+    device, from 1 to S, and every output is held against the plain version
+    at that length. The slice's shapes (B 4 over a bf16 cache, B 32 over an
+    int8 one), each without and with a window of 64."""
+    from audiocraft_tpu_torch.ops.decode_attention import (
+        decode_attention, decode_attention_reference)
+    H, D = 16, 64
+    g = torch.Generator("cuda").manual_seed(6)
+    worst, checks = {}, 0
+    for B, kind in ((4, "bfloat16"), (32, "int8")):
+        q = torch.randn(B, H, D, device="cuda", generator=g).to(torch.bfloat16)
+        k, v, scales = _cache(torch, B, S, H, D, kind, g)
+        for window in (None, 64):
+            length = torch.zeros(1, dtype=torch.int32, device="cuda")
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):  # warm-up outside the capture
+                decode_attention(q, k, v, length + 1, past_context=window,
+                                 **scales)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=side,
+                                  capture_error_mode="thread_local"):
+                length.add_(1)
+                out = decode_attention(q, k, v, length, past_context=window,
+                                       **scales)
+            torch.cuda.current_stream().wait_stream(side)
+            for step in range(1, S + 1):
+                graph.replay()
+                ref = decode_attention_reference(q, k, v, step,
+                                                 past_context=window, **scales)
+                err = (out.float() - ref.float()).abs().max().item()
+                if not err <= K1_TOL[kind]:
+                    raise AssertionError(
+                        f"decode_attention in a CUDA graph B={B} {kind} "
+                        f"length={step} window={window}: max abs err {err} > "
+                        f"{K1_TOL[kind]}")
+                worst[kind] = max(worst.get(kind, 0.0), err)
+                checks += 1
+            if int(length) != S:
+                raise AssertionError(f"the device length reached "
+                                     f"{int(length)}, not {S}")
+            del graph
+    emit("kernel_check", kernel="decode_attention", path="graph",
+         checks=checks, shapes=[dict(B=4, cache="bfloat16"),
+                                dict(B=32, cache="int8")],
+         S=S, H=H, D=D, lengths=f"1..{S}, one per replay", windows=[None, 64],
+         max_abs_err=worst, tolerance=K1_TOL)
+    return worst
 
 
 def _fused_qkv(torch, B, T, H, D, dtype, g):
@@ -528,8 +595,26 @@ def phase_reference_train(torch):
          k2_launches_none=launches_none, k2_launches_torch=launches_remat)
 
 
+def _eager_decode_steps(step, steps, device, generator):
+    """The decode steps of `LMModel.generate` run one by one on the card,
+    without the graph: the eager side of the graph-vs-eager check."""
+    for _ in range(steps):
+        step()
+
+
+def _script(name: str):
+    """A module of `scripts/` (they are not a package)."""
+    import importlib.util
+    path = Path(__file__).resolve().parent / "scripts" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 def phase_slice(torch, card):
     from audiocraft_tpu_torch.models import MusicGen, builders
+    from audiocraft_tpu_torch.models import lm as lm_module
     from audiocraft_tpu_torch.models.lm import GenParams
     from audiocraft_tpu_torch.modules.conditioners import ConditioningAttributes
     from audiocraft_tpu_torch.ops.decode_attention import decode_attention
@@ -549,7 +634,16 @@ def phase_slice(torch, card):
 
     from audiocraft_tpu_torch.ops.flash_causal_attention import \
         flash_causal_attention as fca
+    stats = lm_module.decode_graph_stats
+    graph = dict(capture_s=[], capture_bytes=[], replay_ms_per_step=[])
+
+    def note_graph():
+        graph["capture_s"].append(stats.last_capture_s)
+        graph["capture_bytes"].append(stats.last_capture_bytes)
+        graph["replay_ms_per_step"].append(stats.last_replay_ms_per_step())
+
     torch.cuda.reset_peak_memory_stats()
+    captures = stats.captures
     decode_attention.launches = fca.launches = fca.backward_launches = 0
     request_s = []
     for _ in range(N_REQUESTS):
@@ -557,6 +651,7 @@ def phase_slice(torch, card):
         wav, tokens = mg.generate(TEXTS, return_tokens=True)
         torch.cuda.synchronize()
         request_s.append(time.perf_counter() - t)
+        note_graph()
         if tuple(wav.shape) != (2, 1, frames * 640):
             raise AssertionError(f"waveform shape {tuple(wav.shape)}")
         if not torch.isfinite(wav).all():
@@ -575,6 +670,10 @@ def phase_slice(torch, card):
     launches = decode_attention.launches
     flash_launches = fca.launches + fca.backward_launches
     peak = torch.cuda.max_memory_allocated()
+    note_graph()
+    if stats.captures - captures != N_REQUESTS + 1:
+        raise AssertionError(f"{stats.captures - captures} decode graphs "
+                             f"captured for {N_REQUESTS + 1} generates")
     if tuple(codes.shape) != (16, 4, frames):
         raise AssertionError(f"int8 codes shape {tuple(codes.shape)}")
     if not (int(codes.min()) >= 0 and int(codes.max()) < 2048):
@@ -583,6 +682,27 @@ def phase_slice(torch, card):
     if launches != expected:
         raise AssertionError(f"decode_attention launched {launches} times, "
                              f"expected {expected}")
+
+    # about 1 s of greedy tokens: the graph's equal the step run eagerly
+    short = dict(conditions=attrs[:2], max_gen_len=TOKENS_PER_SECOND,
+                 gen=GenParams(use_sampling=False), device="cuda")
+    cache_kinds = (torch.bfloat16, torch.int8)
+    graph_tokens = [lm.generate(cache_dtype=c, **short) for c in cache_kinds]
+    replay = lm_module._replay_decode_steps
+    lm_module._replay_decode_steps = _eager_decode_steps
+    try:
+        eager_tokens = [lm.generate(cache_dtype=c, **short)
+                        for c in cache_kinds]
+    finally:
+        lm_module._replay_decode_steps = replay
+    for c, a, b in zip(cache_kinds, graph_tokens, eager_tokens):
+        if not torch.equal(a, b):
+            raise AssertionError(f"greedy tokens of the graph and of the "
+                                 f"eager step differ ({c})")
+    # per-forward wall and device time and the idle share, at 100 frames
+    profiled = [_script("torch_profile_decode").profile_generate(
+        torch, lm, prompts, cache, 100) for prompts, cache in
+        ((2, "bfloat16"), (16, "int8"))]
     emit("slice", model="musicgen-small (T5-base, 24-layer LM, EnCodec 32 kHz; "
          "seeded random weights, bf16)", card=card, setup_s=setup_s,
          requests=N_REQUESTS, texts_per_request=len(TEXTS),
@@ -593,7 +713,18 @@ def phase_slice(torch, card):
          pattern_steps=steps, forwards_per_generate=forwards,
          decode_attention_launches=launches, expected_launches=expected,
          flash_causal_attention_launches=flash_launches,
-         max_memory_allocated=peak)
+         max_memory_allocated=peak,
+         decode_graph=dict(graph, captures=N_REQUESTS + 1,
+                           note="one capture per generate (3 bf16 requests, "
+                                "then the int8 generate); replay ms per step "
+                                "from CUDA events around the replays"),
+         graph_vs_eager=dict(frames=TOKENS_PER_SECOND, texts=2, greedy=True,
+                             caches=["bfloat16", "int8"], tokens_equal=True),
+         profile_100_frames=[{k: p[k] for k in (
+             "config", "wall_ms_per_forward", "device_kernel_ms_per_forward",
+             "device_idle_share", "kernel_launches_per_forward",
+             "host_launch_calls_per_forward", "graph_capture_s",
+             "graph_capture_bytes")} for p in profiled])
     return launches
 
 
@@ -702,7 +833,8 @@ def phase_int4_kernels(torch):
     """K3 vs its plain version on seeded bf16 K/V packed by quant_pack_kv,
     then timings at the JAX script's shape."""
     from audiocraft_tpu_torch.modules.transformer import KVCache
-    from audiocraft_tpu_torch.ops.decode_attention import decode_attention
+    from audiocraft_tpu_torch.ops.decode_attention import (decode_attention,
+                                                           length_tensor)
     from audiocraft_tpu_torch.ops.int4_decode_attention import (
         int4_decode_attention, int4_decode_attention_reference, quant_pack_kv)
     from audiocraft_tpu_torch.utils.timing import time_ms
@@ -755,9 +887,10 @@ def phase_int4_kernels(torch):
                       flush_bytes=flush)
         plain_ms = time_ms(lambda: int4_decode_attention_reference(
             q, *packed, length), flush_bytes=flush)
+        k1_length = length_tensor(length, "cuda")  # K1 reads it on the device
         k1_int8_ms = time_ms(lambda: decode_attention(
-            q, k8, v8, length, k_scale=ks8, v_scale=vs8), flush_bytes=flush)
-        k1_bf16_ms = time_ms(lambda: decode_attention(q, k, v, length),
+            q, k8, v8, k1_length, k_scale=ks8, v_scale=vs8), flush_bytes=flush)
+        k1_bf16_ms = time_ms(lambda: decode_attention(q, k, v, k1_length),
                               flush_bytes=flush)
         nbytes, ops = _int4_bytes_and_ops(B, H, D, length)
         bound = max(nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS) * 1e3
@@ -779,13 +912,9 @@ def phase_int4_path(torch, card):
     """scripts/torch_int4_decode.py's path at its shape: pack, attend through
     K3 (and K1 over the int8 and bf16 caches), errors against f32 attention,
     then INT4_STEPS decode steps through K3 feeding each output back."""
-    import importlib.util
     from audiocraft_tpu_torch.ops.int4_decode_attention import \
         int4_decode_attention
-    path = Path(__file__).resolve().parent / "scripts" / "torch_int4_decode.py"
-    spec = importlib.util.spec_from_file_location("torch_int4_decode", path)
-    script = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(script)
+    script = _script("torch_int4_decode")
     shape = [INT4_SHAPE[k] for k in "BHSD"]
     int4_decode_attention.launches = 0
     q, k, v = script.make_inputs(torch, *shape, "cuda", seed=0)
@@ -967,6 +1096,8 @@ def main() -> int:
     from audiocraft_tpu_torch.modules.patterns import DelayedPatternProvider
     S = len(DelayedPatternProvider(4).get_pattern(frames).layout)
     worst, timings = phase_kernels(torch, S)
+    for kind, err in phase_graph_kernel(torch, S).items():
+        worst[kind] = max(worst[kind], err)
     flash_worst, flash_timing = phase_flash_kernels(torch)
     phase_reference(torch)
     phase_reference_train(torch)

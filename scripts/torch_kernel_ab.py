@@ -22,9 +22,12 @@ Needs one CUDA card.
   decode_attention  K1 at MusicGen-small's decode shape (H 16, D 64, cache
       S 504, bf16 q): B 4 over a bf16 cache, B 32 and B 512 over an int8
       cache, B 512 over a bf16 cache, all at length 504 (or --cases
-      B:cache:length,...). A source whose `decode_attention_launch` takes
-      `n_split` gets the wrapper's `split_count` (or --split); an older one
-      gets none.
+      B:cache:length,...). A source whose `decode_attention_launch` reads
+      the length from the device (`const int* length`) gets it as an int32
+      tensor and the cluster size `split_count(B, H, S)` of the cache's
+      capacity; one that takes the window [lo, hi) on the host gets
+      `split_count(B, H, length)` where it takes `n_split`, and an older one
+      none (--split forces a cluster size on both).
   int4_decode_attention  K3 at scripts/pallas_int4_decode.py's shape
       (B 512, H 16, S 512, D 64, bf16 q) at lengths 384 and 512; `n_split`
       as for decode_attention.
@@ -140,17 +143,29 @@ def ab_flash(torch, args, card):
             flush=True)
 
 
+def _takes_device_length(src: str, symbol: str) -> bool:
+    """Whether the source's C function `symbol` reads its length from the
+    device (a `const int* length` argument)."""
+    match = re.search(r'extern "C" int ' + symbol + r"\s*\(([^)]*)\)",
+                      Path(src).read_text())
+    return bool(match and re.search(r"const int\s*\*\s*length",
+                                    match.group(1)))
+
+
 def _decode_fns(args, symbol, n_ints):
-    """(launch function, takes n_split) per source; the pointer arguments,
-    n_ints ints and the stream, then n_split where the source takes it."""
+    """(launch function, takes n_split, reads a device length) per source;
+    the pointer arguments (one more for a device length), n_ints ints (one
+    fewer) and the stream, then n_split where the source takes it."""
     fns = []
     for src, cdll in zip(args.sources, _compile(args.sources)):
         fn = getattr(cdll, symbol)
         split = _takes_split(src, symbol)
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * n_ints
+        device = _takes_device_length(src, symbol)
+        fn.argtypes = ([ctypes.c_void_p] * (6 + device)
+                       + [ctypes.c_int] * (n_ints - device)
                        + [ctypes.c_void_p] + ([ctypes.c_int] if split else []))
         fn.restype = ctypes.c_int
-        fns.append((fn, split))
+        fns.append((fn, split, device))
     return fns
 
 
@@ -160,20 +175,24 @@ def _run_cases(torch, args, card, fns, cases):
     from audiocraft_tpu_torch.utils.timing import time_ms
     first = {}
     for i in _in_turns(len(fns)):
-        fn, split = fns[i]
+        fn, split, device = fns[i]
         for name, fields, launch, out in cases:
             def call():
-                err = launch(fn, split, out)
+                err = launch(fn, split, device, out)
                 assert err == 0, f"{name}: launch failed: CUDA error {err}"
             call()
             torch.cuda.synchronize()
             result = out.float().clone()
             first.setdefault(name, result)
             ms = time_ms(call, flush_bytes=128 << 20)
+            n_split = (fields["n_split_device"] if device
+                       else fields["n_split"] if split else None)
             print(json.dumps({
                 "kernel": args.kernel, "source": args.sources[i],
-                "case": name, **fields, "n_split": fields["n_split"]
-                if split else None, "card": card, "ms": ms,
+                "case": name, **{k: v for k, v in fields.items()
+                                 if not k.startswith("n_split")},
+                "device_length": device, "n_split": n_split, "card": card,
+                "ms": ms,
                 "max_diff_from_first": (result - first[name]).abs().max()
                 .item()}), flush=True)
 
@@ -198,19 +217,30 @@ def ab_decode(torch, args, card):
             (k, ks), (v, vs) = KVCache._quantize(k), KVCache._quantize(v)
         else:
             k, v = k.to(getattr(torch, kind)), v.to(getattr(torch, kind))
-        n = args.split or split_count(B, H, length, _sm_count(q.device.index))
+        sms = _sm_count(q.device.index)
+        n = args.split or split_count(B, H, length, sms)
+        n_device = args.split or split_count(B, H, S, sms)
+        device_length = torch.tensor([length], dtype=torch.int32,
+                                     device="cuda")
         out = torch.empty_like(q)
 
-        def launch(fn, split, out, q=q, k=k, v=v, ks=ks, vs=vs, B=B,
-                   length=length, n=n):
-            return fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                      ks.data_ptr() if ks is not None else None,
-                      vs.data_ptr() if vs is not None else None,
-                      out.data_ptr(), B, S, H, D, 0, length,
+        def launch(fn, split, device, out, q=q, k=k, v=v, ks=ks, vs=vs, B=B,
+                   length=length, n=n, n_device=n_device,
+                   device_length=device_length):
+            pointers = [q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        ks.data_ptr() if ks is not None else None,
+                        vs.data_ptr() if vs is not None else None,
+                        out.data_ptr()]
+            if device:  # the length on the device, no window
+                return fn(*pointers, device_length.data_ptr(), B, S, H, D,
+                          -1, _DTYPE_CODES[q.dtype], _DTYPE_CODES[k.dtype],
+                          stream, n_device)
+            return fn(*pointers, B, S, H, D, 0, length,
                       _DTYPE_CODES[q.dtype], _DTYPE_CODES[k.dtype], stream,
                       *([n] if split else []))
         cases.append((case, dict(B=B, S=S, H=H, D=D, length=length,
-                                 cache=kind, n_split=n), launch, out))
+                                 cache=kind, n_split=n,
+                                 n_split_device=n_device), launch, out))
     _run_cases(torch, args, card, fns, cases)
 
 
@@ -232,7 +262,7 @@ def ab_int4(torch, args, card):
         n = args.split or split_count(B, H, length, _sm_count(q.device.index))
         out = torch.empty_like(q)
 
-        def launch(fn, split, out, length=length, n=n):
+        def launch(fn, split, device, out, length=length, n=n):
             return fn(q.data_ptr(), *(t.data_ptr() for t in packed),
                       out.data_ptr(), B, S, H, D, 0, length,
                       _DTYPE_CODES[q.dtype], stream, *([n] if split else []))

@@ -9,9 +9,12 @@ with a bf16 KV cache; 16 texts with an int8 cache), runs `LMModel.generate`
 for `--frames` frames twice: once plain, timed with the host clock around a
 synchronised run, and once under `torch.profiler`. Prints one JSON line per
 configuration: wall seconds per LM forward, device kernel time per forward
-(the sum of the profiled CUDA kernels), the device's idle share
-(1 - kernel time / wall time), kernel launches per forward, and the kernels
-taking the most device time. Needs one CUDA card.
+(the sum of the profiled CUDA kernels, those replayed from a CUDA graph
+included), the device's idle share (1 - kernel time / wall time), kernels
+run per forward, the host's launch calls per forward (kernel launches and
+CUDA graph launches), the kernels taking the most device time, and, where
+the tree decodes through a CUDA graph, its capture's host seconds and memory.
+`profile_generate` is shared with `chip_smoke.py`. Needs one CUDA card.
 """
 import argparse
 import json
@@ -19,6 +22,70 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+
+TEXTS = ["90s rock song with loud guitars", "calm lo-fi piano"]
+CONFIGS = ((2, "bfloat16"), (16, "int8"))  # texts, KV cache dtype
+
+
+def profile_generate(torch, lm, prompts: int, cache: str, frames: int,
+                     seed: int = 0) -> dict:
+    """Time and profile `lm.generate` (top-k 250 sampling, CFG) of `prompts`
+    texts over `frames` frames; one warm-up run first."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from audiocraft_tpu_torch.models import lm as lm_module
+    from audiocraft_tpu_torch.models.lm import GenParams
+    from audiocraft_tpu_torch.modules.conditioners import ConditioningAttributes
+    forwards = len(lm.pattern_provider.get_pattern(frames).layout) - 1
+    attrs = [ConditioningAttributes(text={"description": TEXTS[i % 2]})
+             for i in range(prompts)]
+
+    def run():
+        g = torch.Generator("cuda").manual_seed(seed)
+        lm.generate(conditions=attrs, max_gen_len=frames,
+                    gen=GenParams(top_k=250), cache_dtype=getattr(torch, cache),
+                    generator=g, device="cuda")
+        torch.cuda.synchronize()
+
+    run()  # warm-up: cuBLAS handles, allocator, kernel build
+    t0 = time.perf_counter()
+    run()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+    events = prof.key_averages()
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    host_launches = sum(e.count for e in events
+                        if e.device_type == torch.autograd.DeviceType.CPU
+                        and e.key.startswith(("cudaLaunchKernel",
+                                              "cudaGraphLaunch")))
+    graph_launches = sum(e.count for e in events
+                         if e.key.startswith("cudaGraphLaunch"))
+    device_us = sum(e.self_device_time_total for e in kernels)
+    top = sorted(kernels, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:8]
+    out = {
+        "config": f"{prompts} texts x {frames} frames, CFG batch "
+                  f"{2 * prompts}, {cache} cache",
+        "forwards": forwards,
+        "wall_ms_per_forward": wall * 1e3 / forwards,
+        "device_kernel_ms_per_forward": device_us / 1e3 / forwards,
+        "device_idle_share": 1 - device_us / 1e6 / wall,
+        "kernel_launches_per_forward": sum(e.count for e in kernels) / forwards,
+        "host_launch_calls_per_forward": host_launches / forwards,
+        "graph_launches_per_forward": graph_launches / forwards,
+        "top_kernels": [{"name": e.key[:80],
+                         "ms_per_forward": e.self_device_time_total
+                         / 1e3 / forwards,
+                         "calls_per_forward": e.count / forwards}
+                        for e in top]}
+    stats = getattr(lm_module, "decode_graph_stats", None)
+    if stats is not None:
+        out["graph_capture_s"] = stats.last_capture_s
+        out["graph_capture_bytes"] = stats.last_capture_bytes
+    return out
 
 
 def main() -> int:
@@ -28,11 +95,8 @@ def main() -> int:
     args = parser.parse_args()
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from audiocraft_tpu_torch.models import builders
-    from audiocraft_tpu_torch.models.lm import GenParams
-    from audiocraft_tpu_torch.modules.conditioners import ConditioningAttributes
 
     if not torch.cuda.is_available():
         print("torch_profile_decode: no CUDA device is available",
@@ -43,46 +107,9 @@ def main() -> int:
                           text=True, timeout=60).stdout.strip()
     lm = builders.get_musicgen_small_lm(device="cuda", dtype=torch.bfloat16,
                                         seed=args.seed)
-    forwards = len(lm.pattern_provider.get_pattern(args.frames).layout) - 1
-    texts = ["90s rock song with loud guitars", "calm lo-fi piano"]
-
-    for prompts, cache in ((2, torch.bfloat16), (16, torch.int8)):
-        attrs = [ConditioningAttributes(text={"description": texts[i % 2]})
-                 for i in range(prompts)]
-
-        def run():
-            g = torch.Generator("cuda").manual_seed(args.seed)
-            lm.generate(conditions=attrs, max_gen_len=args.frames,
-                        gen=GenParams(top_k=250), cache_dtype=cache,
-                        generator=g, device="cuda")
-            torch.cuda.synchronize()
-
-        run()  # warm-up: cuBLAS handles, allocator, kernel build
-        t0 = time.perf_counter()
-        run()
-        wall = time.perf_counter() - t0
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            run()
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        device_us = sum(e.self_device_time_total for e in kernels)
-        launches = sum(e.count for e in kernels)
-        top = sorted(kernels, key=lambda e: e.self_device_time_total,
-                     reverse=True)[:8]
-        print(json.dumps({
-            "config": f"{prompts} texts x {args.frames} frames, CFG batch "
-                      f"{2 * prompts}, {str(cache).replace('torch.', '')} cache",
-            "card": card, "forwards": forwards,
-            "wall_ms_per_forward": wall * 1e3 / forwards,
-            "device_kernel_ms_per_forward": device_us / 1e3 / forwards,
-            "device_idle_share": 1 - device_us / 1e6 / wall,
-            "kernel_launches_per_forward": launches / forwards,
-            "top_kernels": [{"name": e.key[:80],
-                             "ms_per_forward": e.self_device_time_total
-                             / 1e3 / forwards,
-                             "calls_per_forward": e.count / forwards}
-                            for e in top]}), flush=True)
+    for prompts, cache in CONFIGS:
+        print(json.dumps({"card": card, **profile_generate(
+            torch, lm, prompts, cache, args.frames, args.seed)}), flush=True)
     return 0
 
 

@@ -18,7 +18,7 @@ from audiocraft_tpu.ops.flash_attention import \
     decode_attention as jax_decode_attention
 from audiocraft_tpu_torch.ops.decode_attention import (
     BLOCKS_PER_SM, MAX_SPLIT, TILE, decode_attention, decode_attention_reference,
-    decode_attention_split, split_count, tile_shares)
+    decode_attention_split, length_tensor, split_count, tile_shares)
 
 ATOL, RTOL = 1e-5, 1e-4
 
@@ -72,6 +72,45 @@ def test_reference_matches_pallas_kernel(name):
                                      past_context=past_context, **torch_scales)
     np.testing.assert_allclose(got.numpy(), np.asarray(expected),
                                atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("sm_count", [8, 132])
+@pytest.mark.parametrize("name", list(CASES))
+def test_device_length_plain_versions_match_pallas_kernel(name, sm_count):
+    """The length as the kernel reads it (one int32 tensor) through the
+    reference and through the split of the window into the capacity-sized
+    cluster the kernel launches (`split_count(B, H, S)`, shares past the
+    window's end empty), against the TPU kernel's `length_ref`."""
+    B, S, H, D, length, past_context, quant = CASES[name]
+    q, k, v, ks, vs = _case(B, S, H, D, 13, quant)
+    jax_scales = {} if ks is None else dict(
+        k_scale=jnp.asarray(ks).astype(jnp.bfloat16),
+        v_scale=jnp.asarray(vs).astype(jnp.bfloat16))
+    expected = np.asarray(jax_decode_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        jnp.asarray(length, jnp.int32), past_context=past_context,
+        **jax_scales))
+    args = (torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+            length_tensor(length, "cpu"))
+    kwargs = dict(past_context=past_context)
+    if ks is not None:
+        kwargs.update(k_scale=torch.from_numpy(ks).to(torch.bfloat16),
+                      v_scale=torch.from_numpy(vs).to(torch.bfloat16))
+    n_split = split_count(B, H, S, sm_count)
+    for got in (decode_attention_reference(*args, **kwargs),
+                decode_attention_split(*args, n_split, **kwargs),
+                decode_attention(*args, **kwargs)):
+        np.testing.assert_allclose(got.numpy(), expected, atol=ATOL, rtol=RTOL)
+
+
+def test_length_tensor_form_is_checked():
+    q, k, v, _, _ = _case(1, 8, 2, 4, 5, False)
+    q, k, v = torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v)
+    assert length_tensor(3, "cpu").dtype == torch.int32
+    for bad in (torch.tensor([3]), torch.tensor([3, 4], dtype=torch.int32),
+                torch.tensor([9], dtype=torch.int32)):
+        with pytest.raises(ValueError):
+            decode_attention(q, k, v, bad)
 
 
 def test_wrapper_routes_cpu_tensors_to_reference_without_counting():

@@ -91,7 +91,8 @@ def test_the_cuda_route_rejects_what_the_kernel_cannot_take(case, match):
 
 @pytest.mark.parametrize("q_len, k_len, head_dim, eligible", [
     (1500, 1500, 64, True), (2, 2, 64, True), (1, 1, 128, True),
-    (300, 300, 192, True), (300, 301, 64, False), (1, 300, 64, False),
+    (300, 300, 192, False), (300, 300, 256, False), (300, 301, 64, False),
+    (1, 300, 64, False),
     (300, 300, 32, False), (300, 300, 96, False), (300, 300, 16, False)])
 def test_eligibility_truth_table(q_len, k_len, head_dim, eligible):
     assert flash_causal_eligible(q_len, k_len, head_dim) is eligible

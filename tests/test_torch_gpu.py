@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from audiocraft_tpu_torch.models import MusicGen, builders
+from audiocraft_tpu_torch.models import lm as lm_module
 from audiocraft_tpu_torch.models.lm import GenParams, quantize_lm_
 from audiocraft_tpu_torch.models.presets import musicgen_lm
 from audiocraft_tpu_torch.modules import transformer
@@ -23,7 +24,7 @@ from audiocraft_tpu_torch.modules.conditioners import (ConditioningAttributes,
                                                        LUTConditioner)
 from audiocraft_tpu_torch.ops.decode_attention import (
     _DTYPE_CODES as K1_DTYPE_CODES, _launcher as k1_launcher,
-    _window as k1_window, decode_attention, decode_attention_reference)
+    decode_attention, decode_attention_reference, length_tensor)
 from audiocraft_tpu_torch.ops import quant
 from audiocraft_tpu_torch.ops.flash_causal_attention import (
     flash_causal_attention, flash_causal_attention_reference)
@@ -77,7 +78,8 @@ def test_cuda_kernel_matches_reference(dtype, D):
                                       ("int8", 64)])
 def test_cuda_kernel_every_split_count(dtype, D, n_split):
     """K1's C launcher at each cluster size 1..8 (the wrapper's choice aside)
-    over windows that leave some shares empty, against the plain version."""
+    over windows that leave some shares empty, the length read from the
+    device, against the plain version."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
     g = torch.Generator("cuda").manual_seed(n_split)
@@ -95,13 +97,14 @@ def test_cuda_kernel_every_split_count(dtype, D, n_split):
     tol = 1e-4 if dtype == "float32" else 2e-2
     for length, window in [(1, None), (37, None), (S, None), (290, 64),
                            (200, 0)]:
-        lo, hi = k1_window(length, window)
         out = torch.empty_like(q)
+        device_length = length_tensor(length, "cuda")
         err = k1_launcher()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             scales["k_scale"].data_ptr() if scales else None,
             scales["v_scale"].data_ptr() if scales else None, out.data_ptr(),
-            B, S, H, D, lo, hi, K1_DTYPE_CODES[q.dtype],
+            device_length.data_ptr(), B, S, H, D,
+            -1 if window is None else window, K1_DTYPE_CODES[q.dtype],
             K1_DTYPE_CODES[k.dtype],
             torch.cuda.current_stream().cuda_stream, n_split)
         assert err == 0
@@ -109,6 +112,49 @@ def test_cuda_kernel_every_split_count(dtype, D, n_split):
         ref = decode_attention_reference(q, k, v, length, past_context=window,
                                          **scales)
         torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("window", [None, 7])
+def test_cuda_kernel_device_length_in_a_graph(dtype, window):
+    """K1 captured once into a CUDA graph with a device length; each replay
+    adds one to the length on the device, from 1 to S, and every output is
+    held against the plain version at that length."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    g = torch.Generator("cuda").manual_seed(1)
+    B, S, H, D = 4, 100, 16, 64
+    q_dtype = torch.float32 if dtype == "float32" else torch.bfloat16
+    q = torch.randn(B, H, D, device="cuda", generator=g).to(q_dtype)
+    k = torch.randn(B, S, H, D, device="cuda", generator=g)
+    v = torch.randn(B, S, H, D, device="cuda", generator=g)
+    scales = {}
+    if dtype == "int8":
+        (k, ks), (v, vs) = (transformer.KVCache._quantize(t) for t in (k, v))
+        scales = dict(k_scale=ks, v_scale=vs)
+    else:
+        k, v = k.to(q_dtype), v.to(q_dtype)
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    length = torch.zeros(1, dtype=torch.int32, device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up: build, shared-memory attribute
+        decode_attention(q, k, v, length + 1, past_context=window, **scales)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side,
+                          capture_error_mode="thread_local"):
+        length.add_(1)
+        out = decode_attention(q, k, v, length, past_context=window, **scales)
+    torch.cuda.current_stream().wait_stream(side)
+    for step in range(1, S + 1):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert int(length) == step
+        ref = decode_attention_reference(q, k, v, step, past_context=window,
+                                         **scales)
+        torch.testing.assert_close(out.float(), ref.float(), atol=tol,
+                                   rtol=tol)
 
 
 @pytest.mark.gpu
@@ -192,6 +238,110 @@ def test_greedy_tokens_on_card_match_cpu():
         a = cpu.generate(device="cpu", **kw)
         b = gpu.generate(device="cuda", **kw).cpu()
         assert torch.equal(a, b), cache_dtype
+
+
+# an f32 amax whose quotient by 127 and product with the f32 reciprocal of
+# 127 round to different bf16 values (found by search over [1, 2); any power
+# of two times it behaves alike)
+RECIPROCAL_SENSITIVE_AMAX = 1.9921265840530396
+
+
+@pytest.mark.gpu
+def test_int8_cache_on_card_equals_cpu_bit_for_bit():
+    """Eight decode steps' K/V chunks of the debug LM's shape written through
+    `KVCache.write` at the device offset, on the card and on the CPU: the int8
+    values, the bf16 scales and the index are equal bit for bit. Half the
+    rows have an amax at which dividing by the Python number 127 on the card
+    (a product with its reciprocal) would give another bf16 scale."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    B, S, H, D = 4, 12, 4, 4
+    g = torch.Generator().manual_seed(0)
+    caches = {dev: transformer.KVCache.create(B, S, H, D, torch.int8, dev)
+              for dev in ("cpu", "cuda")}
+    for step in range(8):
+        k, v = (torch.rand(B, 1, H, D, generator=g) * 2 - 1 for _ in range(2))
+        for x in (k, v):  # rows of even h: amax = the sensitive value * 2^e
+            peak = RECIPROCAL_SENSITIVE_AMAX * 2.0 ** (step % 5 - 2)
+            x[:, :, ::2] *= peak / 2
+            x[:, :, ::2, step % D] = peak
+        for dev, cache in caches.items():
+            cache.write(k.to(dev), v.to(dev))
+    cpu, card = caches["cpu"], caches["cuda"]
+    for name in ("k", "v", "k_scale", "v_scale", "index"):
+        a, b = getattr(cpu, name), getattr(card, name).cpu()
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [192, 256])
+def test_causal_self_attention_with_head_dims_k2_lacks_runs_on_card(D):
+    """A causal transformer with head dim 192 or 256 (which K2 does not
+    take) runs on the card through the plain attention and matches the
+    CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.manual_seed(0)
+    cpu = transformer.StreamingTransformer(2 * D, 2, 1, dim_feedforward=64,
+                                           causal=True).eval()
+    card = transformer.StreamingTransformer(2 * D, 2, 1, dim_feedforward=64,
+                                            causal=True, device="cuda").eval()
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randn(2, 300, 2 * D)
+    before = flash_causal_attention.launches
+    with torch.no_grad():
+        want = cpu(x)
+        got = card(x.cuda()).cpu()
+    assert flash_causal_attention.launches == before
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_sampled_tokens_on_card_repeat_with_the_seed_and_stay_in_top_k():
+    """Top-k sampling through the decode graph: two runs with one seed give
+    the same tokens, every sampled token is among the k most likely of the
+    teacher-forced logits, and some step departs from the argmax."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lm = builders.get_debug_lm_model(device="cuda")
+    attrs = [ConditioningAttributes(text={"description": t}) for t in TEXTS]
+    k = 5
+    runs = [lm.generate(conditions=attrs, max_gen_len=24,
+                        gen=GenParams(top_k=k),
+                        generator=torch.Generator("cuda").manual_seed(7))
+            for _ in range(2)]
+    assert torch.equal(runs[0], runs[1])
+    codes = runs[0]
+    pattern = lm.pattern_provider.get_pattern(codes.shape[-1])
+    seq, _, mask = pattern.build_pattern_sequence(codes, lm.special_token_id)
+    with torch.no_grad():
+        logits = lm(torch.cat([seq, seq]), lm.prepare_cfg_conditions(attrs))
+    logits = logits[2:] + (logits[:2] - logits[2:]) * lm.cfg_coef
+    top = torch.topk(logits, k, dim=-1).indices  # [B, K, S, k]
+    for s in range(1, seq.shape[-1]):
+        for q in mask[:, s].nonzero()[0]:
+            tok = seq[:, q, s]
+            assert (top[:, q, s - 1] == tok[:, None]).any(-1).all(), (s, q)
+    assert not torch.equal(seq[:, :, 1:], logits.argmax(-1)[:, :, :-1])
+
+
+@pytest.mark.gpu
+def test_decode_graph_replays_every_step_after_the_warm_up():
+    """A debug generate on the card captures one step and replays it for
+    every offset after the prefill and the eager warm-up step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    lm = builders.get_debug_lm_model(device="cuda")
+    attrs = [ConditioningAttributes(text={"description": t}) for t in TEXTS]
+    stats = lm_module.decode_graph_stats
+    captures, replays = stats.captures, stats.replays
+    lm.generate(conditions=attrs, max_gen_len=16,
+                gen=GenParams(use_sampling=False))
+    S = len(lm.pattern_provider.get_pattern(16).layout)
+    assert stats.captures == captures + 1
+    assert stats.replays == replays + S - 3  # S - 1 forwards: 2 eager
 
 
 @pytest.mark.gpu

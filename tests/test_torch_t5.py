@@ -12,6 +12,7 @@ import torch
 from audiocraft_tpu.modules import conditioners as jcond
 from audiocraft_tpu.modules import t5 as jt5
 from audiocraft_tpu.utils import torch_port
+from audiocraft_tpu_torch.models import builders as tbuilders
 from audiocraft_tpu_torch.modules import conditioners as tcond
 from audiocraft_tpu_torch.modules import t5 as tt5
 from audiocraft_tpu_torch.utils import jax_weights
@@ -58,6 +59,29 @@ def test_whitespace_tokenizer_ids_match_jax(n_bins):
     tok, mask = tcond.WhiteSpaceTokenizer(n_bins)(TEXTS)
     np.testing.assert_array_equal(tok, jtok)
     np.testing.assert_array_equal(mask, jmask)
+
+
+@pytest.mark.parametrize("n_bins", [32128, 128])
+def test_noop_tokenizer_ids_match_jax(n_bins):
+    """One hashed token per whole text; a missing text is the pad token
+    with mask 0."""
+    texts = TEXTS + ["Jazz."]
+    jtok, jmask = jcond.NoopTokenizer(n_bins)(texts)
+    tok, mask = tcond.NoopTokenizer(n_bins)(texts)
+    assert tok.shape == (len(texts), 1)
+    np.testing.assert_array_equal(tok, jtok)
+    np.testing.assert_array_equal(mask, jmask)
+
+
+def test_lut_conditioner_with_noop_tokenizer_matches_jax():
+    """The builder's default LUT tokenizer is the JAX package's: noop."""
+    cfg = {"conditioners": {"genre": {"model": "lut", "lut": {
+        "n_bins": 64, "dim": 6}}}}
+    port = tbuilders.get_conditioners(6, cfg, device="cpu")["genre"]
+    jlut = jcond.LUTConditioner(n_bins=64, dim=6, output_dim=6)
+    texts = ["rock", None, "classical music"]
+    for (a, b) in zip(port.tokenize(texts), jlut.tokenize(texts)):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_t5_conditioner_tokenize_is_the_hash_fallback():

@@ -385,11 +385,27 @@ def test_solver_from_the_debug_config_freezes_t5():
     assert solver.optimizer.optimizer.param_groups[0]["lr"] == cfg["optim"]["lr"]
 
 
-@pytest.mark.parametrize("change, match", [
-    ({"solver": "compression"}, "not ported"),
-    ({"optim": {"optimizer": "dadam"}}, "dadam"),
-    ({"transformer_lm": {"kv_repeat": 2}}, "kv_repeat"),
-    ({"transformer_lm": {"checkpointing": "dots"}}, "ROADMAP")])
+@pytest.mark.parametrize("option", [
+    {"kv_repeat": 2}, {"positional_embedding": "rope", "xpos": True},
+    {"layer_scale": 0.1}, {"qk_layer_norm": True}])
+def test_lm_options_config_trains(option):
+    """The transformer options the port once refused build through the
+    solver config and take a train step (their logits against the JAX
+    package's are held in `test_torch_lm_options.py`)."""
+    cfg = config.load_config("solver/musicgen/debug")
+    cfg["transformer_lm"].update(option)
+    solver = solver_builders.get_solver(cfg, device="cpu")
+    m = solver.run_step(0, _fake_batch(), {})
+    assert np.isfinite(m["ce"].item())
+
+
+@pytest.mark.parametrize("change, match", [  # ids as before kv_repeat left
+    pytest.param({"solver": "compression"}, "not ported",
+                 id="change0-not ported"),
+    pytest.param({"optim": {"optimizer": "dadam"}}, "dadam",
+                 id="change1-dadam"),
+    pytest.param({"transformer_lm": {"checkpointing": "dots"}}, "ROADMAP",
+                 id="change3-ROADMAP")])
 def test_unported_options_raise(change, match):
     cfg = config.load_config("solver/musicgen/debug")
     for key, value in change.items():
