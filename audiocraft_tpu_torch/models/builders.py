@@ -1,14 +1,17 @@
 """Model builders with seeded random weights (counterpart of the debug and
 MusicGen-small assemblies in `audiocraft_tpu/models/builders.py` and
 `bench.py`, of its config-driven `get_lm_model`, and of
-`get_wrapped_compression_model`)."""
+`get_wrapped_compression_model`), and the full-width MusicGen-melody and
+AudioGen-medium LMs from their solver configs."""
 import contextlib
 import typing as tp
 
 import torch
 
-from ..modules.conditioners import (BaseConditioner, ConditionFuser,
-                                    LUTConditioner, T5Conditioner)
+from ..config import load_config
+from ..modules.conditioners import (BaseConditioner, ChromaStemConditioner,
+                                    ConditionFuser, LUTConditioner,
+                                    T5Conditioner)
 from ..modules.patterns import (CoarseFirstPattern, CodebooksPatternProvider,
                                 DelayedPatternProvider, MusicLMPattern,
                                 ParallelPatternProvider,
@@ -97,11 +100,17 @@ def get_compression_model(cfg: dict, device=None) -> EncodecModel:
                         channels=enc["channels"]).eval()
 
 
-def get_debug_compression_model(device=None, seed: int = 0) -> EncodecModel:
-    """Tiny 32 kHz codec at 25 Hz, as the JAX package's debug codec."""
-    return get_encodec(32000, (10, 8, 16), n_filters=4, dimension=32,
-                       n_residual_layers=1, lstm=0, n_q=4, bins=400,
-                       frame_rate=25, device=device, seed=seed)
+DEBUG_CODEC_RATIOS = {16000: (10, 8, 8), 32000: (10, 8, 16)}  # 25 Hz
+
+
+def get_debug_compression_model(device=None, seed: int = 0,
+                                sample_rate: int = 32000) -> EncodecModel:
+    """Tiny codec at 25 Hz (32 kHz, or 16 kHz for AudioGen), as the JAX
+    package's debug codec."""
+    return get_encodec(sample_rate, DEBUG_CODEC_RATIOS[sample_rate],
+                       n_filters=4, dimension=32, n_residual_layers=1, lstm=0,
+                       n_q=4, bins=400, frame_rate=25, device=device,
+                       seed=seed)
 
 
 def get_encodec_32khz(device=None, dtype=None, seed: int = 0) -> EncodecModel:
@@ -110,6 +119,16 @@ def get_encodec_32khz(device=None, dtype=None, seed: int = 0) -> EncodecModel:
     return get_encodec(32000, (8, 5, 4, 4), n_filters=64, dimension=128,
                        n_residual_layers=1, lstm=2, n_q=4, bins=2048,
                        frame_rate=50, device=device, dtype=dtype, seed=seed)
+
+
+def get_encodec_16khz(device=None, dtype=None, seed: int = 0) -> EncodecModel:
+    """AudioGen's EnCodec 16 kHz at full width
+    (`solver/compression/encodec_audiogen_16khz`): SEANet dimension 128, 64
+    filters, ratios (8, 5, 4, 4) (hop 640, 25 Hz), 2 LSTM layers,
+    4 x 2048 codes."""
+    return get_encodec(16000, (8, 5, 4, 4), n_filters=64, dimension=128,
+                       n_residual_layers=1, lstm=2, n_q=4, bins=2048,
+                       frame_rate=25, device=device, dtype=dtype, seed=seed)
 
 
 def get_debug_lm_model(device=None, seed: int = 0) -> LMModel:
@@ -139,6 +158,27 @@ def get_debug_stereo_lm_model(device=None, seed: int = 0) -> LMModel:
                                 "sum": [], "input_interpolate": []})
         return LMModel(DelayedPatternProvider(n_q=8), conditioners, fuser,
                        n_q=8, card=400, dim=16, num_heads=4, num_layers=2,
+                       cross_attention=True, causal=True, device=device).eval()
+
+
+def get_debug_melody_lm_model(device=None, seed: int = 0) -> LMModel:
+    """The debug LM with a melody condition, as the JAX package's debug
+    melody LM: the chroma of 2^10-point frames (duration 1 s, 12 classes)
+    prepended, the text by cross-attention."""
+    device = resolve_device(device)
+
+    with _seeded(device, seed):
+        conditioners = {
+            "description": LUTConditioner(n_bins=128, dim=16, output_dim=16,
+                                          device=device),
+            "self_wav": ChromaStemConditioner(
+                output_dim=16, sample_rate=32000, n_chroma=12, radix2_exp=10,
+                duration=1.0, device=device)}
+        fuser = ConditionFuser({"cross": ["description"],
+                                "prepend": ["self_wav"], "sum": [],
+                                "input_interpolate": []})
+        return LMModel(DelayedPatternProvider(n_q=4), conditioners, fuser,
+                       n_q=4, card=400, dim=16, num_heads=4, num_layers=2,
                        cross_attention=True, causal=True, device=device).eval()
 
 
@@ -172,6 +212,39 @@ def get_musicgen_stereo_small_lm(device=None, dtype=torch.bfloat16,
                          dtype=dtype)
     lm.reset_parameters(seed)
     return lm.eval()
+
+
+def _medium_config(solver: str) -> dict:
+    """A solver config at the medium model scale (`model/lm/model_scale/
+    medium`: dim 1536, 24 heads, 48 layers)."""
+    cfg = load_config(solver)
+    cfg["transformer_lm"].update(
+        load_config("model/lm/model_scale/medium")["transformer_lm"])
+    return cfg
+
+
+def get_musicgen_melody_lm(device=None, dtype=torch.bfloat16,
+                           seed: int = 0) -> LMModel:
+    """MusicGen-melody's LM at full width, the size of the released
+    `facebook/musicgen-melody`: `solver/musicgen/musicgen_melody_32khz` at
+    the medium scale (dim 1536, 24 heads, 48 layers, FFN 6144,
+    4 x 2048 codes), the chroma (2^14-point frames) and the T5-base text
+    both prepended, in that order, no cross-attention. The chroma is
+    matched to 30 s (`match_len_on_eval`), as on a loaded melody model."""
+    lm = get_lm_model(_medium_config("solver/musicgen/musicgen_melody_32khz"),
+                      device=device, seed=seed, dtype=dtype)
+    lm.condition_provider.conditioners["self_wav"].match_len_on_eval = True
+    return lm
+
+
+def get_audiogen_medium_lm(device=None, dtype=torch.bfloat16,
+                           seed: int = 0) -> LMModel:
+    """AudioGen's LM at full width, the size of the released
+    `facebook/audiogen-medium`: `solver/audiogen/default` (T5-large by
+    cross-attention) at the medium scale (dim 1536, 24 heads, 48 layers,
+    FFN 6144, 4 x 2048 codes)."""
+    return get_lm_model(_medium_config("solver/audiogen/default"),
+                        device=device, seed=seed, dtype=dtype)
 
 
 def get_wrapped_compression_model(compression_model: CompressionModel,
@@ -208,7 +281,8 @@ def get_condition_fuser(cfg: dict) -> ConditionFuser:
 
 def get_conditioners(output_dim: int, cfg: dict, device=None,
                      dtype=None) -> tp.Dict[str, BaseConditioner]:
-    """The text conditioners of `cfg['conditioners']` (T5 or lookup table)."""
+    """The conditioners of `cfg['conditioners']`: T5, lookup table, or the
+    melody's chroma (`chroma_stem`)."""
     out: tp.Dict[str, BaseConditioner] = {}
     for name, cond_cfg in (cfg.get("conditioners", {}) or {}).items():
         if name == "args":
@@ -228,6 +302,10 @@ def get_conditioners(output_dim: int, cfg: dict, device=None,
             out[name] = LUTConditioner(output_dim=output_dim,
                                        tokenizer=args.pop("tokenizer", "noop"),
                                        device=device, dtype=dtype, **args)
+        elif kind == "chroma_stem":
+            out[name] = ChromaStemConditioner(output_dim=output_dim,
+                                              device=device, dtype=dtype,
+                                              **args)
         else:
             raise NotImplementedError(f"conditioner {kind!r} is not ported "
                                       f"(ROADMAP, slice C)")
@@ -249,13 +327,14 @@ def get_codebooks_pattern_provider(n_q: int, cfg: dict
     return PATTERN_PROVIDERS[name](n_q, **dict(cfg.get(name, {}) or {}))
 
 
-def get_lm_model(cfg: dict, device=None, seed: int = 0) -> LMModel:
+def get_lm_model(cfg: dict, device=None, seed: int = 0,
+                 dtype=None) -> LMModel:
     """The LM of a solver config (`transformer_lm`, `codebooks_pattern`,
     `conditioners`, `fuser`, `classifier_free_guidance`), with seeded random
     weights: upstream's 'gaussian' init with 'current' depthwise scaling
     when `weight_init` asks for it, else torch's default init. Parameters are
-    f32; `transformer_lm.dtype` names the compute dtype, which the solver
-    applies with autocast."""
+    f32 unless `dtype` (serving) names another; `transformer_lm.dtype` names
+    the compute dtype, which the solver applies with autocast."""
     device = resolve_device(device)
     kwargs = dict(cfg["transformer_lm"])
     for key in _DROPPED_LM_KEYS:
@@ -279,12 +358,13 @@ def get_lm_model(cfg: dict, device=None, seed: int = 0) -> LMModel:
         "inference_coef", 1.0)
     with _seeded(device, seed):
         fuser = get_condition_fuser(cfg)
-        conditioners = get_conditioners(kwargs["dim"], cfg, device=device)
+        conditioners = get_conditioners(kwargs["dim"], cfg, device=device,
+                                        dtype=dtype)
         if fuser.fuse2cond.get("cross"):
             kwargs["cross_attention"] = True
         lm = LMModel(get_codebooks_pattern_provider(n_q, pattern_cfg),
                      conditioners, fuser, cfg_coef=cfg_coef, device=device,
-                     **kwargs)
+                     dtype=dtype, **kwargs)
     if weight_init == "gaussian":
         lm.reset_parameters(seed)
     return lm.eval()

@@ -17,8 +17,13 @@ decode-attention kernel reads only their valid prefix. On the CPU the step
 runs in a plain loop; on CUDA the prefill and the first single-token step
 run eagerly (the warm-up), then one step is captured into a
 `torch.cuda.CUDAGraph` and replayed for the remaining offsets. Classifier-free
-guidance runs batched (the conditional and null rows in one batch) or in
-two steps (two streams, each with its own conditions, cache and forward).
+guidance runs batched (the conditional and null rows in one batch), in
+two steps (two streams, each with its own conditions, cache and forward),
+or doubled for a melody model (`cfg_coef_beta`: conditional, waveform-only
+and null rows in one batch). Prepended conditions (the melody's chroma, a
+prepended text) enter at the prefill only: each stream's cache holds the
+pattern steps plus its own prefix, and the positions and the
+decode-attention length count from the cache's index, prefix included.
 `quantize_lm_` puts the model in the W8A8 int8 serving mode; it runs through
 the same graph.
 """
@@ -33,7 +38,8 @@ import torch.nn as nn
 from ..modules.conditioners import (BaseConditioner,
                                     ClassifierFreeGuidanceDropout,
                                     ConditionFuser, ConditioningAttributes,
-                                    ConditioningProvider, ConditionType)
+                                    ConditioningProvider, ConditionType,
+                                    drop_description_condition)
 from ..modules.patterns import CodebooksPatternProvider
 from ..modules.transformer import LayerCache, StreamingTransformer
 from ..ops.decode_attention import decode_attention
@@ -60,15 +66,24 @@ class GenParams:
     top_k: int = 250
     top_p: float = 0.0
     cfg_coef: tp.Optional[float] = None
-    # double CFG; needs the waveform conditions of a melody or style model
+    # double CFG (conditional, waveform-only and null rows); needs the
+    # waveform condition of a melody model
     cfg_coef_beta: tp.Optional[float] = None
     # None: the model's `two_step_cfg`
     two_step_cfg: tp.Optional[bool] = None
 
 
-def _combine_cfg_logits(all_logits: torch.Tensor, B: int,
-                        cfg_coef: float) -> torch.Tensor:
-    """Conditional rows first, null rows second."""
+def _combine_cfg_logits(all_logits: torch.Tensor, B: int, cfg_coef: float,
+                        cfg_coef_beta: tp.Optional[float] = None
+                        ) -> torch.Tensor:
+    """Conditional rows first, null rows last; with `cfg_coef_beta`, the
+    waveform-only rows between them (double CFG)."""
+    if cfg_coef_beta is not None:
+        cond_logits, wav_logits = all_logits[:B], all_logits[B:2 * B]
+        uncond_logits = all_logits[2 * B:]
+        return uncond_logits + cfg_coef * (
+            wav_logits + cfg_coef_beta * (cond_logits - wav_logits)
+            - uncond_logits)
     cond_logits, uncond_logits = all_logits[:B], all_logits[B:]
     return uncond_logits + (cond_logits - uncond_logits) * cfg_coef
 
@@ -176,17 +191,21 @@ class LMModel(nn.Module):
     def forward(self, sequence: torch.Tensor,
                 condition_tensors: ConditionTensors,
                 caches: tp.Optional[tp.List[LayerCache]] = None,
-                dropout_seed: tp.Optional[int] = None) -> torch.Tensor:
+                dropout_seed: tp.Optional[int] = None,
+                first_step: bool = True) -> torch.Tensor:
         """sequence [B, K, S] -> logits [B, K, S, card]. With `caches`, the
-        steps are appended to them in place."""
+        steps are appended to them in place. Prepended conditions go before
+        the sequence at the `first_step` only, and their logits are cut."""
         B, K, S = sequence.shape
         assert K == self.n_q
         input_, cross_src = self.fuser(self.embed_codes(sequence),
-                                       condition_tensors)
+                                       condition_tensors, first_step=first_step)
         out = self.transformer(input_, cross_attention_src=cross_src,
                                caches=caches, dropout_seed=dropout_seed)
         if self.out_norm is not None:
             out = self.out_norm(out)
+        if self.fuser.has_prepend and first_step:
+            out = out[:, -S:]
         if self.heads_q is None:
             return torch.stack([lin(out) for lin in self.linears], dim=1)
         logits = w8a8_heads(out, self.heads_q)
@@ -214,26 +233,36 @@ class LMModel(nn.Module):
         return LMOutput(logits, mask)
 
     def prepare_cfg_conditions(self, conditions: tp.List[ConditioningAttributes],
-                               two_step: bool = False
+                               two_step: bool = False,
+                               cfg_coef_beta: tp.Optional[float] = None
                                ) -> tp.Union[ConditionTensors,
                                              tp.Tuple[ConditionTensors,
                                                       ConditionTensors]]:
         """Condition tensors for batched CFG: the conditional rows, then the
-        null rows (every attribute dropped), tokenized together. With
-        `two_step`, the conditional and the null rows are tokenized
+        null rows (every attribute dropped), tokenized together; with
+        `cfg_coef_beta` (double CFG) the rows with the description dropped
+        and the waveform kept go between them. With `two_step` (and no
+        `cfg_coef_beta`), the conditional and the null rows are tokenized
         separately, each padded to its own length, and returned as a pair.
         Under cross-attention conditioning the two forms give the same
         logits: a null row is all padding, whose attention output does not
-        depend on its length, and the conditional rows pad alike."""
+        depend on its length, and the conditional rows pad alike. Under
+        prepended conditions they differ: a batched null row carries zeros
+        of the conditional rows' prefix length, a two-step null stream its
+        own shorter prefix."""
         if not conditions:
             return {}
         null_conditions = ClassifierFreeGuidanceDropout(p=1.0)(conditions)
-        if two_step:
+        if cfg_coef_beta is not None:
+            rows = (conditions + drop_description_condition(conditions)
+                    + null_conditions)
+        elif two_step:
             return tuple(self.compute_conditions(
                 self.condition_provider.tokenize(c))
                 for c in (conditions, null_conditions))
-        tokenized = self.condition_provider.tokenize(conditions + null_conditions)
-        return self.compute_conditions(tokenized)
+        else:
+            rows = conditions + null_conditions
+        return self.compute_conditions(self.condition_provider.tokenize(rows))
 
     @torch.no_grad()
     def generate(self, prompt: tp.Optional[torch.Tensor] = None,
@@ -245,15 +274,12 @@ class LMModel(nn.Module):
                  device=None) -> torch.Tensor:
         """Autoregressive generation; returns codes [B, K, max_gen_len] with
         the prompt retained. `condition_tensors`, when given, already holds
-        the conditional and the null rows (2B of them), or for two-step CFG
-        the pair (conditional, null) of B rows each. The model must be on
-        `device` (CUDA unless the caller names another)."""
+        the conditional and the null rows (2B of them; 3B with the
+        waveform-only rows of double CFG), or for two-step CFG the pair
+        (conditional, null) of B rows each. The model must be on `device`
+        (CUDA unless the caller names another)."""
         device = resolve_device(device)
         check_module_device(self, device)
-        if gen.cfg_coef_beta is not None:
-            raise NotImplementedError(
-                "double CFG (cfg_coef_beta) needs the waveform conditions of a "
-                "melody or style model, which are not ported (ROADMAP, slice C)")
         conditions = list(conditions)
         if num_samples is None:
             num_samples = (prompt.shape[0] if prompt is not None
@@ -262,8 +288,8 @@ class LMModel(nn.Module):
         two_step = (self.two_step_cfg if gen.two_step_cfg is None
                     else gen.two_step_cfg)
         if condition_tensors is None:
-            condition_tensors = self.prepare_cfg_conditions(conditions,
-                                                            bool(two_step))
+            condition_tensors = self.prepare_cfg_conditions(
+                conditions, bool(two_step), gen.cfg_coef_beta)
 
         K = self.n_q
         if prompt is None:
@@ -284,7 +310,9 @@ class LMModel(nn.Module):
             max_gen_len, K, keep_only_valid_steps=False)
         seq_mask = torch.from_numpy(seq_mask_np).to(device)  # [K, S]
 
-        cfg_mult = 2 if condition_tensors else 1
+        cfg_mult = 1
+        if condition_tensors:
+            cfg_mult = 3 if gen.cfg_coef_beta is not None else 2
         # one stream of cfg_mult * B rows, or two streams of B (two-step CFG)
         if isinstance(condition_tensors, tuple):
             streams, stream_batch = list(condition_tensors), B
@@ -293,8 +321,10 @@ class LMModel(nn.Module):
         cache_dtype = cache_dtype or self.emb[0].weight.dtype
         caches_list = []
         for ct in streams:
-            caches = self.transformer.init_cache(stream_batch, S, cache_dtype,
-                                                 device)
+            # the pattern steps plus this stream's prepended conditions
+            capacity = S + self.fuser.prepend_length(ct)
+            caches = self.transformer.init_cache(stream_batch, capacity,
+                                                 cache_dtype, device)
             if self.cross_attention and ct:
                 cross_src = self.fuser.cross_source(ct)
                 # cross K/V stay bf16 under an int8 self-attention cache
@@ -307,21 +337,26 @@ class LMModel(nn.Module):
         offset = torch.full((1,), start, dtype=torch.long, device=device)
 
         def step(tokens: tp.Optional[torch.Tensor] = None) -> None:
-            """Forward `tokens` [B, K, t] (default: the step before the
-            offset), sample the step at the offset, write it where it is
-            still unknown (the special token where the pattern has no
-            code), and advance the offset. Only device ops: the step never
-            waits for the device, so it can be captured."""
+            """Forward `tokens` [B, K, t] (the prefill, behind the prepended
+            conditions; default: the step before the offset), sample the
+            step at the offset, write it where it is still unknown (the
+            special token where the pattern has no code), and advance the
+            offset. Only device ops: the step never waits for the device,
+            so it can be captured."""
+            first_step = tokens is not None
             if tokens is None:
                 tokens = gen_sequence.index_select(2, offset - 1)
             if len(streams) == 1:
                 seq_in = torch.cat([tokens] * cfg_mult) if cfg_mult > 1 else tokens
-                logits = self(seq_in, streams[0], caches=caches_list[0])
+                logits = self(seq_in, streams[0], caches=caches_list[0],
+                              first_step=first_step)
             else:
-                logits = torch.cat([self(tokens, ct, caches=caches)
+                logits = torch.cat([self(tokens, ct, caches=caches,
+                                         first_step=first_step)
                                     for ct, caches in zip(streams, caches_list)])
             if cfg_mult > 1:
-                logits = _combine_cfg_logits(logits, B, cfg_coef)
+                logits = _combine_cfg_logits(logits, B, cfg_coef,
+                                             gen.cfg_coef_beta)
             next_token = sample_tokens(
                 logits[:, :, -1], use_sampling=gen.use_sampling, temp=gen.temp,
                 top_k=gen.top_k, top_p=gen.top_p, generator=generator)[..., 0]

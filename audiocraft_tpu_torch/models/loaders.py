@@ -21,6 +21,7 @@ from pathlib import Path
 import torch
 import yaml
 
+from ..modules.conditioners import ChromaStemConditioner
 from . import builders
 from .encodec import CompressionModel
 from .lm import LMModel
@@ -124,9 +125,17 @@ def load_compression_model(name: str, device=None) -> CompressionModel:
 
 def load_lm_model(name: str, device=None) -> tp.Tuple[LMModel, dict]:
     """(LM, config) of an export package at `name` (`state_dict.bin` or
-    `*.th`), built by `builders.get_lm_model` from the config."""
+    `*.th`), built by `builders.get_lm_model` from the config: MusicGen,
+    MusicGen-melody (its chroma conditioner's `output_proj`) or AudioGen."""
     state, cfg = load_package(_package_file(
         _resolve(name), ("state_dict.bin", "*.th")))
     model = builders.get_lm_model(cfg, device=device)
+    # a melody conditioner's chroma filter bank and window are computed,
+    # not loaded: drop them where an export carries them
+    for cond_name, cond in model.condition_provider.conditioners.items():
+        if isinstance(cond, ChromaStemConditioner):
+            prefix = f"condition_provider.conditioners.{cond_name}.chroma."
+            state = {k: v for k, v in state.items()
+                     if not k.startswith(prefix)}
     model.load_state_dict(state, strict=True)
     return model, cfg

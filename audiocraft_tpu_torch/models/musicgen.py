@@ -1,7 +1,11 @@
-"""MusicGen: text-conditioned music generation (counterpart of
+"""MusicGen: text- and melody-conditioned music generation (counterpart of
 `audiocraft_tpu/models/musicgen.py`)."""
 import typing as tp
 
+import torch
+
+from ..data.audio_utils import convert_audio
+from ..modules.conditioners import ChromaStemConditioner, WavCondition
 from .genmodel import BaseGenModel
 
 # upstream's names of the released checkpoints, resolved as local paths
@@ -18,9 +22,13 @@ HF_MODEL_CHECKPOINTS_MAP = {
 }
 
 
+MelodyType = tp.Union[torch.Tensor, tp.Sequence[tp.Optional[torch.Tensor]]]
+
+
 class MusicGen(BaseGenModel):
-    """Text -> music. Defaults: duration 15 s (capped by `max_duration`),
-    sampling with top-k 250, CFG coefficient 3."""
+    """Text (and, on a melody model, a melody) -> music. Defaults: duration
+    15 s (capped by `max_duration`), sampling with top-k 250, CFG
+    coefficient 3."""
 
     def __init__(self, name, compression_model, lm, max_duration: float = 30,
                  device=None):
@@ -30,18 +38,21 @@ class MusicGen(BaseGenModel):
 
     @staticmethod
     def get_pretrained(name: str = "debug", device=None) -> "MusicGen":
-        """The `debug` model or its interleaved-stereo twin `debug-stereo`
-        (tiny, seeded random weights), or a checkpoint from local files:
+        """The `debug` model, its interleaved-stereo twin `debug-stereo` or
+        its melody twin `debug-melody` (tiny, seeded random weights), or a
+        checkpoint from local files:
         `name` (a released model's short name like 'small' maps to its
         upstream name first) is a directory or file of audiocraft export
         packages, or one under `AUDIOCRAFT_CACHE_DIR`
         (`models/loaders.py`). Nothing is downloaded: a name with no local
         files raises FileNotFoundError."""
         from . import builders, loaders
-        if name in ("debug", "debug-stereo"):
+        if name in ("debug", "debug-stereo", "debug-melody"):
             codec = builders.get_debug_compression_model(device=device)
             if name == "debug":
                 lm = builders.get_debug_lm_model(device=device)
+            elif name == "debug-melody":
+                lm = builders.get_debug_melody_lm_model(device=device)
             else:
                 codec = builders.get_wrapped_compression_model(
                     codec, {"interleave_stereo_codebooks": {"use": True}})
@@ -50,6 +61,11 @@ class MusicGen(BaseGenModel):
         name = HF_MODEL_CHECKPOINTS_MAP.get(name, name)
         codec = loaders.load_compression_model(name, device=device)
         lm, cfg = loaders.load_lm_model(name, device=device)
+        conditioners = lm.condition_provider.conditioners
+        melody = conditioners["self_wav"] if "self_wav" in conditioners else None
+        if isinstance(melody, ChromaStemConditioner):
+            # generation matches the chroma to the training duration
+            melody.match_len_on_eval = True
         # stereo checkpoints name the interleave in their config
         codec = builders.get_wrapped_compression_model(codec, cfg)
         return MusicGen(name, codec, lm,
@@ -63,8 +79,8 @@ class MusicGen(BaseGenModel):
                               two_step_cfg: bool = False,
                               extend_stride: float = 18):
         """Sampling, CFG (`two_step_cfg` runs the conditional and null
-        forwards as two streams) and durations. Double CFG (`cfg_coef_beta`)
-        makes `LMModel.generate` raise: it needs a melody or style model."""
+        forwards as two streams; `cfg_coef_beta` adds the waveform-only rows
+        of double CFG on a melody model) and durations."""
         assert extend_stride < self.max_duration, \
             "Cannot stride by more than max generation duration."
         self.extend_stride = extend_stride
@@ -78,3 +94,50 @@ class MusicGen(BaseGenModel):
             "cfg_coef_beta": cfg_coef_beta,
             "two_step_cfg": two_step_cfg,
         }
+
+    def _prepare_tokens_and_attributes(self, descriptions, prompt):
+        """The base attributes, with the null melody on a melody model."""
+        attributes, prompt_tokens = super()._prepare_tokens_and_attributes(
+            descriptions, prompt)
+        if "self_wav" in self.lm.condition_provider.conditioners:
+            for attr in attributes:
+                attr.wav["self_wav"] = WavCondition(
+                    torch.zeros(1, 1, 1), torch.zeros(1, dtype=torch.long),
+                    sample_rate=[self.sample_rate], path=[None])
+        return attributes, prompt_tokens
+
+    def generate_with_chroma(self, descriptions: tp.List[tp.Optional[str]],
+                             melody_wavs: MelodyType, melody_sample_rate: int,
+                             return_tokens: bool = False):
+        """Music following each text and the melody of each waveform: one
+        [C, T] per text (a list, None for no melody) or a batch [B, C, T]
+        (or [C, T] for one), at `melody_sample_rate`. Each melody is
+        converted to the model's rate in mono; the same melody conditions
+        every window past `max_duration` (as in the JAX package)."""
+        assert "self_wav" in self.lm.condition_provider.conditioners, \
+            "This model doesn't support melody conditioning."
+        if isinstance(melody_wavs, torch.Tensor):
+            if melody_wavs.dim() == 2:
+                melody_wavs = melody_wavs[None]
+            melody_wavs = list(melody_wavs)
+        melodies = []
+        for wav in melody_wavs:
+            if wav is None:
+                melodies.append(None)
+                continue
+            wav = torch.as_tensor(wav, dtype=torch.float32)
+            wav = wav[None] if wav.dim() == 2 else wav[None, None]
+            melodies.append(convert_audio(wav.to(self.device),
+                                          melody_sample_rate,
+                                          self.sample_rate, 1)[0])
+        attributes, prompt_tokens = self._prepare_tokens_and_attributes(
+            descriptions, None)
+        assert len(attributes) == len(melodies)
+        for attr, melody in zip(attributes, melodies):
+            if melody is not None:
+                attr.wav["self_wav"] = WavCondition(
+                    melody[None], torch.tensor([melody.shape[-1]]),
+                    sample_rate=[self.sample_rate], path=[None])
+        tokens = self._generate_tokens(attributes, prompt_tokens)
+        audio = self.generate_audio(tokens)
+        return (audio, tokens) if return_tokens else audio

@@ -1,13 +1,18 @@
-"""Text conditioning: attributes, tokenizers, conditioners, provider, fuser,
-and the classifier-free-guidance and attribute dropouts (the parts of
-`audiocraft_tpu/modules/conditioners.py` that text-to-music needs).
+"""Conditioning: attributes, tokenizers, text and waveform conditioners,
+the provider, the fuser, and the classifier-free-guidance and attribute
+dropouts (counterpart of `audiocraft_tpu/modules/conditioners.py`).
 
-Tokenizing is host-side numpy; `ConditioningProvider.forward` is the only
-device step and returns `(embedding [B, T, D], mask [B, T])` per attribute.
-The T5 conditioner tokenizes with the hash-trick whitespace tokenizer, as the
-JAX package does when no sentencepiece vocabulary is on disk.
+Tokenizing is host-side for text; waveform conditions stay torch tensors on
+the device they arrive on (the stem separator runs there at tokenize
+time). `ConditioningProvider.forward` returns `(embedding [B, T, D], mask
+[B, T])` per attribute, text attributes first, then waveforms. The T5
+conditioner tokenizes with the hash-trick whitespace tokenizer, as the JAX
+package does when no sentencepiece vocabulary is on disk. The melody
+conditioner's embedding cache (`cache_path`) is not ported (ROADMAP, slice
+H).
 """
 import dataclasses
+import math
 import re
 import typing as tp
 from collections import defaultdict
@@ -18,18 +23,38 @@ import torch
 import torch.nn as nn
 
 from ..utils.utils import hash_trick, length_to_mask
+from .chroma import ChromaExtractor
 from .t5 import T5Encoder, T5EncoderConfig
 
 ConditionType = tp.Tuple[torch.Tensor, torch.Tensor]
 
 
+class WavCondition(tp.NamedTuple):
+    """A waveform condition: wav [B, C, T] (f32, on any device), its valid
+    lengths [B], and per row the sample rate, source path and seek time."""
+    wav: torch.Tensor
+    length: torch.Tensor
+    sample_rate: tp.List[int]
+    path: tp.List[tp.Optional[str]] = []
+    seek_time: tp.List[tp.Optional[float]] = []
+
+
 @dataclasses.dataclass
 class ConditioningAttributes:
-    """Per-sample conditions. Only text conditions are consumed; `wav` holds
-    the waveform conditions a dataset attaches (None here: waveform
-    conditioning is not ported, ROADMAP slice C)."""
+    """Per-sample conditions: texts and waveforms (`WavCondition`, or None
+    where a dataset has no waveform for the attribute)."""
     text: tp.Dict[str, tp.Optional[str]] = dataclasses.field(default_factory=dict)
-    wav: tp.Dict[str, tp.Any] = dataclasses.field(default_factory=dict)
+    wav: tp.Dict[str, tp.Optional[WavCondition]] = dataclasses.field(
+        default_factory=dict)
+
+
+def nullify_wav(cond: WavCondition) -> WavCondition:
+    """The null waveform condition: one zero sample per row, length 0."""
+    B = cond.wav.shape[0]
+    return WavCondition(wav=torch.zeros_like(cond.wav[..., :1]),
+                        length=torch.zeros(B, dtype=torch.long),
+                        sample_rate=list(cond.sample_rate), path=[None] * B,
+                        seek_time=[None] * B)
 
 
 class WhiteSpaceTokenizer:
@@ -101,7 +126,11 @@ class BaseConditioner(nn.Module):
         return embeds * mask[..., None].to(embeds.dtype), mask
 
 
-class LUTConditioner(BaseConditioner):
+class TextConditioner(BaseConditioner):
+    """A conditioner of text attributes."""
+
+
+class LUTConditioner(TextConditioner):
     """Lookup-table text conditioner over the whitespace tokenizer (a token
     per word) or the noop one (a token per text)."""
 
@@ -122,7 +151,7 @@ class LUTConditioner(BaseConditioner):
         return self._masked(self.output_proj(self.embed(tokens)), mask)
 
 
-class T5Conditioner(BaseConditioner):
+class T5Conditioner(TextConditioner):
     """T5-encoder text conditioner. `config` overrides the named preset
     (small encoders for tests). With `finetune=False` the encoder runs under
     `torch.no_grad()` and its weights do not require grad, so no optimizer
@@ -150,20 +179,157 @@ class T5Conditioner(BaseConditioner):
         return self._masked(self.output_proj(embeds), mask)
 
 
+
+
+class WaveformConditioner(BaseConditioner):
+    """A conditioner of waveform attributes: `tokenize` takes the collated
+    `WavCondition` of the batch."""
+
+    def tokenize(self, x: WavCondition):
+        return x
+
+
+class ChromaStemConditioner(WaveformConditioner):
+    """Melody conditioning: the chroma of the melodic stems of a waveform
+    (one-hot per frame), projected to `output_dim`; rows of length 0 (the
+    null condition) give zeros and a zero mask.
+
+    The stems (vocals + other) come from an HTDemucs separator at tokenize
+    time: the one set by `set_separator`, else the checkpoint that
+    `modules.demucs.get_stem_separator` finds; without either the chroma
+    is the full mix's, as in the JAX package. With `match_len_on_eval` the
+    chroma is tiled or cut to `chroma_len`, the frames of `duration`
+    seconds. A null waveform (one sample) gives one zero frame."""
+
+    def __init__(self, output_dim: int, sample_rate: int = 32000,
+                 n_chroma: int = 12, radix2_exp: int = 12,
+                 duration: float = 30.0, match_len_on_eval: bool = True,
+                 eval_wavs: tp.Optional[str] = None, n_eval_wavs: int = 0,
+                 cache_path: tp.Optional[str] = None,
+                 dim: tp.Optional[int] = None, device=None, dtype=None):
+        if dim is not None and dim != n_chroma:
+            raise ValueError(f"the chroma conditioner's input is its "
+                             f"{n_chroma} classes, got dim={dim}")
+        if cache_path is not None:
+            raise NotImplementedError("the chroma embedding cache (cache_path) "
+                                      "is not ported (ROADMAP, slice H)")
+        if eval_wavs is not None:
+            raise NotImplementedError("eval_wavs is not ported")
+        super().__init__(n_chroma, output_dim, device, dtype)
+        self.sample_rate = sample_rate
+        self.n_chroma = n_chroma
+        self.radix2_exp = radix2_exp
+        self.duration = duration
+        self.match_len_on_eval = match_len_on_eval
+        self.chroma = ChromaExtractor(sample_rate, n_chroma, radix2_exp,
+                                      argmax=True, device=device)
+        # kept out of the module tree: the separator's weights are not
+        # the conditioner's, and it is not moved with it
+        self.__dict__["separator"] = None
+
+    def set_separator(self, separator) -> None:
+        """Use `separator` (an HTDemucs) for the stems, or with None the
+        checkpoint `get_stem_separator` finds."""
+        self.__dict__["separator"] = separator
+
+    @property
+    def winhop(self) -> int:
+        return self.chroma.winhop
+
+    @property
+    def chroma_len(self) -> int:
+        """Chroma frames of `duration` seconds (centre-padded STFT)."""
+        return 1 + int(self.sample_rate * self.duration) // self.winhop
+
+    def _separator(self):
+        if self.separator is not None:
+            return self.separator
+        from .demucs import get_stem_separator
+        return get_stem_separator(self.output_proj.weight.device)
+
+    def tokenize(self, x: WavCondition):
+        """With a separator, the chroma of each live row's melodic stems
+        ({'chroma': [B, frames, n_chroma], 'length': [B]}); else `x`."""
+        if x.wav.shape[-1] > 1:
+            separator = self._separator()
+            if separator is not None:
+                return self._tokenize_separated(x, separator)
+        return x
+
+    def _tokenize_separated(self, x: WavCondition, separator) -> dict:
+        """Rows sharing a sample rate go through the separator together;
+        each row's chroma is cut or zero-padded to the frames of the
+        batch's duration; null rows stay zero."""
+        from ..data.audio_utils import convert_audio
+        from .demucs import separate_melody
+        device = self.output_proj.weight.device
+
+        def row_sr(i):
+            return (x.sample_rate[i] if i < len(x.sample_rate)
+                    and x.sample_rate[i] else self.sample_rate)
+
+        n_frames = 1 + int(x.wav.shape[-1] * self.sample_rate
+                           / row_sr(0)) // self.winhop
+        B = x.wav.shape[0]
+        out = torch.zeros(B, n_frames, self.n_chroma, device=device)
+        by_sr: tp.Dict[int, tp.List[int]] = {}
+        for i in range(B):
+            if int(x.length[i]) > 1:
+                by_sr.setdefault(int(row_sr(i)), []).append(i)
+        for sr, rows in by_sr.items():
+            wavs = x.wav[torch.as_tensor(rows, device=x.wav.device)].float()
+            mel = separate_melody(separator, wavs, sr).to(device)
+            if sr != self.sample_rate:
+                mel = convert_audio(mel, sr, self.sample_rate, 1)
+            chroma = self.chroma(mel)[:, :n_frames]
+            out[torch.as_tensor(rows, device=device), :chroma.shape[1]] = chroma
+        return {"chroma": out, "length": x.length}
+
+    def _match_len(self, chroma: torch.Tensor) -> torch.Tensor:
+        """Tile or cut [B, T, n_chroma] to `chroma_len` frames."""
+        target = self.chroma_len
+        T = chroma.shape[1]
+        if T < target:
+            chroma = chroma.repeat(1, int(math.ceil(target / T)), 1)
+        return chroma[:, :target]
+
+    def _get_wav_embedding(self, x: WavCondition) -> torch.Tensor:
+        device = self.output_proj.weight.device
+        wav = x.wav.to(device).float()
+        if wav.shape[-1] == 1:
+            return torch.zeros(wav.shape[0], 1, self.n_chroma, device=device)
+        chroma = self.chroma(wav)
+        return self._match_len(chroma) if self.match_len_on_eval else chroma
+
+    def forward(self, x) -> ConditionType:
+        device = self.output_proj.weight.device
+        if isinstance(x, dict):
+            chroma = x["chroma"].to(device)
+            if self.match_len_on_eval:
+                chroma = self._match_len(chroma)
+            lengths = x["length"]
+        else:
+            chroma = self._get_wav_embedding(x)
+            lengths = x.length
+        embeds = self.output_proj(chroma.to(self.output_proj.weight.dtype))
+        valid = torch.as_tensor(lengths).reshape(-1, 1).to(device) > 0
+        mask = valid.expand(embeds.shape[:2]).to(torch.int32)
+        return self._masked(embeds, mask)
+
+
 def dropout_condition(sample: ConditioningAttributes, condition_type: str,
                       condition: str) -> ConditioningAttributes:
-    """Null one attribute of `sample` in place: a text becomes None. A
-    waveform condition can only be dropped while it is None (waveform
-    conditioning is not ported)."""
+    """Null one attribute of `sample` in place: a text becomes None, a
+    waveform its null condition (a missing waveform stays None)."""
     if condition_type not in ("text", "wav"):
         raise ValueError(f"unexpected condition type: {condition_type}")
     attributes = getattr(sample, condition_type)
     if condition not in attributes:
         raise ValueError(f"unexpected condition {condition}.{condition_type}")
-    if condition_type == "wav" and attributes[condition] is not None:
-        raise NotImplementedError("waveform conditions are not ported "
-                                  "(ROADMAP, slice C)")
-    attributes[condition] = None
+    if condition_type == "text":
+        attributes[condition] = None
+    elif attributes[condition] is not None:
+        attributes[condition] = nullify_wav(attributes[condition])
     return sample
 
 
@@ -171,16 +337,18 @@ class AttributeDropout:
     """Independent dropout per attribute: `p` maps a condition type to
     {condition: probability}; each listed condition is dropped from the whole
     batch with its probability (one host draw each, numpy RNG). Inactive in
-    eval mode (`training = False`)."""
+    eval mode (`training = False`) unless `active_on_eval`."""
 
-    def __init__(self, p: tp.Dict[str, tp.Dict[str, float]], seed: int = 1234):
+    def __init__(self, p: tp.Dict[str, tp.Dict[str, float]], seed: int = 1234,
+                 active_on_eval: bool = False):
         self.p = {kind: dict(probs) for kind, probs in p.items()}
         self.rng = np.random.RandomState(seed)
         self.training = True
+        self.active_on_eval = active_on_eval
 
     def __call__(self, samples: tp.List[ConditioningAttributes]
                  ) -> tp.List[ConditioningAttributes]:
-        if not self.training:
+        if not self.training and not self.active_on_eval:
             return samples
         samples = deepcopy(samples)
         for kind, probs in self.p.items():
@@ -213,26 +381,74 @@ class ClassifierFreeGuidanceDropout:
         return samples
 
 
+def drop_description_condition(conditions: tp.List[ConditioningAttributes]
+                               ) -> tp.List[ConditioningAttributes]:
+    """The conditions with the description dropped and the waveform kept:
+    the middle rows of double CFG."""
+    for condition in conditions:
+        assert "description" in condition.text and "self_wav" in condition.wav, \
+            "double CFG needs a description and a waveform condition 'self_wav'"
+    return AttributeDropout(p={"text": {"description": 1.0},
+                               "wav": {"self_wav": 0.0}},
+                            active_on_eval=True)(conditions)
+
+
 class ConditioningProvider(nn.Module):
-    """Aggregates conditioners: host `tokenize` + device `forward`."""
+    """Aggregates conditioners: `tokenize` (texts, then waveforms) and the
+    device `forward`."""
 
     def __init__(self, conditioners: tp.Dict[str, BaseConditioner]):
         super().__init__()
         self.conditioners = nn.ModuleDict(conditioners)
 
     @property
-    def text_conditions(self):
-        return list(self.conditioners.keys())
+    def text_conditions(self) -> tp.List[str]:
+        return [k for k, v in self.conditioners.items()
+                if isinstance(v, TextConditioner)]
+
+    @property
+    def wav_conditions(self) -> tp.List[str]:
+        return [k for k, v in self.conditioners.items()
+                if isinstance(v, WaveformConditioner)]
 
     def tokenize(self, inputs: tp.List[ConditioningAttributes]
                  ) -> tp.Dict[str, tp.Any]:
         assert all(isinstance(x, ConditioningAttributes) for x in inputs)
-        text = defaultdict(list)
+        text: tp.Dict[str, list] = defaultdict(list)
         for sample in inputs:
             for condition in self.text_conditions:
                 text[condition].append(sample.text.get(condition))
-        return {name: self.conditioners[name].tokenize(batch)
-                for name, batch in text.items()}
+        out = {name: self.conditioners[name].tokenize(batch)
+               for name, batch in text.items()}
+        for name, batch in self._collate_wavs(inputs).items():
+            out[name] = self.conditioners[name].tokenize(batch)
+        return out
+
+    def _collate_wavs(self, samples: tp.List[ConditioningAttributes]
+                      ) -> tp.Dict[str, WavCondition]:
+        """Per waveform attribute: every sample's wav [1, C, T] mixed to
+        mono and zero-padded to the longest, on the conditioner's device,
+        with the lengths, rates, paths and seek times."""
+        out: tp.Dict[str, WavCondition] = {}
+        for name in self.wav_conditions:
+            device = self.conditioners[name].output_proj.weight.device
+            wavs, lengths, rates, paths, seeks = [], [], [], [], []
+            for sample in samples:
+                cond = sample.wav[name]
+                wav = torch.as_tensor(cond.wav, dtype=torch.float32)
+                assert wav.dim() == 3, f"Expecting wav to be [1, C, T], got {wav.shape}"
+                assert wav.shape[0] == 1, "Expecting single-item batch"
+                wavs.append(wav.to(device).mean(dim=1).reshape(-1))
+                lengths.append(torch.as_tensor(cond.length).reshape(-1).cpu())
+                rates.extend(cond.sample_rate)
+                paths.extend(cond.path)
+                seeks.extend(cond.seek_time)
+            max_len = max(w.shape[-1] for w in wavs)
+            stacked = torch.stack([torch.nn.functional.pad(
+                w, (0, max_len - w.shape[-1])) for w in wavs])
+            out[name] = WavCondition(stacked[:, None], torch.cat(lengths),
+                                     rates, paths, seeks)
+        return out
 
     def forward(self, tokenized: tp.Dict[str, tp.Any]
                 ) -> tp.Dict[str, ConditionType]:
@@ -241,8 +457,11 @@ class ConditioningProvider(nn.Module):
 
 
 class ConditionFuser:
-    """Routes conditions into the model; this slice fuses by cross-attention
-    only (a condition routed elsewhere raises)."""
+    """Routes each condition into the model: added to the input (`sum`;
+    `input_interpolate` after a nearest resample of its time axis), put
+    before it (`prepend`, at the first step only, in the order of the
+    conditions), concatenated into the cross-attention source (`cross`) or
+    dropped (`ignore`)."""
     FUSING_METHODS = ["sum", "prepend", "cross", "ignore", "input_interpolate"]
 
     def __init__(self, fuse2cond: tp.Dict[str, tp.List[str]]):
@@ -250,24 +469,47 @@ class ConditionFuser:
             f"Got invalid fuse method, allowed methods: {self.FUSING_METHODS}"
         self.fuse2cond = {k: list(v) for k, v in fuse2cond.items()}
         self.cond2fuse = {c: m for m, conds in fuse2cond.items() for c in conds}
-        unported = {c: m for c, m in self.cond2fuse.items()
-                    if m not in ("cross", "ignore")}
-        if unported:
-            raise NotImplementedError(f"fusing {unported} is not ported")
+
+    @property
+    def has_prepend(self) -> bool:
+        return bool(self.fuse2cond.get("prepend"))
+
+    def _check(self, conditions: tp.Dict[str, ConditionType]) -> None:
+        assert set(conditions).issubset(self.cond2fuse), \
+            (f"given conditions contain unknown attributes for fuser, "
+             f"expected {self.cond2fuse.keys()}, got {conditions.keys()}")
+
+    def prepend_length(self, conditions: tp.Dict[str, ConditionType]) -> int:
+        """The steps the prepended conditions put before the input."""
+        self._check(conditions)
+        return sum(cond.shape[1] for name, (cond, _) in conditions.items()
+                   if self.cond2fuse[name] == "prepend")
 
     def cross_source(self, conditions: tp.Dict[str, ConditionType]
                      ) -> tp.Optional[torch.Tensor]:
         """The cross-attention source: the cross conditions concatenated on
         time, or None."""
-        assert set(conditions).issubset(self.cond2fuse), \
-            (f"given conditions contain unknown attributes for fuser, "
-             f"expected {self.cond2fuse.keys()}, got {conditions.keys()}")
+        self._check(conditions)
         conds = [cond for name, (cond, _) in conditions.items()
                  if self.cond2fuse[name] == "cross"]
         return torch.cat(conds, dim=1) if conds else None
 
     def __call__(self, input: torch.Tensor,
-                 conditions: tp.Dict[str, ConditionType]
+                 conditions: tp.Dict[str, ConditionType],
+                 first_step: bool = True
                  ) -> tp.Tuple[torch.Tensor, tp.Optional[torch.Tensor]]:
+        """input [B, T, D] -> (the fused input, the cross source or None)."""
+        self._check(conditions)
+        for name, (cond, _) in conditions.items():
+            op = self.cond2fuse[name]
+            cond = cond.to(input.dtype)
+            if op == "sum":
+                input = input + cond
+            elif op == "input_interpolate":
+                T_in = input.shape[1]
+                idx = torch.arange(T_in, device=cond.device) * cond.shape[1] // T_in
+                input = input + cond.index_select(1, idx)
+            elif op == "prepend" and first_step:
+                input = torch.cat([cond, input], dim=1)
         cross = self.cross_source(conditions)
         return input, None if cross is None else cross.to(input.dtype)

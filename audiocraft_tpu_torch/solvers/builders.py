@@ -11,12 +11,14 @@ ParamGroups = tp.List[tp.Dict[str, tp.Any]]
 
 
 def get_solver(cfg: dict, device=None):
-    """The solver named by `cfg['solver']`; MusicGen only for now."""
+    """The solver named by `cfg['solver']`: MusicGen or AudioGen."""
+    from .audiogen import AudioGenSolver
     from .musicgen import MusicGenSolver
+    solvers = {"musicgen": MusicGenSolver, "audiogen": AudioGenSolver}
     name = cfg["solver"]
-    if name != "musicgen":
+    if name not in solvers:
         raise NotImplementedError(f"solver {name!r} is not ported (ROADMAP)")
-    return MusicGenSolver(cfg, device=device)
+    return solvers[name](cfg, device=device)
 
 
 def get_optim_parameter_groups(model: nn.Module,

@@ -135,8 +135,8 @@ def eval_step(model: LMModel, codes: torch.Tensor,
 
 class MusicGenSolver(SolverRunMixin):
     """MusicGen LM training from a solver config dict: a frozen compression
-    model (the debug codec for `compression_model_checkpoint` 'debug' or
-    None), the LM (`get_lm_model` when the config has `transformer_lm`, else
+    model (the debug codec at the config's `sample_rate`, 32 or 16 kHz, for
+    `compression_model_checkpoint` 'debug' or None), the LM (`get_lm_model` when the config has `transformer_lm`, else
     the debug LM), condition dropouts, and the optimizer. Runs on CUDA
     unless `device` names another. Loaders are iterables of batches placed
     in `self.dataloaders` (the datasets are ROADMAP slice H); a batch is
@@ -161,9 +161,8 @@ class MusicGenSolver(SolverRunMixin):
         if ckpt not in ("debug", None):
             raise NotImplementedError("loading a compression model checkpoint "
                                       "is not ported (ROADMAP, slice A item 3)")
-        assert cfg.get("sample_rate", 32000) == 32000
         self.compression_model = model_builders.get_debug_compression_model(
-            device=self.device)
+            device=self.device, sample_rate=cfg.get("sample_rate", 32000))
 
         lm_cfg = cfg.get("transformer_lm") or {}
         if lm_cfg:

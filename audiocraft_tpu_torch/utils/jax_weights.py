@@ -10,7 +10,10 @@ conv `[W, Cin, Cout]` -> `[Cout, Cin, W]` (transposed conv -> `[Cin, Cout, W]`)
 with weight-norm `g`/`v`; LSTM `w_ih` `[C, 4H]` -> `weight_ih_l{n}` `[4H, C]`;
 RVQ codebooks `[n_q, C, D]` -> one codebook per level; LayerScale `scale`
 and the qk layer norms keep their names (`layer_scale_1.scale`,
-`self_attn.q_layer_norm.weight`, ...).
+`self_attn.q_layer_norm.weight`, ...). HTDemucs (`load_htdemucs`): conv2d
+`[kh, kw, Cin, Cout]` -> `[Cout, Cin, kh, kw]`, transposed convs flipped
+back along their kernel axis, DConv layers `layers_{j}_conv1/norm1/conv2/
+norm2/scale` -> `layers.{j}.0/1/3/4/6`, flax `layers_{i}` -> `layers.{i}`.
 """
 import typing as tp
 
@@ -19,7 +22,8 @@ import torch
 import torch.nn as nn
 
 from ..models.encodec import InterleaveStereoCompressionModel
-from ..modules.conditioners import LUTConditioner, T5Conditioner
+from ..modules.conditioners import (ChromaStemConditioner, LUTConditioner,
+                                    T5Conditioner)
 from ..modules.conv import StreamableConv1d, StreamableConvTranspose1d
 from ..modules.lstm import StreamableLSTM
 from ..modules.seanet import SEANetResnetBlock
@@ -142,7 +146,7 @@ def lm_state(lm: nn.Module, params: Tree) -> dict:
         elif isinstance(cond, T5Conditioner):
             out.update(t5_state(cp["t5"], len(cond.t5.encoder.block),
                                 prefix + "t5."))
-        else:
+        elif not isinstance(cond, ChromaStemConditioner):  # output_proj only
             raise TypeError(f"no weight rule for {type(cond).__name__}")
     return out
 
@@ -227,3 +231,76 @@ def load_encodec(model: nn.Module, variables: Tree) -> None:
         out[rp + "cluster_size"] = books.cluster_size[q]
         out[rp + "inited"] = np.asarray(books.inited[q], np.float32).reshape(1)
     _load(model, out)
+
+
+def _conv_nd(p: Tree, prefix: str, out: dict) -> None:
+    """flax Conv kernel [k..., Cin, Cout] -> torch [Cout, Cin, k...]."""
+    kernel = np.asarray(p["kernel"])
+    out[prefix + "weight"] = kernel.transpose(
+        (kernel.ndim - 1, kernel.ndim - 2) + tuple(range(kernel.ndim - 2)))
+    if "bias" in p:
+        out[prefix + "bias"] = p["bias"]
+
+
+def _conv_transpose_nd(p: Tree, prefix: str, out: dict) -> None:
+    """flax ConvTranspose kernel [k..., Cin, Cout], which correlates ->
+    torch [Cin, Cout, k...], which convolves: the first kernel axis flips."""
+    kernel = np.asarray(p["kernel"])[::-1]
+    out[prefix + "weight"] = kernel.transpose(
+        (kernel.ndim - 2, kernel.ndim - 1) + tuple(range(kernel.ndim - 2)))
+    if "bias" in p:
+        out[prefix + "bias"] = p["bias"]
+
+
+def htdemucs_state(params: Tree, depth: int, t_depth: int) -> dict:
+    """JAX `HTDemucs` params -> the demucs package's state-dict keys."""
+    p = _params(params)
+    out: dict = {"freq_emb.embedding.weight":
+                 p["freq_emb"]["embedding"]["embedding"]}
+    for i in range(depth):
+        for name in ("encoder", "tencoder"):
+            lp, rp = p[f"{name}_{i}"], f"{name}.{i}."
+            _conv_nd(lp["conv"], rp + "conv.", out)
+            _conv_nd(lp["rewrite"], rp + "rewrite.", out)
+            d = lp["dconv"]
+            j = 0
+            while f"layers_{j}_conv1" in d:
+                dp = f"{rp}dconv.layers.{j}."
+                _conv_nd(d[f"layers_{j}_conv1"], dp + "0.", out)
+                _norm(d[f"layers_{j}_norm1"], dp + "1.", out)
+                _conv_nd(d[f"layers_{j}_conv2"], dp + "3.", out)
+                _norm(d[f"layers_{j}_norm2"], dp + "4.", out)
+                out[dp + "6.scale"] = d[f"layers_{j}_scale"]["scale"]
+                j += 1
+        for name in ("decoder", "tdecoder"):
+            lp, rp = p[f"{name}_{i}"], f"{name}.{i}."
+            _conv_nd(lp["rewrite"], rp + "rewrite.", out)
+            _conv_transpose_nd(lp["conv_tr"], rp + "conv_tr.", out)
+    if "channel_upsampler" in p:
+        for name in ("channel_upsampler", "channel_downsampler"):
+            kernel = np.asarray(p[name]["kernel"])[0]   # [1, Cin, Cout]
+            _conv_nd({"kernel": kernel, "bias": p[name]["bias"]},
+                     name + ".", out)
+            _conv_nd(p[name + "_t"], name + "_t.", out)
+    ct = p["crosstransformer"]
+    _norm(ct["norm_in"], "crosstransformer.norm_in.", out)
+    _norm(ct["norm_in_t"], "crosstransformer.norm_in_t.", out)
+    for i in range(t_depth):
+        for ours, theirs in (("layers", "layers"), ("layers_t", "layers_t")):
+            lp, rp = ct[f"{ours}_{i}"], f"crosstransformer.{theirs}.{i}."
+            attn = "cross_attn." if i % 2 else "self_attn."
+            _mha(lp["attn"], rp + attn, out)
+            for name in ("linear1", "linear2"):
+                _dense(lp[name], rp + name + ".", out)
+            for name in ("norm1", "norm2", "norm3", "norm_out"):
+                if name in lp:
+                    _norm(lp[name], rp + name + ".", out)
+            for name in ("gamma_1", "gamma_2"):
+                out[rp + name + ".scale"] = lp[name]["scale"]
+    return out
+
+
+def load_htdemucs(model: nn.Module, params: Tree) -> None:
+    """JAX `HTDemucs` params -> a port `HTDemucs`."""
+    _load(model, htdemucs_state(params, model.depth,
+                                len(model.crosstransformer.layers)))

@@ -55,7 +55,24 @@ Phases, each printing one JSON line:
            interleaved codebooks); first holds K1 against its plain version
            at these runs' shapes (B 2 and 4, the 5 s cache of 254 slots);
            checks shapes, finiteness, code range and that every
-           decode-attention step launched K1.
+           decode-attention step launched K1;
+  melody   full-width MusicGen-melody (medium LM: d 1536, 24 heads, 48
+           layers; T5-base and the chroma prepended; EnCodec 32 kHz; seeded
+           random weights, bf16) with a full-width HTDemucs set as its stem
+           separator: 2 texts x 10 s against 10 s of 44.1 kHz stereo under
+           batched, two-step and double CFG, after K1 is held against its
+           plain version at H 24 over each stream's rows and capacity
+           (pattern steps plus prefix) and timed at B 4; checks shapes,
+           finiteness, code range, one decode graph per generate, K1's
+           launches (layers x (forwards - 1) per stream: the prefill sits
+           behind the prefix), and 1 s of greedy tokens from the graph
+           against the eager step (one stream and two); prints the request
+           split into stem separation, conditions, prefill, replays and
+           codec decode;
+  audiogen full-width AudioGen-medium (medium LM, T5-large by
+           cross-attention, EnCodec 16 kHz; seeded random weights, bf16): 2
+           texts x 10 s, then 12 s through the sliding window, with the same
+           checks, K1 first held and timed at H 24 over its 254 slots.
 Then the `{"kernels": [...]}` summary, and last `{"ok": true, "device": ...}`.
 Any failed check raises, so the script exits non-zero without the last line.
 It needs no network and imports nothing of JAX.
@@ -156,24 +173,27 @@ def _kernel_bytes_and_ops(B, H, D, length, kind, q_dtype_bytes):
 K1_TOL = {"float32": 1e-4, "bfloat16": 2e-2, "int8": 2e-2}
 
 
-def check_decode_attention(torch, batches, S, path, seed=0):
-    """K1 vs its plain version at a path's batches and cache length S, over
-    f32, bf16 and int8 caches; lengths 1, 37, S - 1, S and a window of 64.
+def check_decode_attention(torch, batches, S, path, seed=0, H=16,
+                           kinds=("float32", "bfloat16", "int8"), cases=None):
+    """K1 vs its plain version at a path's batches and cache capacity S
+    (D 64), over `kinds` of cache; (length, window) `cases`, by default
+    lengths 1, 37, S - 1, S and a window of 64; lengths on the device.
     Emits one `kernel_check` line and returns the worst error per cache."""
     from audiocraft_tpu_torch.ops.decode_attention import (
         decode_attention, decode_attention_reference, length_tensor)
-    H, D = 16, 64
+    D = 64
     g = torch.Generator("cuda").manual_seed(seed)
-    window_length = min(300, S - 4)
+    if cases is None:
+        cases = ((1, None), (37, None), (S - 1, None), (S, None),
+                 (min(300, S - 4), 64))
     worst = {}
     checks = 0
     for B in batches:
-        for kind in ("float32", "bfloat16", "int8"):
+        for kind in kinds:
             q_dtype = torch.float32 if kind == "float32" else torch.bfloat16
             q = torch.randn(B, H, D, device="cuda", generator=g).to(q_dtype)
             k, v, scales = _cache(torch, B, S, H, D, kind, g)
-            for length, window in ((1, None), (37, None), (S - 1, None),
-                                   (S, None), (window_length, 64)):
+            for length, window in cases:
                 out = decode_attention(q, k, v, length_tensor(length, "cuda"),
                                        past_context=window, **scales)
                 torch.cuda.synchronize()
@@ -188,8 +208,8 @@ def check_decode_attention(torch, batches, S, path, seed=0):
                 worst[kind] = max(worst.get(kind, 0.0), err)
                 checks += 1
     emit("kernel_check", kernel="decode_attention", path=path, checks=checks,
-         shapes=dict(B=list(batches), S=S, H=H, D=D,
-                     lengths=[1, 37, S - 1, S], window=[window_length, 64]),
+         shapes=dict(B=list(batches), S=S, H=H, D=D, caches=list(kinds),
+                     length_window=[list(c) for c in cases]),
          max_abs_err=worst, tolerance=K1_TOL)
     return worst
 
@@ -249,24 +269,34 @@ def check_decode_attention_splits(torch, seed=5):
 
 def phase_kernels(torch, S):
     """K1 vs its plain version at the slice path's shapes, then timings."""
-    import torch.nn.functional as F
-    from audiocraft_tpu_torch.ops.decode_attention import (
-        _sm_count, decode_attention, decode_attention_reference, length_tensor,
-        split_count)
-    from audiocraft_tpu_torch.utils.timing import time_ms
-    H, D = 16, 64
+    H = 16
     worst = check_decode_attention(torch, (4, 8, 32, 64), S, "slice")
     for kind, err in check_decode_attention_splits(torch).items():
         worst[kind] = max(worst[kind], err)
     g = torch.Generator("cuda").manual_seed(0)
 
-    timings = []
     # the main shapes at the full cache and, as early decode steps see it,
     # at S / 8 and S / 2 (the cluster stays sized by the capacity S)
-    for B, kind, length in ((32, "int8", S), (4, "bfloat16", S),
-                            (32, "int8", S // 2), (512, "int8", S),
-                            (512, "bfloat16", S), (4, "bfloat16", S // 8),
-                            (4, "bfloat16", S // 2), (32, "int8", S // 8)):
+    timings = time_decode_attention(torch, S, H, (
+        (32, "int8", S), (4, "bfloat16", S), (32, "int8", S // 2),
+        (512, "int8", S), (512, "bfloat16", S), (4, "bfloat16", S // 8),
+        (4, "bfloat16", S // 2), (32, "int8", S // 8)), g)
+    return worst, timings
+
+
+def time_decode_attention(torch, S, H, shapes, g, path="slice"):
+    """K1 at each (B, cache kind, length) of `shapes` over a capacity S
+    (D 64, bf16 q, the length on the device), beside its plain version and
+    scaled_dot_product_attention over the dequantized valid window, with
+    the bound; L2 flushed. Emits one `kernel_timing` line."""
+    import torch.nn.functional as F
+    from audiocraft_tpu_torch.ops.decode_attention import (
+        _sm_count, decode_attention, decode_attention_reference, length_tensor,
+        split_count)
+    from audiocraft_tpu_torch.utils.timing import time_ms
+    D = 64
+    timings = []
+    for B, kind, length in shapes:
         q = torch.randn(B, H, D, device="cuda", generator=g).to(torch.bfloat16)
         k, v, scales = _cache(torch, B, S, H, D, kind, g)
         flush = 128 << 20  # > 50 MB of L2
@@ -295,11 +325,11 @@ def phase_kernels(torch, S):
                             bound_by="bytes" if nbytes / HBM_BYTES_PER_S
                             >= ops / F32_FLOPS else "operations",
                             roofline_share=bound / ms))
-    emit("kernel_timing", kernel="decode_attention", l2_flushed=True,
-         statistic="median of 50 calls",
+    emit("kernel_timing", kernel="decode_attention", path=path,
+         l2_flushed=True, statistic="median of 50 calls",
          library="torch.nn.functional.scaled_dot_product_attention on the "
                  "dequantized bf16 cache [B, H, len, D]", timings=timings)
-    return worst, timings
+    return timings
 
 
 def phase_graph_kernel(torch, S):
@@ -944,11 +974,12 @@ def phase_int4_path(torch, card):
 def _k1_launches(lm, frames: int, prompt_frames: int = 0,
                  streams: int = 1) -> int:
     """Decode-attention launches of one generate: one per layer and stream
-    for every single-step forward (the prefill is one only without a
-    prompt)."""
+    for every single-step forward. The prefill is one only without a prompt
+    and without prepended conditions (which put their prefix before it)."""
     pattern = lm.pattern_provider.get_pattern(frames)
     start = pattern.get_first_step_with_timesteps(prompt_frames)
-    single = len(pattern.layout) - 1 - start + (1 if start == 1 else 0)
+    single_prefill = start == 1 and not lm.fuser.has_prepend
+    single = len(pattern.layout) - 1 - start + (1 if single_prefill else 0)
     return lm.num_layers * single * streams
 
 
@@ -1081,6 +1112,270 @@ def phase_variants(torch, card):
     return k1_worst
 
 
+MELODY_SECONDS = 10         # of 44.1 kHz stereo melody, and of music
+AUDIOGEN_SECONDS = (10, 12)  # per request; 12 s takes the sliding window
+AUDIOGEN_RATE = 25          # EnCodec 16 kHz frame rate
+
+
+def _timed(torch, fn):
+    """(fn(), host seconds to the end of its device work)."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def _graph_vs_eager(torch, generate):
+    """Greedy tokens of `generate()` through the decode graph, then with
+    the decode steps run eagerly on the card; raises unless equal."""
+    from audiocraft_tpu_torch.models import lm as lm_module
+    graph_tokens = generate()
+    replay = lm_module._replay_decode_steps
+    lm_module._replay_decode_steps = _eager_decode_steps
+    try:
+        eager_tokens = generate()
+    finally:
+        lm_module._replay_decode_steps = replay
+    if not torch.equal(graph_tokens, eager_tokens):
+        raise AssertionError("greedy tokens of the graph and of the eager "
+                             "step differ")
+    return tuple(graph_tokens.shape)
+
+
+def _capacities(lm, attrs, frames, two_step=False, beta=None):
+    """(rows, cache capacity) of each stream of one generate: the pattern
+    steps plus the stream's prepended conditions."""
+    S = len(lm.pattern_provider.get_pattern(frames).layout)
+    conds = lm.prepare_cfg_conditions(attrs, two_step, beta)
+    streams = conds if isinstance(conds, tuple) else (conds,)
+    return [(next(iter(ct.values()))[0].shape[0],
+             S + lm.fuser.prepend_length(ct)) for ct in streams]
+
+
+def phase_melody(torch, card):
+    """Full-width MusicGen-melody (medium LM, T5-base and the chroma of
+    2^14-point frames prepended, EnCodec 32 kHz; seeded random weights,
+    bf16) with a full-width HTDemucs (seeded, f32) set as its stem
+    separator: 2 texts x 10 s against 10 s of 44.1 kHz stereo melody under
+    batched, two-step and double CFG, after K1 is held against its plain
+    version at these requests' heads, batches and capacities."""
+    from audiocraft_tpu_torch.data.audio_utils import convert_audio
+    from audiocraft_tpu_torch.models import MusicGen, builders
+    from audiocraft_tpu_torch.models import lm as lm_module
+    from audiocraft_tpu_torch.modules.conditioners import (
+        ClassifierFreeGuidanceDropout, WavCondition)
+    from audiocraft_tpu_torch.modules.demucs import HTDemucs, separate_melody
+    from audiocraft_tpu_torch.ops.decode_attention import decode_attention
+    t0 = time.perf_counter()
+    lm = builders.get_musicgen_melody_lm(device="cuda", dtype=torch.bfloat16,
+                                         seed=0)
+    codec = builders.get_encodec_32khz(device="cuda", dtype=torch.bfloat16,
+                                       seed=1)
+    torch.manual_seed(2)
+    separator = HTDemucs().to("cuda").eval()
+    chroma = lm.condition_provider.conditioners["self_wav"]
+    chroma.set_separator(separator)
+    mg = MusicGen("musicgen-melody (random weights)", codec, lm,
+                  device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    frames = MELODY_SECONDS * TOKENS_PER_SECOND
+    hop = int(mg.sample_rate // mg.frame_rate)
+    melody = _seeded_music(torch, 4, MELODY_SECONDS,
+                           sample_rate=44100).reshape(2, 2, -1)
+    modes = {"batched": {}, "two_step": {"two_step_cfg": True},
+             "double": {"cfg_coef_beta": 5.0}}
+
+    # K1 at these requests' shapes: rows and capacity of every stream
+    melody32 = convert_audio(melody, 44100, 32000, 1)
+    attrs = mg._prepare_tokens_and_attributes(TEXTS, None)[0]
+    for a, wav in zip(attrs, melody32):
+        a.wav["self_wav"] = WavCondition(wav[None], torch.tensor(
+            [wav.shape[-1]]), [32000], [None])
+    shapes = {mode: _capacities(lm, attrs, frames, "two_step_cfg" in kw,
+                                kw.get("cfg_coef_beta"))
+              for mode, kw in modes.items()}
+    k1_worst = {}
+    for B, S in sorted({shape for v in shapes.values() for shape in v}):
+        cases = tuple((n, None) for n in (max(1, S // 8), S // 2, S))
+        for kind, err in check_decode_attention(
+                torch, (B,), S, "melody", seed=7, H=lm.num_heads,
+                kinds=("bfloat16",), cases=cases).items():
+            k1_worst[kind] = max(k1_worst.get(kind, 0.0), err)
+    S_melody = shapes["batched"][0][1]
+    timings = time_decode_attention(
+        torch, S_melody, lm.num_heads,
+        [(4, "bfloat16", n) for n in (S_melody // 8, S_melody // 2, S_melody)],
+        torch.Generator("cuda").manual_seed(8), path="melody")
+
+    stats = lm_module.decode_graph_stats
+    runs, launches_total = {}, 0
+    torch.cuda.reset_peak_memory_stats()
+    for mode, kw in modes.items():
+        mg.set_generation_params(duration=MELODY_SECONDS, **kw)
+        mg.set_seed(0)
+        captures = stats.captures
+        decode_attention.launches = 0
+        (wav, tokens), seconds = _timed(torch, lambda: mg.generate_with_chroma(
+            TEXTS, melody, 44100, return_tokens=True))
+        launches = decode_attention.launches
+        launches_total += launches
+        streams = 2 if mode == "two_step" else 1
+        expected = _k1_launches(lm, frames, streams=streams)
+        _check_generation(torch, f"melody {mode}", wav, tokens,
+                          (2, 1, frames * hop), 4, frames, launches, expected)
+        if stats.captures - captures != 1:
+            raise AssertionError(f"melody {mode}: {stats.captures - captures} "
+                                 f"decode graphs captured for one generate")
+        runs[mode] = dict(request_s=seconds,
+                          audio_s_per_s=len(TEXTS) * MELODY_SECONDS / seconds,
+                          streams=[dict(rows=b, capacity=c)
+                                   for b, c in shapes[mode]],
+                          decode_attention_launches=launches,
+                          expected_launches=expected,
+                          replay_ms_per_step=stats.last_replay_ms_per_step(),
+                          capture_s=stats.last_capture_s)
+    peak = torch.cuda.max_memory_allocated()
+
+    # where a batched request's time goes, piece by piece
+    mg.set_generation_params(duration=MELODY_SECONDS)
+    with torch.no_grad():
+        _, separation_s = _timed(torch, lambda: separate_melody(
+            separator, melody32, 32000))
+        rows = attrs + ClassifierFreeGuidanceDropout(p=1.0)(attrs)
+        tokenized, tokenize_s = _timed(
+            torch, lambda: lm.condition_provider.tokenize(rows))
+        conditions, conditions_s = _timed(
+            torch, lambda: lm.compute_conditions(tokenized))
+        prefix = lm.fuser.prepend_length(conditions)
+        caches = lm.transformer.init_cache(4, S_melody, torch.bfloat16, "cuda")
+        first = torch.full((4, 4, 1), lm.special_token_id, device="cuda")
+        _, prefill_s = _timed(torch, lambda: lm(first, conditions,
+                                                caches=caches))
+    del caches
+    codes, generate_s = _timed(torch, lambda: lm.generate(
+        condition_tensors=conditions, num_samples=2, max_gen_len=frames,
+        gen=lm_module.GenParams(**mg.generation_params),
+        generator=mg.generator, device="cuda"))
+    replay_ms = stats.last_replay_ms_per_step()
+    _, decode_s = _timed(torch, lambda: mg.generate_audio(codes))
+    breakdown = dict(
+        stem_separation_s=separation_s,
+        tokenize_s=tokenize_s,
+        tokenize_note="stem separation and chroma of the 2 melodies, text "
+                      "tokens",
+        conditions_s=conditions_s,
+        conditions_note="T5-base over 4 rows, the projections",
+        prepend_length=prefix, prefill_s=prefill_s,
+        prefill_note=f"one forward of {prefix + 1} steps over 4 rows",
+        generate_s=generate_s, replay_ms_per_step=replay_ms,
+        decode_steps=stats.last_replays[2],
+        replays_s=replay_ms * stats.last_replays[2] / 1e3,
+        codec_decode_s=decode_s)
+
+    # 1 s of greedy tokens with a prefix: graph and eager steps agree, in
+    # one stream (batched) and in two of different capacities (two-step)
+    checked = []
+    for kw in ({}, {"two_step_cfg": True}):
+        mg.set_generation_params(duration=1, use_sampling=False, **kw)
+        checked.append(_graph_vs_eager(torch, lambda: mg.generate_with_chroma(
+            TEXTS, melody, 44100, return_tokens=True)[1]))
+    chroma.set_separator(None)
+    emit("melody", model="musicgen-melody (medium LM: d 1536, 24 heads, 48 "
+         "layers, 4 x 2048 codes; T5-base and chroma prepended; EnCodec 32 "
+         "kHz; seeded random weights, bf16), HTDemucs (full width, seeded, "
+         "f32) as stem separator", card=card, setup_s=setup_s,
+         texts=len(TEXTS), audio_s_per_text=MELODY_SECONDS,
+         melody=f"{MELODY_SECONDS} s of seeded harmonic audio, 44.1 kHz "
+                "stereo",
+         chroma_len=chroma.chroma_len, runs=runs, breakdown=breakdown,
+         max_memory_allocated=peak,
+         graph_vs_eager=dict(seconds=1, greedy=True,
+                             modes=["batched", "two_step"], shapes=checked,
+                             tokens_equal=True))
+    del mg, lm, codec, separator
+    torch.cuda.empty_cache()
+    return launches_total, k1_worst, timings
+
+
+def phase_audiogen(torch, card):
+    """Full-width AudioGen-medium (medium LM, T5-large by cross-attention,
+    EnCodec 16 kHz; seeded random weights, bf16): 2 texts x 10 s, then a
+    12 s request through the sliding window, after K1 is held against its
+    plain version at these requests' shapes."""
+    from audiocraft_tpu_torch.models import AudioGen, builders
+    from audiocraft_tpu_torch.models import lm as lm_module
+    from audiocraft_tpu_torch.ops.decode_attention import decode_attention
+    t0 = time.perf_counter()
+    lm = builders.get_audiogen_medium_lm(device="cuda", dtype=torch.bfloat16,
+                                         seed=0)
+    codec = builders.get_encodec_16khz(device="cuda", dtype=torch.bfloat16,
+                                       seed=1)
+    ag = AudioGen("audiogen-medium (random weights)", codec, lm,
+                  device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    frames = AUDIOGEN_SECONDS[0] * AUDIOGEN_RATE
+    hop = int(ag.sample_rate // ag.frame_rate)
+    S = len(lm.pattern_provider.get_pattern(frames).layout)
+    k1_worst = check_decode_attention(
+        torch, (4,), S, "audiogen", seed=9, H=lm.num_heads,
+        kinds=("bfloat16",), cases=tuple((n, None) for n in (S // 8, S // 2, S)))
+    timings = time_decode_attention(
+        torch, S, lm.num_heads, [(4, "bfloat16", n) for n in (S // 8, S // 2, S)],
+        torch.Generator("cuda").manual_seed(10), path="audiogen")
+
+    windows = []
+    lm_generate = ag._lm_generate
+
+    def recording(prompt_tokens, attributes, max_gen_len):
+        windows.append((0 if prompt_tokens is None else prompt_tokens.shape[-1],
+                        max_gen_len))
+        return lm_generate(prompt_tokens, attributes, max_gen_len)
+
+    ag._lm_generate = recording
+    stats = lm_module.decode_graph_stats
+    runs, launches_total = {}, 0
+    torch.cuda.reset_peak_memory_stats()
+    for seconds in AUDIOGEN_SECONDS:
+        ag.set_generation_params(duration=seconds)
+        ag.set_seed(0)
+        windows.clear()
+        captures = stats.captures
+        decode_attention.launches = 0
+        (wav, tokens), request_s = _timed(torch, lambda: ag.generate(
+            TEXTS, return_tokens=True))
+        launches = decode_attention.launches
+        launches_total += launches
+        expected = sum(_k1_launches(lm, n, p) for p, n in windows)
+        n = seconds * AUDIOGEN_RATE
+        _check_generation(torch, f"audiogen {seconds} s", wav, tokens,
+                          (2, 1, n * hop), 4, n, launches, expected)
+        if stats.captures - captures != len(windows):
+            raise AssertionError(f"audiogen: {stats.captures - captures} "
+                                 f"decode graphs for {len(windows)} windows")
+        runs[f"{seconds}s"] = dict(
+            request_s=request_s, audio_s_per_s=len(TEXTS) * seconds / request_s,
+            windows=[dict(prompt_frames=p, frames=f) for p, f in windows],
+            decode_attention_launches=launches, expected_launches=expected,
+            replay_ms_per_step=stats.last_replay_ms_per_step())
+    peak = torch.cuda.max_memory_allocated()
+    ag._lm_generate = lm_generate
+    ag.set_generation_params(duration=1, use_sampling=False)
+    shape = _graph_vs_eager(torch, lambda: ag.generate(
+        TEXTS, return_tokens=True)[1])
+    emit("audiogen", model="audiogen-medium (medium LM: d 1536, 24 heads, 48 "
+         "layers, 4 x 2048 codes; T5-large by cross-attention; EnCodec 16 "
+         "kHz; seeded random weights, bf16)", card=card, setup_s=setup_s,
+         texts=len(TEXTS), runs=runs, max_memory_allocated=peak,
+         graph_vs_eager=dict(seconds=1, greedy=True, shape=shape,
+                             tokens_equal=True))
+    del ag, lm, codec
+    torch.cuda.empty_cache()
+    return launches_total, k1_worst, timings
+
+
 def main() -> int:
     root = Path(__file__).resolve().parent
     if not (root / "audiocraft_tpu_torch" / "csrc").is_dir():
@@ -1106,9 +1401,15 @@ def main() -> int:
     int4_worst, int4_timings = phase_int4_kernels(torch)
     int4_launches = phase_int4_path(torch, card)
     variants_worst = phase_variants(torch, card)
+    melody_launches, melody_worst, melody_timings = phase_melody(torch, card)
+    audiogen_launches, audiogen_worst, audiogen_timings = phase_audiogen(
+        torch, card)
+    launches += melody_launches + audiogen_launches
+    timings += melody_timings + audiogen_timings
 
     main_t = timings[0]
-    k1_err = max(list(worst.values()) + list(variants_worst.values()))
+    k1_err = max(list(worst.values()) + list(variants_worst.values())
+                 + list(melody_worst.values()) + list(audiogen_worst.values()))
     fwd, bwd = flash_timing[1500]["forward"], flash_timing[1500]["backward"]
     fwd1501, bwd1501 = flash_timing[1501]["forward"], flash_timing[1501]["backward"]
     int4_t = int4_timings[0]  # the JAX script's length, S - S // 4
@@ -1123,9 +1424,10 @@ def main() -> int:
         "shape": {k: main_t[k] for k in ("B", "S", "H", "D", "length",
                                           "cache")},
         "design": "cluster split-S + cp.async ring + scale folding",
-        "timings": [{k: t[k] for k in ("B", "length", "cache", "n_split",
-                                       "ms", "plain_ms", "library_ms",
-                                       "bound_ms", "roofline_share")}
+        "timings": [{k: t[k] for k in ("B", "S", "H", "length", "cache",
+                                       "n_split", "ms", "plain_ms",
+                                       "library_ms", "bound_ms",
+                                       "roofline_share")}
                     for t in timings],
         "replaced_design": "block per (head, row), register loads"}, {
         "name": "flash_causal_attention", "route": "cuda",

@@ -1,11 +1,16 @@
 #!/usr/bin/env python3
-"""Where the time goes in the PyTorch port's MusicGen-small generation.
+"""Where the time goes in the PyTorch port's LM generation.
 
     python3 scripts/torch_profile_decode.py [--frames 100] [--seed 0]
+        [--model small|melody|audiogen]
 
-Builds full-width MusicGen-small (T5-base conditioner, 24-layer LM; seeded
-random weights, bf16) on the CUDA card and, for two configurations (2 texts
-with a bf16 KV cache; 16 texts with an int8 cache), runs `LMModel.generate`
+Builds a full-width LM (seeded random weights, bf16) on the CUDA card:
+MusicGen-small (T5-base conditioner, 24-layer LM) by default, or the medium
+MusicGen-melody LM (48 layers; T5-base and the chroma of 10 s of seeded
+harmonic audio prepended) or the medium AudioGen LM (48 layers, T5-large by
+cross-attention). For two configurations of the small LM (2 texts with a
+bf16 KV cache; 16 texts with an int8 cache), or 2 texts with a bf16 cache
+for the others, it runs `LMModel.generate`
 for `--frames` frames twice: once plain, timed with the host clock around a
 synchronised run, and once under `torch.profiler`. Prints one JSON line per
 configuration: wall seconds per LM forward, device kernel time per forward
@@ -28,17 +33,19 @@ CONFIGS = ((2, "bfloat16"), (16, "int8"))  # texts, KV cache dtype
 
 
 def profile_generate(torch, lm, prompts: int, cache: str, frames: int,
-                     seed: int = 0) -> dict:
+                     seed: int = 0, attrs=None) -> dict:
     """Time and profile `lm.generate` (top-k 250 sampling, CFG) of `prompts`
-    texts over `frames` frames; one warm-up run first."""
+    texts (or of the conditions `attrs`) over `frames` frames; one warm-up
+    run first."""
     from torch.profiler import ProfilerActivity, profile
 
     from audiocraft_tpu_torch.models import lm as lm_module
     from audiocraft_tpu_torch.models.lm import GenParams
     from audiocraft_tpu_torch.modules.conditioners import ConditioningAttributes
     forwards = len(lm.pattern_provider.get_pattern(frames).layout) - 1
-    attrs = [ConditioningAttributes(text={"description": TEXTS[i % 2]})
-             for i in range(prompts)]
+    if attrs is None:
+        attrs = [ConditioningAttributes(text={"description": TEXTS[i % 2]})
+                 for i in range(prompts)]
 
     def run():
         g = torch.Generator("cuda").manual_seed(seed)
@@ -92,6 +99,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--frames", type=int, default=100)
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--model", default="small",
+                        choices=["small", "melody", "audiogen"])
     args = parser.parse_args()
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
     import torch
@@ -105,12 +114,38 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
-    lm = builders.get_musicgen_small_lm(device="cuda", dtype=torch.bfloat16,
-                                        seed=args.seed)
-    for prompts, cache in CONFIGS:
-        print(json.dumps({"card": card, **profile_generate(
-            torch, lm, prompts, cache, args.frames, args.seed)}), flush=True)
+    build = {"small": builders.get_musicgen_small_lm,
+             "melody": builders.get_musicgen_melody_lm,
+             "audiogen": builders.get_audiogen_medium_lm}[args.model]
+    lm = build(device="cuda", dtype=torch.bfloat16, seed=args.seed)
+    attrs = melody_conditions(torch, lm) if args.model == "melody" else None
+    configs = CONFIGS if args.model == "small" else CONFIGS[:1]
+    for prompts, cache in configs:
+        print(json.dumps({"card": card, "model": args.model,
+                          **profile_generate(torch, lm, prompts, cache,
+                                             args.frames, args.seed, attrs)}),
+              flush=True)
     return 0
+
+
+def melody_conditions(torch, lm, seconds: int = 10):
+    """The 2 texts, each with 10 s of seeded harmonic audio at the model's
+    32 kHz as its melody (no stem separator: the chroma of the full mix)."""
+    from audiocraft_tpu_torch.modules.conditioners import (
+        ConditioningAttributes, WavCondition)
+    g = torch.Generator().manual_seed(3)
+    t = torch.arange(seconds * 32000) / 32000
+    attrs = []
+    for text in TEXTS:
+        f0 = 110.0 * 2 ** (int(torch.randint(0, 24, (1,), generator=g)) / 12)
+        wav = sum(0.3 / h * torch.sin(2 * torch.pi * h * f0 * t)
+                  for h in (1, 2, 3))
+        attrs.append(ConditioningAttributes(
+            text={"description": text},
+            wav={"self_wav": WavCondition(wav[None, None].to("cuda"),
+                                          torch.tensor([wav.shape[-1]]),
+                                          [32000], [None])}))
+    return attrs
 
 
 if __name__ == "__main__":

@@ -11,7 +11,9 @@ its plain version in f32 on the same inputs, |err| <= tol * (1 + |plain|)
 with tol 1e-5 (f32 output), 1e-4 (f32 gradients) and 2e-2 (bf16); int4
 decode attention against its plain version, |err| <= 1e-2 * max(1, |plain|)
 (sums in another order can move a bf16-rounded weight by one ulp); the int8
-product's int32 sums exactly; greedy tokens equal."""
+product's int32 sums exactly; HTDemucs on the card against the CPU, atol
+1e-4 * max(1, max |CPU|) (f32 cuFFT and cuDNN against the CPU's FFT and
+convolutions, TF32 off); greedy tokens equal."""
 import pytest
 import torch
 
@@ -535,3 +537,110 @@ def test_serving_variant_tokens_on_card_match_cpu(mode):
     assert decode_attention.launches - before == \
         gpu.num_layers * (S - 1) * streams
     assert torch.equal(a, b)
+
+
+# ------------------------------------------------------- melody (slice C)
+
+def _melody(seconds: float, sample_rate: int = 44100) -> torch.Tensor:
+    """[2, 2, T] harmonic tones at two seeded pitches."""
+    t = torch.arange(int(seconds * sample_rate)) / sample_rate
+    rows = [sum(0.3 / h * torch.sin(2 * torch.pi * h * f0 * t)
+                for h in (1, 2, 3)) for f0 in (261.6, 392.0)]
+    return torch.stack(rows)[:, None].repeat(1, 2, 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B, S", [(4, 748), (6, 748), (2, 748), (2, 506),
+                                  (4, 254)])
+def test_cuda_kernel_at_melody_and_audiogen_shapes(B, S):
+    """K1 at 24 heads over the capacities a melody request (pattern steps
+    plus the prepended chroma and text) and AudioGen at 10 s give, with the
+    length on the device at S / 8, S / 2 and S."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    torch.manual_seed(B * S)
+    H, D = 24, 64
+    q = torch.randn(B, H, D, device="cuda").to(torch.bfloat16)
+    k = torch.randn(B, S, H, D, device="cuda").to(torch.bfloat16)
+    v = torch.randn(B, S, H, D, device="cuda").to(torch.bfloat16)
+    for length in (S // 8, S // 2, S):
+        out = decode_attention(q, k, v, length_tensor(length, "cuda"))
+        ref = decode_attention_reference(q, k, v, length)
+        assert (out.float() - ref.float()).abs().max().item() <= 2e-2, length
+
+
+@pytest.mark.gpu
+def test_htdemucs_at_full_width_on_card_matches_cpu():
+    """The published htdemucs configuration, seeded, on one 7.8 s segment
+    of 44.1 kHz stereo."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    from audiocraft_tpu_torch.modules.demucs import HTDemucs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.manual_seed(0)
+    cpu = HTDemucs().eval()
+    gpu = HTDemucs().to("cuda").eval()
+    gpu.load_state_dict(cpu.state_dict())
+    mix = _melody(7.8)[:1]
+    with torch.no_grad():
+        want = cpu(mix)
+        got = gpu(mix.to("cuda")).cpu()
+    assert got.shape == want.shape == (1, 4, 2, mix.shape[-1])
+    tol = 1e-4 * max(1.0, want.abs().max().item())
+    assert (got - want).abs().max().item() <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["batched", "two_step", "double"])
+def test_debug_melody_tokens_on_card_match_cpu(mode):
+    """f32 debug melody model, greedy: the card's tokens equal the CPU's
+    under each CFG mode; every single-step forward launches K1 per stream
+    (the prefill, behind the chroma, is not one)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kw = {"batched": {}, "two_step": {"two_step_cfg": True},
+          "double": {"cfg_coef_beta": 5.0}}[mode]
+    models = {}
+    for device in ("cpu", "cuda"):
+        mg = MusicGen.get_pretrained("debug-melody", device=device)
+        mg.set_generation_params(duration=0.5, use_sampling=False, **kw)
+        models[device] = mg
+    models["cuda"].lm.load_state_dict(models["cpu"].lm.state_dict())
+    melody = _melody(0.8)
+    a = models["cpu"].generate_with_chroma(TEXTS, melody, 44100,
+                                           return_tokens=True)[1]
+    before = decode_attention.launches
+    b = models["cuda"].generate_with_chroma(TEXTS, melody, 44100,
+                                            return_tokens=True)[1].cpu()
+    lm = models["cuda"].lm
+    S = len(lm.pattern_provider.get_pattern(12).layout)
+    streams = 2 if mode == "two_step" else 1
+    assert decode_attention.launches - before == lm.num_layers * (S - 2) * streams
+    assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_decode_graph_with_a_prefix_equals_eager_steps():
+    """With the chroma prepended, the replayed graph's greedy tokens equal
+    the same step run eagerly on the card, in one stream and in two of
+    different capacities."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    mg = MusicGen.get_pretrained("debug-melody", device="cuda")
+    melody = _melody(0.8)
+    for kw in ({}, {"two_step_cfg": True}):
+        mg.set_generation_params(duration=1, use_sampling=False, **kw)
+        graph = mg.generate_with_chroma(TEXTS, melody, 44100,
+                                        return_tokens=True)[1]
+        replay = lm_module._replay_decode_steps
+        lm_module._replay_decode_steps = (
+            lambda step, steps, device, generator: [step() for _ in range(steps)])
+        try:
+            eager = mg.generate_with_chroma(TEXTS, melody, 44100,
+                                            return_tokens=True)[1]
+        finally:
+            lm_module._replay_decode_steps = replay
+        assert torch.equal(graph, eager)

@@ -88,6 +88,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "audiocraft_tpu_torch"]
     scripts = sorted(str(p) for p in (ROOT / "scripts").glob("torch_*.py"))
     assert any(p.endswith("torch_int4_decode.py") for p in scripts)
+    assert any(p.endswith("torch_demucs_precision.py") for p in scripts)
+    # the melody and AudioGen slice's modules are among those imported
+    assert {f"audiocraft_tpu_torch.{m}" for m in (
+        "ops.stft", "modules.chroma", "modules.demucs", "models.audiogen",
+        "solvers.audiogen")} <= set(modules)
     script = (
         "import sys, importlib, importlib.util\n"
         "for name in ('jax', 'jaxlib', 'flax', 'audiocraft_tpu'):\n"

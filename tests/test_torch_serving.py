@@ -226,14 +226,19 @@ def test_two_step_runs_one_forward_per_stream_and_step(debug_lm):
 
 
 def test_double_cfg_raises_naming_slice_c(debug_lm):
-    _, _, port = debug_lm
-    with pytest.raises(NotImplementedError, match="slice C"):
+    """Double CFG is ported with slice C (`test_torch_melody.py`); on a
+    model without a waveform condition it raises, as in the JAX package."""
+    jmodel, params, port = debug_lm
+    with pytest.raises(AssertionError, match="self_wav"):
         port.generate(conditions=_attrs(ConditioningAttributes), max_gen_len=4,
                       gen=GenParams(cfg_coef_beta=2.0), device="cpu")
     mg = MusicGen.get_pretrained("debug", device="cpu")
     mg.set_generation_params(duration=0.1, cfg_coef_beta=2.0)
-    with pytest.raises(NotImplementedError, match="slice C"):
+    with pytest.raises(AssertionError, match="self_wav"):
         mg.generate(["a"])
+    with pytest.raises(AssertionError):
+        jlm.prepare_cfg_conditions(jmodel, params, _attrs(JaxAttrs),
+                                   cfg_coef_beta=2.0)
 
 
 # ------------------------------------------------- resampling and channels
