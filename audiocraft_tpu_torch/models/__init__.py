@@ -1,5 +1,8 @@
-"""Models: the LM, EnCodec and the MusicGen and AudioGen wrappers."""
+"""Models: the LM, EnCodec and the MusicGen, AudioGen and MAGNeT
+wrappers."""
 from .audiogen import AudioGen
 from .encodec import CompressionModel, EncodecModel
 from .lm import GenParams, LMModel
+from .lm_magnet import MagnetLMModel
+from .magnet import MAGNeT
 from .musicgen import MusicGen

@@ -1,8 +1,9 @@
 """Model builders with seeded random weights (counterpart of the debug and
 MusicGen-small assemblies in `audiocraft_tpu/models/builders.py` and
 `bench.py`, of its config-driven `get_lm_model`, and of
-`get_wrapped_compression_model`), and the full-width MusicGen-melody and
-AudioGen-medium LMs from their solver configs."""
+`get_wrapped_compression_model`), and the full-width MusicGen-melody,
+MusicGen-Style, AudioGen-medium and MAGNeT-small LMs from their solver
+configs."""
 import contextlib
 import typing as tp
 
@@ -11,7 +12,9 @@ import torch
 from ..config import load_config
 from ..modules.conditioners import (BaseConditioner, ChromaStemConditioner,
                                     ConditionFuser, LUTConditioner,
-                                    T5Conditioner)
+                                    StyleConditioner, T5Conditioner,
+                                    bind_feat_extractor)
+from ..modules.mert import MERTModel
 from ..modules.patterns import (CoarseFirstPattern, CodebooksPatternProvider,
                                 DelayedPatternProvider, MusicLMPattern,
                                 ParallelPatternProvider,
@@ -22,6 +25,7 @@ from ..utils.utils import resolve_device
 from .encodec import (CompressionModel, EncodecModel,
                       InterleaveStereoCompressionModel)
 from .lm import LMModel
+from .lm_magnet import MagnetLMModel
 from .presets import musicgen_lm
 
 
@@ -182,6 +186,52 @@ def get_debug_melody_lm_model(device=None, seed: int = 0) -> LMModel:
                        cross_attention=True, causal=True, device=device).eval()
 
 
+def get_debug_style_lm_model(device=None, seed: int = 0) -> LMModel:
+    """The debug LM with a style condition, as the JAX package's debug
+    style LM: a style conditioner over the debug codec's 4 code streams
+    (excerpt 0.05 s, transformer 'xsmall', 3 RVQ streams of 64 codes, 2 at
+    eval, every 2nd step) prepended, the text by cross-attention."""
+    device = resolve_device(device)
+
+    with _seeded(device, seed):
+        style = StyleConditioner(
+            output_dim=16, dim=256, sample_rate=32000,
+            transformer_scale="xsmall", ds_factor=2, n_q_out=3, eval_q=2,
+            length=0.05, encodec_n_q=4, bins=64, device=device)
+        conditioners = {
+            "description": LUTConditioner(n_bins=128, dim=16, output_dim=16,
+                                          device=device),
+            "self_wav": style}
+        fuser = ConditionFuser({"cross": ["description"],
+                                "prepend": ["self_wav"], "sum": [],
+                                "input_interpolate": []})
+        lm = LMModel(DelayedPatternProvider(n_q=4), conditioners, fuser,
+                     n_q=4, card=400, dim=16, num_heads=4, num_layers=2,
+                     cross_attention=True, causal=True, device=device)
+    bind_feat_extractor(style, get_debug_compression_model(device=device,
+                                                           seed=seed))
+    return lm.eval()
+
+
+def get_debug_magnet_lm_model(device=None, seed: int = 0) -> MagnetLMModel:
+    """The debug MAGNeT LM, as the JAX package's: the debug LM's widths
+    over the parallel pattern, non-causal, text by cross-attention,
+    context +-5 steps after the first stage, spans of 3, 25 Hz."""
+    device = resolve_device(device)
+
+    with _seeded(device, seed):
+        conditioners = {"description": LUTConditioner(
+            n_bins=128, dim=16, output_dim=16, device=device)}
+        fuser = ConditionFuser({"cross": ["description"], "prepend": [],
+                                "sum": [], "input_interpolate": []})
+        return MagnetLMModel(
+            ParallelPatternProvider(n_q=4), conditioners, fuser, n_q=4,
+            card=400, dim=16, num_heads=4, num_layers=2,
+            cross_attention=True, causal=False, subcodes_context=5,
+            compression_model_framerate=25, segment_duration=10, span_len=3,
+            device=device).eval()
+
+
 def get_musicgen_small_lm(device=None, dtype=torch.bfloat16,
                           seed: int = 0) -> LMModel:
     """MusicGen-small LM at full width (dim 1024, 16 heads, 24 layers,
@@ -237,6 +287,44 @@ def get_musicgen_melody_lm(device=None, dtype=torch.bfloat16,
     return lm
 
 
+def get_mert_base(device=None, seed: int = 0) -> MERTModel:
+    """MERT-v1-95M's encoder at full width (HuBERT-base: hidden 768, 12
+    layers, 12 heads, FFN 3072, 7 convs of 512; 24 kHz to 75 Hz) with
+    torch's default init, seeded, f32."""
+    device = resolve_device(device)
+    with _seeded(device, seed):
+        return MERTModel(device=device).eval()
+
+
+def get_musicgen_style_lm(device=None, dtype=torch.bfloat16, seed: int = 0,
+                          mert: tp.Optional[MERTModel] = None) -> LMModel:
+    """MusicGen-Style's LM at full width, the size of the released
+    `facebook/musicgen-style`: `solver/musicgen/musicgen_style_32khz` at
+    the medium scale (dim 1536, 24 heads, 48 layers, FFN 6144, 4 x 2048
+    codes), the style tokens (MERT features of a 3 s excerpt, transformer
+    'default', 6 RVQ streams of 1024 codes, 3 at eval, every 15th step) and
+    the T5-base text both prepended, in that order, no cross-attention.
+    The style conditioner's MERT is `mert`, else `get_mert_base(seed + 1)`
+    (f32)."""
+    lm = get_lm_model(_medium_config("solver/musicgen/musicgen_style_32khz"),
+                      device=device, seed=seed, dtype=dtype)
+    bind_feat_extractor(lm.condition_provider.conditioners["self_wav"],
+                        mert if mert is not None
+                        else get_mert_base(device, seed + 1))
+    return lm
+
+
+def get_magnet_small_lm(device=None, dtype=torch.bfloat16,
+                        seed: int = 0) -> MagnetLMModel:
+    """MAGNeT's LM at full width, the size of the released
+    `facebook/magnet-small-10secs`: `solver/magnet/magnet_32khz` (dim 1024,
+    16 heads, 24 layers, FFN 4096, 4 x 2048 codes over the parallel
+    pattern, non-causal, T5-base by cross-attention, spans of 3, context
+    +-5 steps after the first stage, 50 Hz, 10 s)."""
+    return get_lm_model(load_config("solver/magnet/magnet_32khz"),
+                        device=device, seed=seed, dtype=dtype)
+
+
 def get_audiogen_medium_lm(device=None, dtype=torch.bfloat16,
                            seed: int = 0) -> LMModel:
     """AudioGen's LM at full width, the size of the released
@@ -281,8 +369,8 @@ def get_condition_fuser(cfg: dict) -> ConditionFuser:
 
 def get_conditioners(output_dim: int, cfg: dict, device=None,
                      dtype=None) -> tp.Dict[str, BaseConditioner]:
-    """The conditioners of `cfg['conditioners']`: T5, lookup table, or the
-    melody's chroma (`chroma_stem`)."""
+    """The conditioners of `cfg['conditioners']`: T5, lookup table, the
+    melody's chroma (`chroma_stem`) or the style bottleneck (`style`)."""
     out: tp.Dict[str, BaseConditioner] = {}
     for name, cond_cfg in (cfg.get("conditioners", {}) or {}).items():
         if name == "args":
@@ -306,6 +394,9 @@ def get_conditioners(output_dim: int, cfg: dict, device=None,
             out[name] = ChromaStemConditioner(output_dim=output_dim,
                                               device=device, dtype=dtype,
                                               **args)
+        elif kind == "style":
+            out[name] = StyleConditioner(output_dim=output_dim, device=device,
+                                         dtype=dtype, **args)
         else:
             raise NotImplementedError(f"conditioner {kind!r} is not ported "
                                       f"(ROADMAP, slice C)")
@@ -334,7 +425,11 @@ def get_lm_model(cfg: dict, device=None, seed: int = 0,
     weights: upstream's 'gaussian' init with 'current' depthwise scaling
     when `weight_init` asks for it, else torch's default init. Parameters are
     f32 unless `dtype` (serving) names another; `transformer_lm.dtype` names
-    the compute dtype, which the solver applies with autocast."""
+    the compute dtype, which the solver applies with autocast.
+    `lm_model: transformer_lm_magnet` builds a `MagnetLMModel`: its
+    `subcodes_context`, `compression_model_framerate` and
+    `segment_duration` come from `transformer_lm`, its `span_len` from
+    `masking` (default 3)."""
     device = resolve_device(device)
     kwargs = dict(cfg["transformer_lm"])
     for key in _DROPPED_LM_KEYS:
@@ -348,9 +443,14 @@ def get_lm_model(cfg: dict, device=None, seed: int = 0,
             f"weight_init={weight_init!r}, depthwise_init={depthwise_init!r}, "
             f"zero_bias_init={zero_bias_init!r} is not ported")
     lm_model = cfg.get("lm_model", "transformer_lm")
-    if lm_model != "transformer_lm":
-        raise NotImplementedError(f"lm_model {lm_model!r} is not ported "
-                                  f"(ROADMAP, slice D)")
+    if lm_model == "transformer_lm_magnet":
+        lm_class: tp.Any = MagnetLMModel
+        kwargs.setdefault("span_len", (cfg.get("masking") or {}).get(
+            "span_len", 3))
+    elif lm_model == "transformer_lm":
+        lm_class = LMModel
+    else:
+        raise KeyError(f"unexpected LM model {lm_model!r}")
     n_q = kwargs["n_q"]
     pattern_cfg = cfg.get("codebooks_pattern") or {
         "modeling": "delay", "delay": {"delays": list(range(n_q))}}
@@ -362,9 +462,9 @@ def get_lm_model(cfg: dict, device=None, seed: int = 0,
                                         dtype=dtype)
         if fuser.fuse2cond.get("cross"):
             kwargs["cross_attention"] = True
-        lm = LMModel(get_codebooks_pattern_provider(n_q, pattern_cfg),
-                     conditioners, fuser, cfg_coef=cfg_coef, device=device,
-                     dtype=dtype, **kwargs)
+        lm = lm_class(get_codebooks_pattern_provider(n_q, pattern_cfg),
+                      conditioners, fuser, cfg_coef=cfg_coef, device=device,
+                      dtype=dtype, **kwargs)
     if weight_init == "gaussian":
         lm.reset_parameters(seed)
     return lm.eval()

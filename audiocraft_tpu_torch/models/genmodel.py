@@ -31,7 +31,12 @@ class BaseGenModel:
         self.set_seed(0)
 
     def set_seed(self, seed: int):
+        """Seed the sampler and the conditioners' own generators (the style
+        excerpt's start)."""
         self.generator.manual_seed(seed)
+        for cond in self.lm.condition_provider.conditioners.values():
+            if hasattr(cond, "set_seed"):
+                cond.set_seed(seed)
 
     def set_custom_progress_callback(
             self, progress_callback: tp.Optional[tp.Callable[[int, int],

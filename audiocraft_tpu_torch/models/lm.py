@@ -154,7 +154,10 @@ class LMModel(nn.Module):
         depthwise scaling: every matrix (embeddings included) ~
         N(0, 1/fan_in) truncated at 3 std; inside layer i (1-based) the std
         is further divided by sqrt(2 i); biases zero; norms one/zero;
-        layer scales keep their init. Conditioners keep their own init."""
+        layer scales keep their init. Conditioners keep their own init.
+        On the meta device (shapes only) there is nothing to draw."""
+        if self.emb[0].weight.device.type == "meta":
+            return
         g = torch.Generator(self.emb[0].weight.device).manual_seed(seed)
 
         def trunc_normal_(t: torch.Tensor, std: float):
@@ -192,16 +195,20 @@ class LMModel(nn.Module):
                 condition_tensors: ConditionTensors,
                 caches: tp.Optional[tp.List[LayerCache]] = None,
                 dropout_seed: tp.Optional[int] = None,
-                first_step: bool = True) -> torch.Tensor:
+                first_step: bool = True,
+                attn_bias: tp.Optional[torch.Tensor] = None) -> torch.Tensor:
         """sequence [B, K, S] -> logits [B, K, S, card]. With `caches`, the
         steps are appended to them in place. Prepended conditions go before
-        the sequence at the `first_step` only, and their logits are cut."""
+        the sequence at the `first_step` only, and their logits are cut.
+        `attn_bias` (f32, [S, S] or broadcasting against [B, H, S, S]) is
+        added to every self-attention's logits."""
         B, K, S = sequence.shape
         assert K == self.n_q
         input_, cross_src = self.fuser(self.embed_codes(sequence),
                                        condition_tensors, first_step=first_step)
         out = self.transformer(input_, cross_attention_src=cross_src,
-                               caches=caches, dropout_seed=dropout_seed)
+                               caches=caches, attn_bias=attn_bias,
+                               dropout_seed=dropout_seed)
         if self.out_norm is not None:
             out = self.out_norm(out)
         if self.fuser.has_prepend and first_step:

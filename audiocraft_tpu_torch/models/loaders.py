@@ -126,9 +126,32 @@ def load_compression_model(name: str, device=None) -> CompressionModel:
 def load_lm_model(name: str, device=None) -> tp.Tuple[LMModel, dict]:
     """(LM, config) of an export package at `name` (`state_dict.bin` or
     `*.th`), built by `builders.get_lm_model` from the config: MusicGen,
-    MusicGen-melody (its chroma conditioner's `output_proj`) or AudioGen."""
+    MusicGen-melody (its chroma conditioner's `output_proj`),
+    MusicGen-Style (its MERT is found at tokenize time, see
+    `modules.mert.get_mert`), AudioGen or MAGNeT."""
     state, cfg = load_package(_package_file(
         _resolve(name), ("state_dict.bin", "*.th")))
+    return _load_lm(state, cfg, device), cfg
+
+
+def load_lm_model_magnet(name: str, compression_model_frame_rate: int = 50,
+                         device=None) -> tp.Tuple[LMModel, dict]:
+    """(MAGNeT LM, config) of an export package, with MAGNeT's config
+    fixups before the build: `transformer_lm` takes the codec's frame rate
+    and the dataset's segment duration, and `masking.span_len` is 3 when
+    the config has none."""
+    state, cfg = load_package(_package_file(
+        _resolve(name), ("state_dict.bin", "*.th")))
+    cfg["masking"] = {"span_len": 3, **(cfg.get("masking") or {})}
+    cfg["compression_model_framerate"] = compression_model_frame_rate
+    cfg["transformer_lm"] = {
+        **cfg["transformer_lm"],
+        "compression_model_framerate": compression_model_frame_rate,
+        "segment_duration": cfg["dataset"]["segment_duration"]}
+    return _load_lm(state, cfg, device), cfg
+
+
+def _load_lm(state: dict, cfg: dict, device) -> LMModel:
     model = builders.get_lm_model(cfg, device=device)
     # a melody conditioner's chroma filter bank and window are computed,
     # not loaded: drop them where an export carries them
@@ -138,4 +161,4 @@ def load_lm_model(name: str, device=None) -> tp.Tuple[LMModel, dict]:
             state = {k: v for k, v in state.items()
                      if not k.startswith(prefix)}
     model.load_state_dict(state, strict=True)
-    return model, cfg
+    return model

@@ -1,11 +1,12 @@
-"""MusicGen: text- and melody-conditioned music generation (counterpart of
-`audiocraft_tpu/models/musicgen.py`)."""
+"""MusicGen: text-, melody- and style-conditioned music generation
+(counterpart of `audiocraft_tpu/models/musicgen.py`)."""
 import typing as tp
 
 import torch
 
 from ..data.audio_utils import convert_audio
-from ..modules.conditioners import ChromaStemConditioner, WavCondition
+from ..modules.conditioners import (ChromaStemConditioner, StyleConditioner,
+                                    WavCondition, set_style_params)
 from .genmodel import BaseGenModel
 
 # upstream's names of the released checkpoints, resolved as local paths
@@ -38,8 +39,9 @@ class MusicGen(BaseGenModel):
 
     @staticmethod
     def get_pretrained(name: str = "debug", device=None) -> "MusicGen":
-        """The `debug` model, its interleaved-stereo twin `debug-stereo` or
-        its melody twin `debug-melody` (tiny, seeded random weights), or a
+        """The `debug` model, its interleaved-stereo twin `debug-stereo`,
+        its melody twin `debug-melody` or its style twin `debug-style`
+        (tiny, seeded random weights), or a
         checkpoint from local files:
         `name` (a released model's short name like 'small' maps to its
         upstream name first) is a directory or file of audiocraft export
@@ -47,12 +49,14 @@ class MusicGen(BaseGenModel):
         (`models/loaders.py`). Nothing is downloaded: a name with no local
         files raises FileNotFoundError."""
         from . import builders, loaders
-        if name in ("debug", "debug-stereo", "debug-melody"):
+        if name in ("debug", "debug-stereo", "debug-melody", "debug-style"):
             codec = builders.get_debug_compression_model(device=device)
             if name == "debug":
                 lm = builders.get_debug_lm_model(device=device)
             elif name == "debug-melody":
                 lm = builders.get_debug_melody_lm_model(device=device)
+            elif name == "debug-style":
+                lm = builders.get_debug_style_lm_model(device=device)
             else:
                 codec = builders.get_wrapped_compression_model(
                     codec, {"interleave_stereo_codebooks": {"use": True}})
@@ -95,8 +99,24 @@ class MusicGen(BaseGenModel):
             "two_step_cfg": two_step_cfg,
         }
 
+    def set_style_conditioner_params(self, eval_q: int = 3,
+                                     excerpt_length: float = 3.0,
+                                     ds_factor: tp.Optional[int] = None,
+                                     encodec_n_q: tp.Optional[int] = None):
+        """MusicGen-Style's knobs: the RVQ streams kept at eval (`eval_q`,
+        at most the conditioner's `n_q_out`), the style excerpt's seconds,
+        the downsampling of the style tokens, and the codec streams embedded
+        (`encodec_n_q`, which may only shrink)."""
+        cond = self.lm.condition_provider.conditioners["self_wav"] \
+            if "self_wav" in self.lm.condition_provider.conditioners else None
+        assert isinstance(cond, StyleConditioner), \
+            "Only use this function if your model is MusicGen-Style"
+        set_style_params(cond, eval_q=eval_q, excerpt_length=excerpt_length,
+                         ds_factor=ds_factor, encodec_n_q=encodec_n_q)
+
     def _prepare_tokens_and_attributes(self, descriptions, prompt):
-        """The base attributes, with the null melody on a melody model."""
+        """The base attributes, with the null melody (or style) on a model
+        with a waveform condition."""
         attributes, prompt_tokens = super()._prepare_tokens_and_attributes(
             descriptions, prompt)
         if "self_wav" in self.lm.condition_provider.conditioners:
@@ -109,11 +129,12 @@ class MusicGen(BaseGenModel):
     def generate_with_chroma(self, descriptions: tp.List[tp.Optional[str]],
                              melody_wavs: MelodyType, melody_sample_rate: int,
                              return_tokens: bool = False):
-        """Music following each text and the melody of each waveform: one
-        [C, T] per text (a list, None for no melody) or a batch [B, C, T]
-        (or [C, T] for one), at `melody_sample_rate`. Each melody is
-        converted to the model's rate in mono; the same melody conditions
-        every window past `max_duration` (as in the JAX package)."""
+        """Music following each text and the melody (on a melody model) or
+        the style (on a style model) of each waveform: one [C, T] per text
+        (a list, None for none) or a batch [B, C, T] (or [C, T] for one), at
+        `melody_sample_rate`. Each waveform is converted to the model's
+        rate in mono; the same one conditions every window past
+        `max_duration` (as in the JAX package)."""
         assert "self_wav" in self.lm.condition_provider.conditioners, \
             "This model doesn't support melody conditioning."
         if isinstance(melody_wavs, torch.Tensor):

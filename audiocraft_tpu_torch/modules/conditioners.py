@@ -317,6 +317,233 @@ class ChromaStemConditioner(WaveformConditioner):
         return self._masked(embeds, mask)
 
 
+class FeatureExtractor(WaveformConditioner):
+    """The style feature extractor: an excerpt of `length` seconds of each
+    waveform (zero-padded when shorter) is encoded by a frozen feature
+    model, and the features are embedded to `dim`: EnCodec codes
+    (`model_name='encodec'`) through one embedding table per stream,
+    summed; MERT hidden states (`'mert'`, after a resample to MERT's 24 kHz
+    mono) through a Linear `embed`.
+
+    The frozen model sits outside the module tree (it is not the
+    conditioner's weights, and it is not moved with it): a codec bound by
+    `bind_feat_extractor`, or for MERT the one bound there, else the local
+    checkpoint `modules.mert.get_mert` finds. The excerpt's start is drawn
+    from the conditioner's own CPU generator (`set_seed`), once per batch;
+    the JAX package draws it from an unseeded numpy RandomState, so the two
+    agree only for a waveform no longer than the excerpt or with
+    `use_middle_of_segment`. A row is valid when its length exceeds one
+    sample; invalid rows (the null condition) are multiplied by 0."""
+
+    def __init__(self, output_dim: int, model_name: str = "encodec",
+                 sample_rate: int = 32000, encodec_n_q: int = 4,
+                 length: float = 3.0, dim: int = 512,
+                 compute_mask: bool = True,
+                 use_middle_of_segment: bool = False,
+                 ds_rate_compression: int = 640, num_codebooks_lm: int = 4,
+                 feat_cardinality: int = 2048, mert_hidden: int = 768,
+                 seed: int = 0, device=None, dtype=None):
+        if model_name not in ("encodec", "mert"):
+            raise ValueError(f"unknown feature model {model_name!r}")
+        super().__init__(dim, output_dim, device, dtype)
+        self.model_name = model_name
+        self.sample_rate = sample_rate
+        self.encodec_n_q = encodec_n_q
+        self.encodec_n_q_used = encodec_n_q
+        self.length = length
+        self.dim = dim
+        self.compute_mask = compute_mask
+        self.use_middle_of_segment = use_middle_of_segment
+        self.ds_rate_compression = ds_rate_compression
+        self.num_codebooks_lm = num_codebooks_lm
+        if model_name == "mert":
+            self.embed = nn.Linear(mert_hidden, dim, device=device, dtype=dtype)
+        else:
+            self.embed = nn.ModuleList([
+                nn.Embedding(feat_cardinality, dim, device=device, dtype=dtype)
+                for _ in range(encodec_n_q)])
+        self.__dict__["feat_extractor"] = None
+        self.generator = torch.Generator().manual_seed(seed)
+
+    def set_seed(self, seed: int) -> None:
+        """Reseed the generator of the excerpts' starts."""
+        self.generator.manual_seed(seed)
+
+    def _excerpt(self, wav: torch.Tensor) -> torch.Tensor:
+        length = int(self.length * self.sample_rate)
+        T = wav.shape[-1]
+        if T <= length:
+            return torch.nn.functional.pad(wav, (0, length - T))
+        if self.use_middle_of_segment:
+            start = (T - length) // 2
+        else:
+            start = int(torch.randint(0, T - length, (1,),
+                                      generator=self.generator))
+        return wav[..., start:start + length]
+
+    def _mert(self):
+        if self.feat_extractor is not None:
+            return self.feat_extractor
+        from .mert import get_mert
+        mert = get_mert(self.output_proj.weight.device)
+        if mert is None:
+            raise FileNotFoundError(
+                "the style conditioner's 'mert' features need a local MERT "
+                "checkpoint: set $MERT_CHECKPOINT or put the "
+                "m-a-p/MERT-v1-95M snapshot under $AUDIOCRAFT_CACHE_DIR/mert, "
+                "or bind a model with bind_feat_extractor")
+        return mert
+
+    @torch.no_grad()
+    def tokenize(self, x: WavCondition) -> dict:
+        """The excerpt's features on the conditioner's device ({'codes':
+        [B, n_q, frames]} or {'mert': [B, frames, hidden]}) and
+        {'valid': [B, 1]}. An all-null batch (one sample) skips the model."""
+        device = self.output_proj.weight.device
+        valid = (torch.as_tensor(x.length).reshape(-1, 1) > 1).to(
+            device=device, dtype=torch.float32)
+        wav = x.wav.to(device).float()
+        B = wav.shape[0]
+        if self.model_name == "mert":
+            mert = self._mert()
+            if wav.shape[-1] <= 1:
+                return {"mert": torch.zeros(B, 1, mert.hidden, device=device),
+                        "valid": valid}
+            from ..data.audio_utils import convert_audio
+            sr = (x.sample_rate[0] if x.sample_rate and x.sample_rate[0]
+                  else self.sample_rate)
+            wav = convert_audio(self._excerpt(wav), sr, mert.sample_rate, 1)
+            param = next(mert.parameters())
+            feats = mert(wav[:, 0].to(param.device, param.dtype))
+            return {"mert": feats.float().to(device), "valid": valid}
+        codec = self.feat_extractor
+        assert codec is not None, \
+            "bind a codec first: bind_feat_extractor(conditioner, codec)"
+        if wav.shape[-1] <= 1:
+            return {"codes": torch.zeros(B, self.encodec_n_q, 1,
+                                         dtype=torch.long, device=device),
+                    "valid": valid}
+        codes, _ = codec.encode(self._excerpt(wav), device=device)
+        return {"codes": codes[:, :self.encodec_n_q_used], "valid": valid}
+
+    def _feat_embeds(self, tokenized: dict) -> torch.Tensor:
+        """[B, frames, dim]; codes use the first n_q stream tables."""
+        if "mert" in tokenized:
+            return self.embed(tokenized["mert"].to(self.embed.weight.dtype))
+        codes = tokenized["codes"]
+        return sum(self.embed[k](codes[:, k]) for k in range(codes.shape[1]))
+
+    @staticmethod
+    def _valid(embeds: torch.Tensor, tokenized: dict) -> ConditionType:
+        valid = tokenized["valid"].to(embeds.dtype)              # [B, 1]
+        mask = valid.expand(embeds.shape[:2])
+        return embeds * valid[..., None], mask
+
+    def forward(self, tokenized: dict) -> ConditionType:
+        return self._valid(self._feat_embeds(tokenized), tokenized)
+
+
+class StyleConditioner(FeatureExtractor):
+    """MusicGen-Style's conditioner: feature extractor -> non-causal
+    transformer (`transformer_scale`) -> affine-free batch norm with its
+    running statistics -> RVQ bottleneck through its first `eval_q` streams
+    -> every `ds_factor`-th step -> output projection. Weights keep
+    upstream's names (`embed`, `transformer.layers.{i}...`,
+    `batch_norm.running_mean`, `rvq.vq.layers.{q}._codebook.embed`,
+    `output_proj`). Inference only: the training forward (the batch norm's
+    update, the RVQ's EMA and dead-code updates) is not ported (ROADMAP,
+    slice E)."""
+    TR_ARGS = {
+        "xsmall": {"d_model": 256, "num_heads": 8, "num_layers": 4},
+        "large": {"d_model": 1024, "num_heads": 16, "num_layers": 24},
+        "default": {"d_model": 512, "num_heads": 8, "num_layers": 8},
+        "none": {"d_model": 512},
+    }
+
+    def __init__(self, output_dim: int, transformer_scale: str = "default",
+                 ds_factor: int = 15, encodec_n_q: int = 4, n_q_out: int = 6,
+                 eval_q: int = 3, q_dropout: bool = True, bins: int = 1024,
+                 varying_lengths: tp.Sequence[float] = (1.5, 4.5),
+                 batch_norm: bool = True,
+                 rvq_threshold_ema_dead_code: float = 0.1,
+                 dim: tp.Optional[int] = None, device=None, dtype=None,
+                 **kwargs):
+        from ..modules.transformer import StreamingTransformer
+        from ..quantization import ResidualVectorQuantizer
+        tr_args = dict(self.TR_ARGS[transformer_scale])
+        d_model = tr_args["d_model"]
+        if dim is not None and dim != d_model:
+            raise ValueError(f"the '{transformer_scale}' style transformer is "
+                             f"{d_model} wide, got dim={dim}")
+        super().__init__(output_dim, dim=d_model, encodec_n_q=encodec_n_q,
+                         device=device, dtype=dtype, **kwargs)
+        self.ds_factor = ds_factor
+        self.n_q_out = n_q_out
+        self.eval_q = eval_q
+        self.transformer = None
+        if transformer_scale != "none":
+            self.transformer = StreamingTransformer(
+                dim_feedforward=4 * d_model, activation="gelu",
+                norm_first=True, causal=False, bias_ff=False, bias_attn=False,
+                device=device, dtype=dtype, **tr_args)
+        self.batch_norm = (nn.BatchNorm1d(d_model, affine=False, device=device)
+                           if batch_norm else None)
+        self.rvq = None
+        if n_q_out > 0:
+            self.rvq = ResidualVectorQuantizer(d_model, n_q_out, bins,
+                                               device=device)
+            with torch.no_grad():   # kaiming-uniform codebooks, as at init
+                bound = (6.0 / d_model) ** 0.5
+                for layer in self.rvq.vq.layers:
+                    layer._codebook.embed.uniform_(-bound, bound)
+                    layer._codebook.embed_avg.copy_(layer._codebook.embed)
+
+    def forward(self, tokenized: dict) -> ConditionType:
+        if self.training:
+            raise NotImplementedError(
+                "the style conditioner's training forward (batch-norm "
+                "update, RVQ EMA and dead-code training) is not ported "
+                "(ROADMAP, slice E)")
+        z = self._feat_embeds(tokenized)                         # [B, T, dim]
+        if self.transformer is not None:
+            z = self.transformer(z)
+        if self.batch_norm is not None:
+            mean = self.batch_norm.running_mean.to(z.dtype)
+            std = torch.sqrt(self.batch_norm.running_var + 1e-5).to(z.dtype)
+            z = (z - mean) / std
+        if self.rvq is not None:
+            self.rvq.set_num_codebooks(self.eval_q)
+            codes = self.rvq.encode(z.transpose(1, 2))
+            z = self.rvq.decode(codes, dtype=torch.float32).transpose(1, 2)
+        z = z[:, ::self.ds_factor].to(self.output_proj.weight.dtype)
+        return self._valid(self.output_proj(z), tokenized)
+
+
+def set_style_params(conditioner: StyleConditioner, *, eval_q: int = 3,
+                     excerpt_length: float = 3.0,
+                     ds_factor: tp.Optional[int] = None,
+                     encodec_n_q: tp.Optional[int] = None) -> None:
+    """The style bottleneck's knobs after construction: the RVQ streams
+    used at eval (`eval_q <= n_q_out`), the excerpt's seconds, the
+    downsampling, and the codec streams embedded (`encodec_n_q` may only
+    shrink: the first tables are used)."""
+    assert eval_q <= conditioner.n_q_out
+    assert encodec_n_q is None or encodec_n_q <= conditioner.encodec_n_q, \
+        "encodec_n_q can only be reduced after init"
+    conditioner.eval_q = eval_q
+    conditioner.length = excerpt_length
+    if ds_factor is not None:
+        conditioner.ds_factor = ds_factor
+    if encodec_n_q is not None:
+        conditioner.encodec_n_q_used = encodec_n_q
+
+
+def bind_feat_extractor(conditioner: FeatureExtractor, model) -> None:
+    """Set the frozen feature model of `conditioner`: a codec for
+    'encodec', a `MERTModel` for 'mert'."""
+    conditioner.__dict__["feat_extractor"] = model
+
+
 def dropout_condition(sample: ConditioningAttributes, condition_type: str,
                       condition: str) -> ConditioningAttributes:
     """Null one attribute of `sample` in place: a text becomes None, a

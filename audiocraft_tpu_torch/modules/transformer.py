@@ -237,12 +237,15 @@ class StreamingMultiheadAttention(nn.Module):
                 cache: tp.Optional[KVCache] = None,
                 cross_kv: tp.Optional[tp.Tuple[torch.Tensor, torch.Tensor]] = None,
                 positions: tp.Optional[torch.Tensor] = None,
+                attn_bias: tp.Optional[torch.Tensor] = None,
                 generator: tp.Optional[torch.Generator] = None
                 ) -> torch.Tensor:
         """query [B, T, E] -> [B, T, E]. Self-attention writes `cache` in
         place at `positions` (an int64 tensor [T]; default: the cache's
-        next T slots) and advances its index; cross-attention attends
-        `cross_kv` (or projects `key`)."""
+        next T slots) and advances its index, and adds `attn_bias` (f32,
+        broadcasting against [B, H, T, Tk]) to its logits: a biased
+        self-attention takes the plain attention, as in the JAX package;
+        cross-attention attends `cross_kv` (or projects `key`)."""
         B, T, E = query.shape
         dtype = self.in_proj_weight.dtype
         query = query.to(dtype)
@@ -275,6 +278,7 @@ class StreamingMultiheadAttention(nn.Module):
                 q = rope_rotate(self.rope, q, pos)
                 k = rope_rotate(self.rope, k, pos, invert_decay=True)
             if (self.causal and self.past_context is None
+                    and attn_bias is None
                     and not self.attention_as_float32
                     and attn["dropout_rate"] <= 0.0
                     and flash_causal_eligible(T, T, E // self.num_heads)):
@@ -295,7 +299,7 @@ class StreamingMultiheadAttention(nn.Module):
                 q = rope_rotate(self.rope, q, positions)
                 k = rope_rotate(self.rope, k, positions, invert_decay=True)
             cache.write(k, v, positions)
-            if T == 1 and self.kv_repeat == 1:
+            if T == 1 and self.kv_repeat == 1 and attn_bias is None:
                 k_c, v_c = cache.k, cache.v
                 if k_c.dtype not in (torch.int8, dtype):
                     k_c, v_c = k_c.to(dtype), v_c.to(dtype)
@@ -310,6 +314,8 @@ class StreamingMultiheadAttention(nn.Module):
             bias = make_causal_bias(positions, k_pos, self.past_context,
                                     k_valid=k_pos < cache.index)
             k_all, v_all = cache.read(dtype)
+        if attn_bias is not None:
+            bias = attn_bias if bias is None else bias + attn_bias
         x = dot_product_attention(q, repeat_kv(k_all, self.kv_repeat),
                                   repeat_kv(v_all, self.kv_repeat), bias=bias,
                                   **attn)
@@ -370,8 +376,10 @@ class StreamingTransformerLayer(nn.Module):
                 cross_attention_src: tp.Optional[torch.Tensor] = None,
                 cache: tp.Optional[LayerCache] = None,
                 positions: tp.Optional[torch.Tensor] = None,
+                attn_bias: tp.Optional[torch.Tensor] = None,
                 dropout_seed: tp.Optional[int] = None) -> torch.Tensor:
         """`positions` [T] are the cache slots of x's steps (with `cache`);
+        `attn_bias` is added to the self-attention's logits;
         `dropout_seed` seeds this layer's dropout masks in training mode
         (the default generator draws them when it is None)."""
         generator = None
@@ -397,7 +405,7 @@ class StreamingTransformerLayer(nn.Module):
         def self_attn(h):
             return self.layer_scale_1(drop(self.self_attn(
                 h, cache=self_cache, positions=positions,
-                generator=generator)))
+                attn_bias=attn_bias, generator=generator)))
 
         def cross(h):
             return self.layer_scale_cross(drop(self.cross_attention(
@@ -496,9 +504,11 @@ class StreamingTransformer(nn.Module):
     def forward(self, x: torch.Tensor, *,
                 cross_attention_src: tp.Optional[torch.Tensor] = None,
                 caches: tp.Optional[tp.List[LayerCache]] = None,
+                attn_bias: tp.Optional[torch.Tensor] = None,
                 dropout_seed: tp.Optional[int] = None) -> torch.Tensor:
         """Layer i seeds its dropout masks with `dropout_seed + i`. With
-        `caches`, x's steps take the cache slots from its device index."""
+        `caches`, x's steps take the cache slots from its device index.
+        `attn_bias` reaches every self-attention."""
         B, T, C = x.shape
         x = x.to(self.layers[0].norm1.weight.dtype)
         positions = None
@@ -518,17 +528,19 @@ class StreamingTransformer(nn.Module):
             seed = None if dropout_seed is None else dropout_seed + i
             if remat:
                 x = torch.utils.checkpoint.checkpoint(
-                    self._layer_call, layer, x, cross_attention_src, seed,
-                    use_reentrant=False)
+                    self._layer_call, layer, x, cross_attention_src,
+                    attn_bias, seed, use_reentrant=False)
             else:
                 x = layer(x, cross_attention_src=cross_attention_src,
                           cache=caches[i] if caches is not None else None,
-                          positions=positions, dropout_seed=seed)
+                          positions=positions, attn_bias=attn_bias,
+                          dropout_seed=seed)
         return x
 
     @staticmethod
     def _layer_call(layer: StreamingTransformerLayer, x: torch.Tensor,
                     cross_attention_src: tp.Optional[torch.Tensor],
+                    attn_bias: tp.Optional[torch.Tensor],
                     seed: tp.Optional[int]) -> torch.Tensor:
         return layer(x, cross_attention_src=cross_attention_src,
-                     dropout_seed=seed)
+                     attn_bias=attn_bias, dropout_seed=seed)

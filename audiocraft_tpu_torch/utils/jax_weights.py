@@ -14,6 +14,10 @@ and the qk layer norms keep their names (`layer_scale_1.scale`,
 `[kh, kw, Cin, Cout]` -> `[Cout, Cin, kh, kw]`, transposed convs flipped
 back along their kernel axis, DConv layers `layers_{j}_conv1/norm1/conv2/
 norm2/scale` -> `layers.{j}.0/1/3/4/6`, flax `layers_{i}` -> `layers.{i}`.
+MERT (`load_mert`): the JAX names -> Hugging Face `HubertModel`'s. The style
+conditioner takes its `params`, and the two collections flax keeps outside
+them: `batch_stats` (`bn_mean`, `bn_var` -> `batch_norm.running_mean`,
+`running_var`) and `quantizer` (`style_rvq` -> `rvq.vq.layers.{q}`).
 """
 import typing as tp
 
@@ -23,7 +27,7 @@ import torch.nn as nn
 
 from ..models.encodec import InterleaveStereoCompressionModel
 from ..modules.conditioners import (ChromaStemConditioner, LUTConditioner,
-                                    T5Conditioner)
+                                    StyleConditioner, T5Conditioner)
 from ..modules.conv import StreamableConv1d, StreamableConvTranspose1d
 from ..modules.lstm import StreamableLSTM
 from ..modules.seanet import SEANetResnetBlock
@@ -122,11 +126,92 @@ def load_mha(mha: nn.Module, params: Tree) -> None:
     _load(mha, out)
 
 
-def lm_state(lm: nn.Module, params: Tree) -> dict:
-    """JAX `LMModel` params -> {port parameter name: numpy array}. The map is
-    linear (transposes and unstacking), so it carries a JAX gradient tree
-    onto the port's parameter names as well."""
+def _codebooks(books, prefix: str, n_q: int, out: dict) -> None:
+    """Stacked JAX RVQ codebooks [n_q, ...] -> one EMA codebook per level."""
+    for q in range(n_q):
+        rp = f"{prefix}{q}._codebook."
+        out[rp + "embed"] = books.embed[q]
+        out[rp + "embed_avg"] = books.embed_avg[q]
+        out[rp + "cluster_size"] = books.cluster_size[q]
+        out[rp + "inited"] = np.asarray(books.inited[q], np.float32).reshape(1)
+
+
+def style_state(cond: StyleConditioner, params: Tree,
+                batch_stats: tp.Optional[Tree] = None,
+                quantizer: tp.Optional[Tree] = None,
+                prefix: str = "") -> dict:
+    """A JAX `StyleConditioner`'s params, batch statistics and RVQ state ->
+    the port's keys (without `output_proj`, which `lm_state` adds)."""
+    out: dict = {}
+    if isinstance(cond.embed, nn.Linear):
+        _dense(params["embed"], prefix + "embed.", out)
+    else:
+        for k in range(len(cond.embed)):
+            out[f"{prefix}embed.{k}.weight"] = params["embed"][k]
+    if cond.transformer is not None:
+        out.update(transformer_state(params["transformer"],
+                                     len(cond.transformer.layers),
+                                     prefix + "transformer."))
+    if cond.batch_norm is not None:
+        out[prefix + "batch_norm.running_mean"] = batch_stats["bn_mean"]
+        out[prefix + "batch_norm.running_var"] = batch_stats["bn_var"]
+        out[prefix + "batch_norm.num_batches_tracked"] = np.zeros((), np.int64)
+    if cond.rvq is not None:
+        _codebooks(quantizer["style_rvq"].codebooks, prefix + "rvq.vq.layers.",
+                   len(cond.rvq.vq.layers), out)
+    return out
+
+
+def load_style(cond: StyleConditioner, variables: Tree) -> None:
+    """A JAX `StyleConditioner`'s variables ({'params', 'batch_stats',
+    'quantizer'}) -> a port `StyleConditioner`."""
+    out = style_state(cond, variables["params"],
+                      variables.get("batch_stats"), variables.get("quantizer"))
+    _dense(variables["params"]["output_proj"], "output_proj.", out)
+    _load(cond, out)
+
+
+def mert_state(params: Tree) -> dict:
+    """JAX `MERTModel` params -> the port's (Hugging Face Hubert) keys."""
     p = _params(params)
+    out: dict = {}
+    fe = p["feature_extractor"]
+    i = 0
+    while f"conv_{i}" in fe:
+        _conv_nd(fe[f"conv_{i}"], f"feature_extractor.conv_layers.{i}.conv.",
+                 out)
+        i += 1
+    _norm(fe["group_norm"], "feature_extractor.conv_layers.0.layer_norm.", out)
+    _norm(p["fp_layer_norm"], "feature_projection.layer_norm.", out)
+    _dense(p["fp_projection"], "feature_projection.projection.", out)
+    _conv_nd(p["pos_conv_embed"]["conv"], "encoder.pos_conv_embed.conv.", out)
+    _norm(p["encoder_layer_norm"], "encoder.layer_norm.", out)
+    i = 0
+    while f"layers_{i}" in p:
+        lp, rp = p[f"layers_{i}"], f"encoder.layers.{i}."
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            _dense(lp[name], f"{rp}attention.{name}.", out)
+        for name in ("intermediate_dense", "output_dense"):
+            _dense(lp[name], f"{rp}feed_forward.{name}.", out)
+        _norm(lp["layer_norm"], rp + "layer_norm.", out)
+        _norm(lp["final_layer_norm"], rp + "final_layer_norm.", out)
+        i += 1
+    return out
+
+
+def load_mert(model: nn.Module, params: Tree) -> None:
+    """JAX `MERTModel` params -> a port `MERTModel`."""
+    _load(model, mert_state(params))
+
+
+def lm_state(lm: nn.Module, params: Tree) -> dict:
+    """JAX `LMModel` variables -> {port parameter or buffer name: numpy
+    array}. The map of `params` is linear (transposes and unstacking), so
+    it carries a JAX gradient tree onto the port's parameter names as well;
+    a style conditioner also reads the `batch_stats` and `quantizer`
+    collections."""
+    p = _params(params)
+    collections = params if "params" in params else {}
     out: dict = {}
     for k in range(lm.n_q):
         out[f"emb.{k}.weight"] = p["emb"][k]
@@ -146,6 +231,11 @@ def lm_state(lm: nn.Module, params: Tree) -> dict:
         elif isinstance(cond, T5Conditioner):
             out.update(t5_state(cp["t5"], len(cond.t5.encoder.block),
                                 prefix + "t5."))
+        elif isinstance(cond, StyleConditioner):
+            key = f"conditioners_{name}"
+            out.update(style_state(
+                cond, cp, collections.get("batch_stats", {}).get(key),
+                collections.get("quantizer", {}).get(key), prefix))
         elif not isinstance(cond, ChromaStemConditioner):  # output_proj only
             raise TypeError(f"no weight rule for {type(cond).__name__}")
     return out
@@ -223,13 +313,8 @@ def load_encodec(model: nn.Module, variables: Tree) -> None:
     out: dict = {}
     _seanet(p["encoder"], model.encoder.model, "encoder.", False, out)
     _seanet(p["decoder"], model.decoder.model, "decoder.", True, out)
-    books = variables["quantizer"].codebooks
-    for q in range(len(model.quantizer.vq.layers)):
-        rp = f"quantizer.vq.layers.{q}._codebook."
-        out[rp + "embed"] = books.embed[q]
-        out[rp + "embed_avg"] = books.embed_avg[q]
-        out[rp + "cluster_size"] = books.cluster_size[q]
-        out[rp + "inited"] = np.asarray(books.inited[q], np.float32).reshape(1)
+    _codebooks(variables["quantizer"].codebooks, "quantizer.vq.layers.",
+               len(model.quantizer.vq.layers), out)
     _load(model, out)
 
 

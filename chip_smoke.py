@@ -72,7 +72,27 @@ Phases, each printing one JSON line:
   audiogen full-width AudioGen-medium (medium LM, T5-large by
            cross-attention, EnCodec 16 kHz; seeded random weights, bf16): 2
            texts x 10 s, then 12 s through the sliding window, with the same
-           checks, K1 first held and timed at H 24 over its 254 slots.
+           checks, K1 first held and timed at H 24 over its 254 slots;
+  style    full-width MusicGen-Style (medium LM; the style tokens of a 3 s
+           excerpt through a full-width MERT, f32, and T5-base prepended;
+           EnCodec 32 kHz; seeded random weights, bf16): 2 texts x 10 s
+           against 2 clips of 10 s of 32 kHz music, top-k 250, CFG 3,
+           under batched CFG, double CFG (beta 5) and with eval_q 1, after
+           K1 is held against its plain version at H 24 over the request's
+           rows (4 and 6) and capacity (504 pattern steps plus 15 style and
+           the text tokens) and timed there; the same checks as melody,
+           graph against eager steps under batched and double CFG, and the
+           request split into resample + MERT, the style conditioner, T5,
+           prefill, replays and codec decode;
+  magnet   full-width MAGNeT-small (24 layers of 1024, T5-base by
+           cross-attention, EnCodec 32 kHz; seeded random weights, bf16): 2
+           texts x 10 s with the default generation parameters; checks
+           [2, 4, 498] codes below the card's size (no mask token left),
+           finite audio, one CUDA graph per stage and that K1 did not run,
+           and that greedy tokens of the graphs equal the eager steps';
+           prints the request, each stage's device time, the ms per forward
+           (B 4 x 498 steps) with its kernels by device time, and the peak
+           memory.
 Then the `{"kernels": [...]}` summary, and last `{"ok": true, "device": ...}`.
 Any failed check raises, so the script exits non-zero without the last line.
 It needs no network and imports nothing of JAX.
@@ -1376,6 +1396,291 @@ def phase_audiogen(torch, card):
     return launches_total, k1_worst, timings
 
 
+STYLE_SECONDS = 10          # of 32 kHz music per style clip, and of music
+
+
+def phase_style(torch, card):
+    """Full-width MusicGen-Style (medium LM, the style tokens of a 3 s
+    excerpt through a full-width MERT and T5-base both prepended, EnCodec
+    32 kHz; seeded random weights, bf16; MERT f32): 2 texts x 10 s against
+    2 clips of 10 s under batched and double CFG and with eval_q 1, after
+    K1 is held against its plain version at these requests' heads, rows
+    and capacities."""
+    from audiocraft_tpu_torch.models import MusicGen, builders
+    from audiocraft_tpu_torch.models import lm as lm_module
+    from audiocraft_tpu_torch.modules.conditioners import (
+        ClassifierFreeGuidanceDropout, WavCondition)
+    from audiocraft_tpu_torch.ops.decode_attention import decode_attention
+    t0 = time.perf_counter()
+    lm = builders.get_musicgen_style_lm(device="cuda", dtype=torch.bfloat16,
+                                        seed=0)
+    codec = builders.get_encodec_32khz(device="cuda", dtype=torch.bfloat16,
+                                       seed=1)
+    mg = MusicGen("musicgen-style (random weights)", codec, lm, device="cuda")
+    style = lm.condition_provider.conditioners["self_wav"]
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    frames = STYLE_SECONDS * TOKENS_PER_SECOND
+    hop = int(mg.sample_rate // mg.frame_rate)
+    clips = _seeded_music(torch, 2, STYLE_SECONDS)          # [2, 1, T]
+    eval_q, excerpt = style.eval_q, style.length      # 3, 3 s
+    modes = {"batched": ({}, eval_q),
+             "double": ({"cfg_coef_beta": 5.0}, eval_q), "eval_q1": ({}, 1)}
+
+    attrs = mg._prepare_tokens_and_attributes(TEXTS, None)[0]
+    for a, wav in zip(attrs, clips):
+        a.wav["self_wav"] = WavCondition(wav[None], torch.tensor(
+            [wav.shape[-1]]), [32000], [None])
+    shapes = {mode: _capacities(lm, attrs, frames, False,
+                                kw.get("cfg_coef_beta"))
+              for mode, (kw, _) in modes.items()}
+    k1_worst = {}
+    for B, S in sorted({shape for v in shapes.values() for shape in v}):
+        cases = tuple((n, None) for n in (max(1, S // 8), S // 2, S))
+        for kind, err in check_decode_attention(
+                torch, (B,), S, "style", seed=11, H=lm.num_heads,
+                kinds=("bfloat16",), cases=cases).items():
+            k1_worst[kind] = max(k1_worst.get(kind, 0.0), err)
+    B4, S_style = shapes["batched"][0]
+    B6 = shapes["double"][0][0]
+    timings = time_decode_attention(
+        torch, S_style, lm.num_heads,
+        [(B4, "bfloat16", n) for n in (S_style // 8, S_style // 2, S_style)]
+        + [(B6, "bfloat16", S_style)],
+        torch.Generator("cuda").manual_seed(12), path="style")
+
+    stats = lm_module.decode_graph_stats
+    runs, launches_total = {}, 0
+    torch.cuda.reset_peak_memory_stats()
+    for mode, (kw, q) in modes.items():
+        mg.set_style_conditioner_params(eval_q=q, excerpt_length=excerpt)
+        mg.set_generation_params(duration=STYLE_SECONDS, **kw)
+        mg.set_seed(0)
+        captures = stats.captures
+        decode_attention.launches = 0
+        (wav, tokens), seconds = _timed(torch, lambda: mg.generate_with_chroma(
+            TEXTS, clips, 32000, return_tokens=True))
+        launches = decode_attention.launches
+        launches_total += launches
+        expected = _k1_launches(lm, frames)
+        _check_generation(torch, f"style {mode}", wav, tokens,
+                          (2, 1, frames * hop), 4, frames, launches, expected)
+        if stats.captures - captures != 1:
+            raise AssertionError(f"style {mode}: {stats.captures - captures} "
+                                 f"decode graphs captured for one generate")
+        runs[mode] = dict(request_s=seconds, eval_q=q,
+                          audio_s_per_s=len(TEXTS) * STYLE_SECONDS / seconds,
+                          rows=shapes[mode][0][0],
+                          capacity=shapes[mode][0][1],
+                          decode_attention_launches=launches,
+                          expected_launches=expected,
+                          replay_ms_per_step=stats.last_replay_ms_per_step(),
+                          capture_s=stats.last_capture_s)
+    peak = torch.cuda.max_memory_allocated()
+    mg.set_style_conditioner_params(eval_q=eval_q, excerpt_length=excerpt)
+
+    # where a batched request's time goes, piece by piece
+    mg.set_generation_params(duration=STYLE_SECONDS)
+    rows = attrs + ClassifierFreeGuidanceDropout(p=1.0)(attrs)
+    provider = lm.condition_provider
+    t5 = provider.conditioners["description"]
+    with torch.no_grad():
+        wavs = provider._collate_wavs(rows)["self_wav"]
+        style_tokens, mert_s = _timed(torch, lambda: style.tokenize(wavs))
+        _, style_s = _timed(torch, lambda: style(style_tokens))
+        text = t5.tokenize([a.text["description"] for a in rows])
+        _, t5_s = _timed(torch, lambda: t5(text))
+        conditions = lm.compute_conditions(provider.tokenize(rows))
+        prefix = lm.fuser.prepend_length(conditions)
+        caches = lm.transformer.init_cache(B4, S_style, torch.bfloat16,
+                                           "cuda")
+        first = torch.full((B4, 4, 1), lm.special_token_id, device="cuda")
+        _, prefill_s = _timed(torch, lambda: lm(first, conditions,
+                                                caches=caches))
+    del caches
+    codes, generate_s = _timed(torch, lambda: lm.generate(
+        condition_tensors=conditions, num_samples=2, max_gen_len=frames,
+        gen=lm_module.GenParams(**mg.generation_params),
+        generator=mg.generator, device="cuda"))
+    replay_ms = stats.last_replay_ms_per_step()
+    _, decode_s = _timed(torch, lambda: mg.generate_audio(codes))
+    breakdown = dict(
+        resample_mert_s=mert_s,
+        resample_mert_note="3 s excerpts of 4 rows to 24 kHz mono, MERT "
+                           "(f32) over them",
+        style_conditioner_s=style_s,
+        style_conditioner_note="embed, 8-layer transformer, batch norm, RVQ "
+                               "at eval_q 3, every 15th step, projection",
+        t5_s=t5_s, t5_note="T5-base over 4 rows and the projection",
+        style_tokens=int(conditions["self_wav"][0].shape[1]),
+        text_tokens=int(conditions["description"][0].shape[1]),
+        prepend_length=prefix, prefill_s=prefill_s,
+        prefill_note=f"one forward of {prefix + 1} steps over {B4} rows",
+        generate_s=generate_s, replay_ms_per_step=replay_ms,
+        decode_steps=stats.last_replays[2],
+        replays_s=replay_ms * stats.last_replays[2] / 1e3,
+        codec_decode_s=decode_s)
+
+    def greedy_second():
+        mg.set_seed(0)      # the same excerpts for graph and eager steps
+        return mg.generate_with_chroma(TEXTS, clips, 32000,
+                                       return_tokens=True)[1]
+
+    checked = []
+    for kw in ({}, {"cfg_coef_beta": 5.0}):
+        mg.set_generation_params(duration=1, use_sampling=False, **kw)
+        checked.append(_graph_vs_eager(torch, greedy_second))
+    emit("style", model="musicgen-style (medium LM: d 1536, 24 heads, 48 "
+         "layers, 4 x 2048 codes; style tokens (MERT of HuBERT-base width, "
+         "f32; transformer 8 x 512; RVQ 6 x 1024, eval_q 3; every 15th "
+         "step) and T5-base prepended; EnCodec 32 kHz; seeded random "
+         "weights, bf16)", card=card, setup_s=setup_s, texts=len(TEXTS),
+         audio_s_per_text=STYLE_SECONDS,
+         style_audio=f"{STYLE_SECONDS} s of seeded harmonic audio per text, "
+                     "32 kHz mono, 3 s excerpt",
+         runs=runs, breakdown=breakdown, max_memory_allocated=peak,
+         graph_vs_eager=dict(seconds=1, greedy=True,
+                             modes=["batched", "double"], shapes=checked,
+                             tokens_equal=True))
+    del mg, lm, codec, style
+    torch.cuda.empty_cache()
+    return launches_total, k1_worst, timings
+
+
+MAGNET_SECONDS = 10
+
+
+def phase_magnet(torch, card):
+    """Full-width MAGNeT-small (24 layers of 1024, T5-base by
+    cross-attention, EnCodec 32 kHz; seeded random weights, bf16): 2 texts
+    x 10 s with the default generation parameters (top-p 0.9 at
+    temperature 3, CFG 10 -> 1, [20, 10, 10, 10] steps, non-overlapping
+    spans of 3)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from audiocraft_tpu_torch.models import MAGNeT, builders
+    from audiocraft_tpu_torch.models import lm as lm_module
+    from audiocraft_tpu_torch.modules.conditioners import ConditioningAttributes
+    from audiocraft_tpu_torch.ops.decode_attention import decode_attention
+    from audiocraft_tpu_torch.utils.timing import time_ms
+    t0 = time.perf_counter()
+    lm = builders.get_magnet_small_lm(device="cuda", dtype=torch.bfloat16,
+                                      seed=0)
+    codec = builders.get_encodec_32khz(device="cuda", dtype=torch.bfloat16,
+                                       seed=1)
+    m = MAGNeT("magnet-small (random weights)", codec, lm, max_duration=10,
+               device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    events, graphs = [], []
+
+    def stage_done(done, total):
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        events.append(event)
+        graphs.append((stats.last_capture_s, stats.last_replays))
+
+    m.set_custom_progress_callback(stage_done)
+    m.set_generation_params(duration=MAGNET_SECONDS)   # the defaults else
+    frames = lm.span_len * (int(MAGNET_SECONDS * m.frame_rate) // lm.span_len)
+    hop = int(m.sample_rate // m.frame_rate)
+    stats = lm_module.decode_graph_stats
+    generation = dict(m.generation_params)
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    for _ in range(3):      # the first builds cuBLAS handles and plans
+        m.set_seed(0)
+        events.clear()
+        graphs.clear()
+        captures = stats.captures
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        decode_attention.launches = 0
+        (wav, tokens), request_s = _timed(torch, lambda: m.generate(
+            TEXTS, return_tokens=True))
+        marks = [start] + events
+        runs.append(dict(request_s=request_s,
+                         stage_ms=[a.elapsed_time(b)
+                                   for a, b in zip(marks, marks[1:])],
+                         capture_s=[c for c, _ in graphs],
+                         replay_ms_per_step=[b.elapsed_time(e) / n
+                                             for _, (b, e, n) in graphs],
+                         graphs_captured=stats.captures - captures))
+        if stats.captures - captures != len(events):
+            raise AssertionError(f"magnet: {stats.captures - captures} "
+                                 f"graphs for {len(events)} stages")
+    peak = torch.cuda.max_memory_allocated()
+    if tuple(tokens.shape) != (2, 4, frames):
+        raise AssertionError(f"magnet: codes shape {tuple(tokens.shape)}, "
+                             f"expected (2, 4, {frames})")
+    if not (int(tokens.min()) >= 0 and int(tokens.max()) < lm.card):
+        raise AssertionError("magnet: codes outside [0, card): a mask token "
+                             "is left")
+    if tuple(wav.shape) != (2, 1, frames * hop) or not bool(
+            torch.isfinite(wav).all()):
+        raise AssertionError(f"magnet: waveform {tuple(wav.shape)} or "
+                             f"non-finite")
+    if decode_attention.launches:
+        raise AssertionError("magnet: the decode-attention kernel ran")
+    # greedy: the stages' graphs give the eager steps' tokens; both timed
+    m.set_generation_params(duration=MAGNET_SECONDS, use_sampling=False)
+    greedy, replay = {}, lm_module._replay_decode_steps
+    for mode in ("graph", "eager"):
+        if mode == "eager":
+            lm_module._replay_decode_steps = _eager_decode_steps
+        try:
+            greedy[mode] = _timed(torch, lambda: m.generate(
+                TEXTS, return_tokens=True)[1])
+        finally:
+            lm_module._replay_decode_steps = replay
+    if not torch.equal(greedy["graph"][0], greedy["eager"][0]):
+        raise AssertionError("magnet: greedy tokens of the stage graphs and "
+                             "of the eager steps differ")
+
+    # one CFG forward (B 4 x 498 steps) of a stage past the first, timed
+    # and profiled by kernel
+    attrs = [ConditioningAttributes(text={"description": t}) for t in TEXTS]
+    conditions = lm.prepare_cfg_conditions(attrs)
+    seq = torch.full((4, 4, frames), lm.special_token_id, device="cuda")
+    bias = lm.stage_attn_bias(1, frames, "cuda")
+    with torch.no_grad():
+        forward_ms = {
+            "stage_0": time_ms(lambda: lm(seq, conditions), n=20),
+            "stage_1_to_3": time_ms(lambda: lm(seq, conditions,
+                                               attn_bias=bias), n=20)}
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                lm(seq, conditions, attn_bias=bias)
+            torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / 5
+    top = sorted(kernels, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:8]
+    n_params = sum(p.numel() for n, p in lm.named_parameters()
+                   if not n.startswith("condition_provider"))
+    emit("magnet", model="magnet-small (d 1024, 16 heads, 24 layers, 4 x "
+         "2048 codes, parallel pattern, non-causal, T5-base by "
+         "cross-attention, spans of 3, context +-5 after stage 0; EnCodec "
+         "32 kHz; seeded random weights, bf16)", card=card, setup_s=setup_s,
+         texts=len(TEXTS), audio_s_per_text=MAGNET_SECONDS,
+         generation=generation, codes_shape=list(tokens.shape),
+         runs=runs, forwards=sum(m.generation_params["decoding_steps"]),
+         forward_ms=forward_ms, forward_rows=4, forward_steps=frames,
+         forward_tflop=2 * n_params * 4 * frames / 1e12,
+         profiled_device_ms_per_forward=device_ms,
+         top_kernels=[{"name": e.key[:80],
+                       "ms_per_forward": e.self_device_time_total / 1e3 / 5,
+                       "calls_per_forward": e.count / 5} for e in top],
+         max_memory_allocated=peak, decode_attention_launches=0,
+         graph_vs_eager=dict(greedy=True,
+                             shape=list(greedy["graph"][0].shape),
+                             tokens_equal=True, graph_s=greedy["graph"][1],
+                             eager_s=greedy["eager"][1]))
+    del m, lm, codec
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     root = Path(__file__).resolve().parent
     if not (root / "audiocraft_tpu_torch" / "csrc").is_dir():
@@ -1404,12 +1709,15 @@ def main() -> int:
     melody_launches, melody_worst, melody_timings = phase_melody(torch, card)
     audiogen_launches, audiogen_worst, audiogen_timings = phase_audiogen(
         torch, card)
-    launches += melody_launches + audiogen_launches
-    timings += melody_timings + audiogen_timings
+    style_launches, style_worst, style_timings = phase_style(torch, card)
+    phase_magnet(torch, card)
+    launches += melody_launches + audiogen_launches + style_launches
+    timings += melody_timings + audiogen_timings + style_timings
 
     main_t = timings[0]
     k1_err = max(list(worst.values()) + list(variants_worst.values())
-                 + list(melody_worst.values()) + list(audiogen_worst.values()))
+                 + list(melody_worst.values()) + list(audiogen_worst.values())
+                 + list(style_worst.values()))
     fwd, bwd = flash_timing[1500]["forward"], flash_timing[1500]["backward"]
     fwd1501, bwd1501 = flash_timing[1501]["forward"], flash_timing[1501]["backward"]
     int4_t = int4_timings[0]  # the JAX script's length, S - S // 4

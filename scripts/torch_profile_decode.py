@@ -2,12 +2,14 @@
 """Where the time goes in the PyTorch port's LM generation.
 
     python3 scripts/torch_profile_decode.py [--frames 100] [--seed 0]
-        [--model small|melody|audiogen]
+        [--model small|melody|style|audiogen]
 
 Builds a full-width LM (seeded random weights, bf16) on the CUDA card:
 MusicGen-small (T5-base conditioner, 24-layer LM) by default, or the medium
 MusicGen-melody LM (48 layers; T5-base and the chroma of 10 s of seeded
-harmonic audio prepended) or the medium AudioGen LM (48 layers, T5-large by
+harmonic audio prepended), the medium MusicGen-Style LM (48 layers; the
+style tokens of the same audio, through a seeded full-width MERT, and
+T5-base prepended) or the medium AudioGen LM (48 layers, T5-large by
 cross-attention). For two configurations of the small LM (2 texts with a
 bf16 KV cache; 16 texts with an int8 cache), or 2 texts with a bf16 cache
 for the others, it runs `LMModel.generate`
@@ -100,7 +102,7 @@ def main() -> int:
     parser.add_argument("--frames", type=int, default=100)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--model", default="small",
-                        choices=["small", "melody", "audiogen"])
+                        choices=["small", "melody", "style", "audiogen"])
     args = parser.parse_args()
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
     import torch
@@ -116,9 +118,11 @@ def main() -> int:
                           text=True, timeout=60).stdout.strip()
     build = {"small": builders.get_musicgen_small_lm,
              "melody": builders.get_musicgen_melody_lm,
+             "style": builders.get_musicgen_style_lm,
              "audiogen": builders.get_audiogen_medium_lm}[args.model]
     lm = build(device="cuda", dtype=torch.bfloat16, seed=args.seed)
-    attrs = melody_conditions(torch, lm) if args.model == "melody" else None
+    attrs = (melody_conditions(torch, lm)
+             if args.model in ("melody", "style") else None)
     configs = CONFIGS if args.model == "small" else CONFIGS[:1]
     for prompts, cache in configs:
         print(json.dumps({"card": card, "model": args.model,
@@ -130,7 +134,8 @@ def main() -> int:
 
 def melody_conditions(torch, lm, seconds: int = 10):
     """The 2 texts, each with 10 s of seeded harmonic audio at the model's
-    32 kHz as its melody (no stem separator: the chroma of the full mix)."""
+    32 kHz as its melody (no stem separator: the chroma of the full mix)
+    or its style."""
     from audiocraft_tpu_torch.modules.conditioners import (
         ConditioningAttributes, WavCondition)
     g = torch.Generator().manual_seed(3)

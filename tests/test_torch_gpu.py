@@ -644,3 +644,157 @@ def test_decode_graph_with_a_prefix_equals_eager_steps():
         finally:
             lm_module._replay_decode_steps = replay
         assert torch.equal(graph, eager)
+
+
+# ------------------------------------------- style and MAGNeT (slices C, D)
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [4, 6])
+def test_cuda_kernel_at_style_shapes(B):
+    """K1 at 24 heads over a 10 s MusicGen-Style request's capacity: 504
+    pattern steps plus 15 style and 9 text tokens prepended; batched CFG
+    (B 4) and double CFG (B 6); the length on the device at S / 8, S / 2
+    and S."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    torch.manual_seed(B)
+    H, D, S = 24, 64, 504 + 15 + 9
+    q = torch.randn(B, H, D, device="cuda").to(torch.bfloat16)
+    k = torch.randn(B, S, H, D, device="cuda").to(torch.bfloat16)
+    v = torch.randn(B, S, H, D, device="cuda").to(torch.bfloat16)
+    for length in (S // 8, S // 2, S):
+        out = decode_attention(q, k, v, length_tensor(length, "cuda"))
+        ref = decode_attention_reference(q, k, v, length)
+        assert (out.float() - ref.float()).abs().max().item() <= 2e-2, length
+
+
+def _style_wav(seconds: float) -> torch.Tensor:
+    return _melody(seconds, 32000)[:, :1] * 0.5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["batched", "double"])
+def test_debug_style_tokens_on_card_match_cpu(mode):
+    """f32 debug style model, greedy, TF32 off: the card's tokens equal the
+    CPU's; every single-step forward launches K1 (the prefill, behind the
+    style token, is not one)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kw = {"batched": {}, "double": {"cfg_coef_beta": 5.0}}[mode]
+    models = {}
+    for device in ("cpu", "cuda"):
+        mg = MusicGen.get_pretrained("debug-style", device=device)
+        mg.set_generation_params(duration=0.5, use_sampling=False, **kw)
+        models[device] = mg
+    # seeded inits draw from each device's own generator: share the CPU's
+    for name in ("lm", "compression_model"):
+        getattr(models["cuda"], name).load_state_dict(
+            getattr(models["cpu"], name).state_dict())
+    styles = [m.lm.condition_provider.conditioners["self_wav"]
+              for m in (models["cpu"], models["cuda"])]
+    styles[1].feat_extractor.load_state_dict(
+        styles[0].feat_extractor.state_dict())
+    tokens = {}
+    for device, mg in models.items():
+        before = decode_attention.launches
+        tokens[device] = mg.generate_with_chroma(
+            TEXTS, _style_wav(0.04), 32000, return_tokens=True)[1].cpu()
+    lm = models["cuda"].lm
+    S = len(lm.pattern_provider.get_pattern(12).layout)
+    assert decode_attention.launches - before == lm.num_layers * (S - 2)
+    assert torch.equal(tokens["cpu"], tokens["cuda"])
+
+
+STYLE_TEXT_PREPEND_CFG = {
+    "transformer_lm": {"n_q": 4, "card": 400, "dim": 16, "num_heads": 4,
+                       "num_layers": 2, "hidden_scale": 4, "causal": True},
+    "conditioners": {
+        "description": {"model": "lut", "lut": {
+            "n_bins": 128, "dim": 16, "tokenizer": "whitespace"}},
+        "self_wav": {"model": "style", "style": {
+            "model_name": "encodec", "transformer_scale": "xsmall",
+            "sample_rate": 32000, "encodec_n_q": 4, "length": 0.2,
+            "ds_factor": 2, "n_q_out": 3, "eval_q": 2, "bins": 64}}},
+    "fuser": {"prepend": ["self_wav", "description"], "cross": [],
+              "sum": [], "input_interpolate": []},
+    "classifier_free_guidance": {"inference_coef": 3.0}}
+
+
+@pytest.mark.gpu
+def test_style_decode_graph_with_two_prepends_equals_eager_steps():
+    """Style and text both prepended (the `style2music` fuser) on a tiny
+    f32 LM: the replayed graph's greedy tokens equal the same step run
+    eagerly on the card, under batched and double CFG."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    from audiocraft_tpu_torch.modules.conditioners import bind_feat_extractor
+    lm = builders.get_lm_model(STYLE_TEXT_PREPEND_CFG, device="cuda", seed=1)
+    bind_feat_extractor(lm.condition_provider.conditioners["self_wav"],
+                        builders.get_debug_compression_model(device="cuda"))
+    codec = builders.get_debug_compression_model(device="cuda")
+    mg = MusicGen("style-two-prepends", codec, lm, device="cuda")
+    for kw in ({}, {"cfg_coef_beta": 5.0}):
+        mg.set_generation_params(duration=1, use_sampling=False, **kw)
+        graph = mg.generate_with_chroma(TEXTS, _style_wav(0.15), 32000,
+                                        return_tokens=True)[1]
+        replay = lm_module._replay_decode_steps
+        lm_module._replay_decode_steps = (
+            lambda step, steps, device, generator: [step() for _ in range(steps)])
+        try:
+            eager = mg.generate_with_chroma(TEXTS, _style_wav(0.15), 32000,
+                                            return_tokens=True)[1]
+        finally:
+            lm_module._replay_decode_steps = replay
+        assert torch.equal(graph, eager)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arrangement", ["nonoverlap", "stride1"])
+def test_debug_magnet_tokens_on_card_match_cpu(arrangement):
+    """f32 debug MAGNeT, greedy, TF32 off: the card's tokens equal the
+    CPU's; no decode-attention kernel runs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    from audiocraft_tpu_torch.models import MAGNeT
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tokens, models = {}, {}
+    before = decode_attention.launches
+    for device in ("cpu", "cuda"):
+        m = MAGNeT.get_pretrained("debug", device=device)
+        m.set_generation_params(duration=0.52, use_sampling=False,
+                                decoding_steps=(3, 2, 2, 2),
+                                span_arrangement=arrangement)
+        models[device] = m
+    # seeded inits draw from each device's own generator: share the CPU's
+    models["cuda"].lm.load_state_dict(models["cpu"].lm.state_dict())
+    for device, m in models.items():
+        tokens[device] = m.generate(TEXTS, return_tokens=True)[1].cpu()
+    assert decode_attention.launches == before
+    assert torch.equal(tokens["cpu"], tokens["cuda"])
+
+
+@pytest.mark.gpu
+def test_magnet_stage_graph_equals_eager_steps():
+    """Each non-overlapping stage runs its first step eagerly and replays
+    one CUDA graph of the step: greedy tokens equal the same step run
+    eagerly on the card, one graph captured per stage."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    from audiocraft_tpu_torch.models import MAGNeT
+    m = MAGNeT.get_pretrained("debug", device="cuda")
+    m.set_generation_params(duration=2.0, use_sampling=False,
+                            decoding_steps=(6, 3, 3, 3))
+    captures = lm_module.decode_graph_stats.captures
+    graph = m.generate(TEXTS, return_tokens=True)[1]
+    assert lm_module.decode_graph_stats.captures - captures == 4
+    replay = lm_module._replay_decode_steps
+    lm_module._replay_decode_steps = (
+        lambda step, steps, device, generator: [step() for _ in range(steps)])
+    try:
+        eager = m.generate(TEXTS, return_tokens=True)[1]
+    finally:
+        lm_module._replay_decode_steps = replay
+    assert tuple(graph.shape) == (2, 4, 48) and torch.equal(graph, eager)
