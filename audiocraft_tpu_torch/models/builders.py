@@ -1,9 +1,10 @@
 """Model builders with seeded random weights (counterpart of the debug and
 MusicGen-small assemblies in `audiocraft_tpu/models/builders.py` and
-`bench.py`, of its config-driven `get_lm_model`, and of
-`get_wrapped_compression_model`), and the full-width MusicGen-melody,
+`bench.py`, of its config-driven `get_lm_model` and `get_jasco_model`, and
+of `get_wrapped_compression_model`), the full-width MusicGen-melody,
 MusicGen-Style, AudioGen-medium and MAGNeT-small LMs from their solver
-configs."""
+configs, and the full-width Multi-Band Diffusion, AudioSeal and JASCO
+models of the smoke run."""
 import contextlib
 import typing as tp
 
@@ -14,6 +15,9 @@ from ..modules.conditioners import (BaseConditioner, ChromaStemConditioner,
                                     ConditionFuser, LUTConditioner,
                                     StyleConditioner, T5Conditioner,
                                     bind_feat_extractor)
+from ..modules.diffusion_schedule import MultiBandProcessor, NoiseSchedule
+from ..modules.jasco_conditioners import (ChordsEmbConditioner,
+                                          DrumsConditioner, MelodyConditioner)
 from ..modules.mert import MERTModel
 from ..modules.patterns import (CoarseFirstPattern, CodebooksPatternProvider,
                                 DelayedPatternProvider, MusicLMPattern,
@@ -24,9 +28,14 @@ from ..quantization import ResidualVectorQuantizer
 from ..utils.utils import resolve_device
 from .encodec import (CompressionModel, EncodecModel,
                       InterleaveStereoCompressionModel)
+from .flow_matching import FlowMatchingModel
+from .jasco import JASCO
 from .lm import LMModel
 from .lm_magnet import MagnetLMModel
+from .multibanddiffusion import DiffusionProcess, MultiBandDiffusion
 from .presets import musicgen_lm
+from .unet import DiffusionUnet
+from .watermark import AudioSeal, AudioSealDetector, AudioSealWM
 
 
 @contextlib.contextmanager
@@ -370,7 +379,9 @@ def get_condition_fuser(cfg: dict) -> ConditionFuser:
 def get_conditioners(output_dim: int, cfg: dict, device=None,
                      dtype=None) -> tp.Dict[str, BaseConditioner]:
     """The conditioners of `cfg['conditioners']`: T5, lookup table, the
-    melody's chroma (`chroma_stem`) or the style bottleneck (`style`)."""
+    melody's chroma (`chroma_stem`), the style bottleneck (`style`), or
+    JASCO's chords (`chords_emb`), drum latents (`drum_latents`) and
+    melody salience (`melody`), which take their own `out_dim`."""
     out: tp.Dict[str, BaseConditioner] = {}
     for name, cond_cfg in (cfg.get("conditioners", {}) or {}).items():
         if name == "args":
@@ -397,10 +408,24 @@ def get_conditioners(output_dim: int, cfg: dict, device=None,
         elif kind == "style":
             out[name] = StyleConditioner(output_dim=output_dim, device=device,
                                          dtype=dtype, **args)
+        elif kind in ("chords_emb", "melody"):
+            cls = ChordsEmbConditioner if kind == "chords_emb" \
+                else MelodyConditioner
+            out[name] = cls(card=args["card"], out_dim=args["out_dim"],
+                            device=device, dtype=dtype)
+        elif kind == "drum_latents":
+            out[name] = DrumsConditioner(
+                output_dim=args["out_dim"], device=device, dtype=dtype,
+                **{k: v for k, v in args.items() if k in _DRUMS_KEYS})
         else:
             raise NotImplementedError(f"conditioner {kind!r} is not ported "
-                                      f"(ROADMAP, slice C)")
+                                      f"(ROADMAP, slice G)")
     return out
+
+
+_DRUMS_KEYS = ("sample_rate", "blurring_factor",
+               "compression_model_latent_dim", "compression_model_framerate",
+               "segment_duration")
 
 
 PATTERN_PROVIDERS = {"parallel": ParallelPatternProvider,
@@ -468,3 +493,165 @@ def get_lm_model(cfg: dict, device=None, seed: int = 0,
     if weight_init == "gaussian":
         lm.reset_parameters(seed)
     return lm.eval()
+
+
+# ------------------------------------------------------ MBD, AudioSeal, JASCO
+
+_UNET_KEYS = ("hidden", "depth", "growth", "max_channels", "emb_all_layers",
+              "cross_attention", "bilstm", "transformer", "codec_dim",
+              "kernel", "stride", "norm_groups", "res_blocks", "dropout")
+_SCHEDULE_KEYS = ("beta_t0", "beta_t1", "num_steps", "variance", "clip",
+                  "rescale", "beta_exp", "repartition", "alpha_sigmoid",
+                  "n_bands", "noise_scale")
+
+
+def get_diffusion_band(cfg: dict, sample_rate: int, device=None,
+                       seed: int = 0
+                       ) -> tp.Tuple[DiffusionUnet, NoiseSchedule]:
+    """One band of Multi-Band Diffusion from a diffusion solver config:
+    the `DiffusionUnet` of `diffusion_unet` (over `channels`), and the
+    `NoiseSchedule` of `schedule` with the `MultiBandProcessor` of
+    `processor` when its `use` is set; torch's default init, seeded, f32,
+    and the processor's statistics zero (empty), as before training."""
+    device = resolve_device(device)
+    unet_cfg = dict(cfg.get("diffusion_unet") or {})
+    schedule_cfg = dict(cfg.get("schedule") or {})
+    processor_cfg = dict(cfg.get("processor") or {})
+    with _seeded(device, seed):
+        model = DiffusionUnet(
+            chin=cfg.get("channels", 1),
+            num_steps=schedule_cfg.get("num_steps", 1000), device=device,
+            **{k: v for k, v in unet_cfg.items() if k in _UNET_KEYS})
+    processor = None
+    if processor_cfg.pop("use", False):
+        processor_cfg.pop("name", None)
+        processor = MultiBandProcessor(sample_rate=sample_rate, device=device,
+                                       **processor_cfg)
+    schedule = NoiseSchedule(
+        sample_processor=processor,
+        **{k: v for k, v in schedule_cfg.items() if k in _SCHEDULE_KEYS})
+    return model.eval(), schedule
+
+
+def get_mbd_32khz(device=None, seed: int = 0) -> MultiBandDiffusion:
+    """Multi-Band Diffusion for MusicGen's tokens at full width:
+    `solver/diffusion/default` over `model/score/basic` at 32 kHz in 4
+    bands (`grids/diffusion/4_bands_base_32khz`): per band a
+    `DiffusionUnet` of hidden 48, depth 4, growth 4 (channels 48, 192,
+    768, 3072), kernel 8, stride 4, one residual block, 4 groups, the step
+    embedding at every layer, a BiLSTM of 3072 at the bottleneck and a
+    128-dimensional codec condition; an 8-band processor; 1000 steps of
+    the power schedule. Seeded random weights (band i from `seed + i`),
+    f32; each processor's statistics are seeded too (counts 1, means 0,
+    band variances and targets drawn in [0.5, 1.5] x 1e-3); the codec is
+    `get_encodec_32khz(seed=seed + 4)`."""
+    device = resolve_device(device)
+    cfg = load_config("solver/diffusion/default")
+    DPs = []
+    for band in range(4):
+        model, schedule = get_diffusion_band(cfg, 32000, device, seed + band)
+        processor = schedule.sample_processor
+        g = torch.Generator().manual_seed(seed + band)
+        with torch.no_grad():
+            processor.counts.fill_(1.0)
+            for name in ("sum_x2", "sum_target_x2"):
+                getattr(processor, name).copy_(
+                    (0.5 + torch.rand(processor.n_bands, generator=g)) * 1e-3)
+        DPs.append(DiffusionProcess(model, schedule))
+    return MultiBandDiffusion(DPs, get_encodec_32khz(device=device,
+                                                     seed=seed + 4),
+                              device=device)
+
+
+def get_audioseal_base(device=None, seed: int = 0) -> AudioSeal:
+    """AudioSeal at the released `base` widths (the JAX loader's defaults):
+    16 bits, SEANet dimension 128, 32 filters, ratios (8, 5, 4, 2), one
+    residual layer, 2 LSTM layers, detector output 32; torch's default
+    init (weight norm with g = |v|), seeded, f32."""
+    device = resolve_device(device)
+    kw = dict(nbits=16, dimension=128, n_filters=32, n_residual_layers=1,
+              lstm=2, ratios=(8, 5, 4, 2), device=device)
+    with _seeded(device, seed):
+        generator = AudioSealWM(**kw)
+        detector = AudioSealDetector(output_dim=32, **kw)
+    return AudioSeal(generator, detector, nbits=16, device=device)
+
+
+# keys of a JASCO `transformer_lm` that the flow-matching model does not take
+# (the JAX builder drops them too)
+_FLOW_KEYS = ("dim", "num_heads", "flow_dim", "chords_dim", "drums_dim",
+              "melody_dim", "hidden_scale", "norm_first", "bias_proj",
+              "time_embedding_dim", "num_layers", "skip_connections", "causal",
+              "cross_attention", "activation")
+_TEMPORAL_WIDTHS = {"chords": "chords_dim", "self_wav": "drums_dim",
+                    "melody": "melody_dim"}
+
+
+def get_jasco_model(cfg: dict, device=None, seed: int = 0
+                    ) -> FlowMatchingModel:
+    """JASCO's flow-matching model of a solver config (`transformer_lm`,
+    `conditioners`, `fuser`, `classifier_free_guidance`), torch's default
+    init, seeded. The input width of each temporal condition (chords,
+    drums, melody) is its conditioner's `out_dim`: the JAX package's
+    `Dense` infers it, and `solver/jasco/chords_drums` names no
+    `drums_dim`; a config that names another width raises."""
+    device = resolve_device(device)
+    kwargs = {k: v for k, v in dict(cfg["transformer_lm"]).items()
+              if k in _FLOW_KEYS}
+    cfg_coef = (cfg.get("classifier_free_guidance") or {}).get(
+        "inference_coef", 1.0)
+    with _seeded(device, seed):
+        fuser = get_condition_fuser(cfg)
+        conditioners = get_conditioners(kwargs.get("dim", 512), cfg,
+                                        device=device)
+        if fuser.fuse2cond.get("cross"):
+            kwargs["cross_attention"] = True
+        for name, key in _TEMPORAL_WIDTHS.items():
+            if name in conditioners:
+                width = conditioners[name].output_proj.out_features
+                if kwargs.get(key) not in (None, 0, width):
+                    raise ValueError(f"{key}={kwargs[key]} but the {name!r} "
+                                     f"conditioner gives {width}")
+                kwargs[key] = width
+        model = FlowMatchingModel(conditioners, fuser, cfg_coef=cfg_coef,
+                                  device=device, **kwargs)
+    return model.eval()
+
+
+def get_debug_jasco_model(device=None, seed: int = 0) -> JASCO:
+    """The debug JASCO, as the JAX package's: flow matching over the debug
+    codec's 32-dim latents (dim 16, 4 heads, 2 layers with a skip, pre-norm),
+    the text by cross-attention (lookup table), chords of card 194
+    embedded to 8 and concatenated; no chord mapping, 1 s maximum."""
+    device = resolve_device(device)
+    with _seeded(device, seed):
+        conditioners = {
+            "description": LUTConditioner(n_bins=128, dim=16, output_dim=16,
+                                          device=device),
+            "chords": ChordsEmbConditioner(card=194, out_dim=8,
+                                           device=device)}
+        fuser = ConditionFuser({"cross": ["description"], "prepend": [],
+                                "sum": [], "ignore": ["chords"],
+                                "input_interpolate": []})
+        model = FlowMatchingModel(conditioners, fuser, dim=16, num_heads=4,
+                                  flow_dim=32, chords_dim=8, num_layers=2,
+                                  skip_connections=True, norm_first=True,
+                                  device=device)
+    return JASCO("debug", get_debug_compression_model(device=device,
+                                                      seed=seed),
+                 model.eval(), max_duration=1.0, device=device)
+
+
+def get_jasco_chords_drums_model(device=None, seed: int = 0
+                                 ) -> FlowMatchingModel:
+    """JASCO chords + drums at full width: `solver/jasco/chords_drums` at
+    `model/lm/model_scale/small` (dim 1024, 16 heads, 24 layers, FFN 4096;
+    the repo has no config of `facebook/jasco-chords-drums-400M` and its
+    own base is 512 wide), T5-base by cross-attention, chords of card 194
+    -> 16 and drum latents of the 32 kHz EnCodec (128 -> 16, blur 3)
+    concatenated to the 128-dim flow, pre-norm, GELU, skip connections, no
+    output bias, 500 frames for 10 s."""
+    cfg = load_config("solver/jasco/chords_drums")
+    cfg["transformer_lm"].update(
+        load_config("model/lm/model_scale/small")["transformer_lm"])
+    return get_jasco_model(cfg, device=device, seed=seed)

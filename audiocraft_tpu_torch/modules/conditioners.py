@@ -39,12 +39,22 @@ class WavCondition(tp.NamedTuple):
     seek_time: tp.List[tp.Optional[float]] = []
 
 
+class SymbolicCondition(tp.NamedTuple):
+    """A symbolic condition (JASCO): per-frame chord indices [T], or a
+    melody salience matrix [n_classes, T]."""
+    frame_chords: tp.Optional[np.ndarray] = None
+    melody: tp.Optional[np.ndarray] = None
+
+
 @dataclasses.dataclass
 class ConditioningAttributes:
-    """Per-sample conditions: texts and waveforms (`WavCondition`, or None
-    where a dataset has no waveform for the attribute)."""
+    """Per-sample conditions: texts, waveforms (`WavCondition`, or None
+    where a dataset has no waveform for the attribute) and symbolic
+    conditions."""
     text: tp.Dict[str, tp.Optional[str]] = dataclasses.field(default_factory=dict)
     wav: tp.Dict[str, tp.Optional[WavCondition]] = dataclasses.field(
+        default_factory=dict)
+    symbolic: tp.Dict[str, SymbolicCondition] = dataclasses.field(
         default_factory=dict)
 
 
@@ -55,6 +65,18 @@ def nullify_wav(cond: WavCondition) -> WavCondition:
                         length=torch.zeros(B, dtype=torch.long),
                         sample_rate=list(cond.sample_rate), path=[None] * B,
                         seek_time=[None] * B)
+
+
+def nullify_chords(sym_cond: SymbolicCondition,
+                   null_chord_idx: int = 194) -> SymbolicCondition:
+    """Every frame the null chord."""
+    return SymbolicCondition(frame_chords=np.full_like(
+        np.asarray(sym_cond.frame_chords), null_chord_idx))
+
+
+def nullify_melody(sym_cond: SymbolicCondition) -> SymbolicCondition:
+    """An all-zero salience matrix."""
+    return SymbolicCondition(melody=np.zeros_like(np.asarray(sym_cond.melody)))
 
 
 class WhiteSpaceTokenizer:
@@ -189,7 +211,26 @@ class WaveformConditioner(BaseConditioner):
         return x
 
 
-class ChromaStemConditioner(WaveformConditioner):
+class StemSeparated:
+    """A waveform conditioner that reads stems of an HTDemucs separator:
+    the one set by `set_separator`, else the checkpoint that
+    `modules.demucs.get_stem_separator` finds, else none. The separator
+    sits outside the module tree: its weights are not the conditioner's,
+    and it is not moved with it."""
+
+    def set_separator(self, separator) -> None:
+        """Use `separator` (an HTDemucs), or with None the checkpoint
+        `get_stem_separator` finds."""
+        self.__dict__["separator"] = separator
+
+    def _separator(self):
+        if self.__dict__.get("separator") is not None:
+            return self.__dict__["separator"]
+        from .demucs import get_stem_separator
+        return get_stem_separator(self.output_proj.weight.device)
+
+
+class ChromaStemConditioner(StemSeparated, WaveformConditioner):
     """Melody conditioning: the chroma of the melodic stems of a waveform
     (one-hot per frame), projected to `output_dim`; rows of length 0 (the
     null condition) give zeros and a zero mask.
@@ -223,14 +264,7 @@ class ChromaStemConditioner(WaveformConditioner):
         self.match_len_on_eval = match_len_on_eval
         self.chroma = ChromaExtractor(sample_rate, n_chroma, radix2_exp,
                                       argmax=True, device=device)
-        # kept out of the module tree: the separator's weights are not
-        # the conditioner's, and it is not moved with it
-        self.__dict__["separator"] = None
-
-    def set_separator(self, separator) -> None:
-        """Use `separator` (an HTDemucs) for the stems, or with None the
-        checkpoint `get_stem_separator` finds."""
-        self.__dict__["separator"] = separator
+        self.set_separator(None)
 
     @property
     def winhop(self) -> int:
@@ -240,12 +274,6 @@ class ChromaStemConditioner(WaveformConditioner):
     def chroma_len(self) -> int:
         """Chroma frames of `duration` seconds (centre-padded STFT)."""
         return 1 + int(self.sample_rate * self.duration) // self.winhop
-
-    def _separator(self):
-        if self.separator is not None:
-            return self.separator
-        from .demucs import get_stem_separator
-        return get_stem_separator(self.output_proj.weight.device)
 
     def tokenize(self, x: WavCondition):
         """With a separator, the chroma of each live row's melodic stems
@@ -547,14 +575,20 @@ def bind_feat_extractor(conditioner: FeatureExtractor, model) -> None:
 def dropout_condition(sample: ConditioningAttributes, condition_type: str,
                       condition: str) -> ConditioningAttributes:
     """Null one attribute of `sample` in place: a text becomes None, a
-    waveform its null condition (a missing waveform stays None)."""
-    if condition_type not in ("text", "wav"):
+    waveform its null condition (a missing waveform stays None), chords
+    the null chord and a melody zeros."""
+    if condition_type not in ("text", "wav", "symbolic"):
         raise ValueError(f"unexpected condition type: {condition_type}")
     attributes = getattr(sample, condition_type)
     if condition not in attributes:
         raise ValueError(f"unexpected condition {condition}.{condition_type}")
     if condition_type == "text":
         attributes[condition] = None
+    elif condition_type == "symbolic":
+        sym = attributes[condition]
+        attributes[condition] = (nullify_chords(sym)
+                                 if sym.frame_chords is not None
+                                 else nullify_melody(sym))
     elif attributes[condition] is not None:
         attributes[condition] = nullify_wav(attributes[condition])
     return sample
@@ -587,14 +621,16 @@ class AttributeDropout:
 
 
 class ClassifierFreeGuidanceDropout:
-    """All-or-nothing condition dropout; p=1 gives the null conditions."""
+    """All-or-nothing dropout of the conditions of `cond_types`; p=1 gives
+    the null conditions."""
 
     def __init__(self, p: float, seed: int = 1234):
         self.p = p
         self.rng = np.random.RandomState(seed)
         self.training = True
 
-    def __call__(self, samples: tp.List[ConditioningAttributes]
+    def __call__(self, samples: tp.List[ConditioningAttributes],
+                 cond_types: tp.Sequence[str] = ("wav", "text")
                  ) -> tp.List[ConditioningAttributes]:
         if not self.training and self.p < 1.0:
             return samples
@@ -602,7 +638,7 @@ class ClassifierFreeGuidanceDropout:
             return samples
         samples = deepcopy(samples)
         for sample in samples:
-            for kind in ("wav", "text"):
+            for kind in cond_types:
                 for condition in list(getattr(sample, kind)):
                     dropout_condition(sample, kind, condition)
         return samples

@@ -458,18 +458,25 @@ def apply_demucs(model: HTDemucs, mix: torch.Tensor,
 MELODY_STEMS = ("vocals", "other")
 
 
-def separate_melody(model: HTDemucs, wav: torch.Tensor,
-                    sample_rate: int) -> torch.Tensor:
-    """The melodic stems (vocals + other) of wav [B, C, T] at `sample_rate`:
+def separate_stems(model: HTDemucs, wav: torch.Tensor, sample_rate: int,
+                   names: tp.Sequence[str]) -> torch.Tensor:
+    """The sum of the stems `names` of wav [B, C, T] at `sample_rate`:
     converted to the separator's rate and channels, separated, summed, and
     mixed back down to mono at `sample_rate` -> [B, 1, T']."""
     device = next(model.parameters()).device
     x = convert_audio(torch.as_tensor(wav, dtype=torch.float32).to(device),
                       sample_rate, model.samplerate, model.audio_channels)
     stems = apply_demucs(model, x)
-    keep = [i for i, s in enumerate(model.sources) if s in MELODY_STEMS]
+    keep = [i for i, s in enumerate(model.sources) if s in names]
     return convert_audio(stems[:, keep].sum(dim=1), model.samplerate,
                          sample_rate, 1)
+
+
+def separate_melody(model: HTDemucs, wav: torch.Tensor,
+                    sample_rate: int) -> torch.Tensor:
+    """The melodic stems (vocals + other) of wav [B, C, T], mono at
+    `sample_rate` -> [B, 1, T']."""
+    return separate_stems(model, wav, sample_rate, MELODY_STEMS)
 
 
 # --------------------------------------------------------------- checkpoints

@@ -18,6 +18,18 @@ MERT (`load_mert`): the JAX names -> Hugging Face `HubertModel`'s. The style
 conditioner takes its `params`, and the two collections flax keeps outside
 them: `batch_stats` (`bn_mean`, `bn_var` -> `batch_norm.running_mean`,
 `running_var`) and `quantizer` (`style_rvq` -> `rvq.vq.layers.{q}`).
+Multi-Band Diffusion (`load_diffusion_unet`, `load_band_processor`):
+`enc_{d}`/`dec_{d}` -> `encoders.{d}`/`decoders.{depth-1-d}` (the deepest
+decoder first), `GroupNorm_0` -> `norm`, `res_{j}` -> `res_blocks.{j}`,
+`embedding_{d}` -> `embeddings.{d-1}`, the BiLSTM's `fwd_{i}`/`bwd_{i}` ->
+`weight_*_l{i}` and `weight_*_l{i}_reverse`; the `MBPState` fields ->
+the processor's buffers. AudioSeal (`load_audioseal`): the SEANet stacks
+as for EnCodec, `msg_emb` -> `msg_processor.msg_embeddings`, the
+detector's encoder, `reverse_convolution` and `head` ->
+`detector.0.model`, `detector.0.reverse_convolution`, `detector.1`.
+JASCO (`load_flow_matching`): `temb_dense_{i}` -> `temb.dense.{i}`,
+`skip_proj_{i}` -> `transformer.skip_projections.{i}`, and its
+conditioners (the chords' unused `output_proj` keeps the port's values).
 """
 import typing as tp
 
@@ -389,3 +401,126 @@ def load_htdemucs(model: nn.Module, params: Tree) -> None:
     """JAX `HTDemucs` params -> a port `HTDemucs`."""
     _load(model, htdemucs_state(params, model.depth,
                                 len(model.crosstransformer.layers)))
+
+
+def _groupnorm_resblocks(p: Tree, prefix: str, out: dict) -> None:
+    j = 0
+    while f"res_{j}" in p:
+        rp, res = f"{prefix}res_blocks.{j}.", p[f"res_{j}"]
+        for name in ("norm1", "norm2"):
+            _norm(res[name], rp + name + ".", out)
+        for name in ("conv1", "conv2"):
+            _conv_nd(res[name], rp + name + ".", out)
+        j += 1
+
+
+def diffusion_unet_state(params: Tree, depth: int) -> dict:
+    """JAX `DiffusionUnet` params -> upstream's (the port's) keys."""
+    p = _params(params)
+    out: dict = {"embedding.weight": p["embedding"]["embedding"]}
+    for d in range(depth):
+        if f"embedding_{d}" in p:
+            out[f"embeddings.{d - 1}.weight"] = p[f"embedding_{d}"]["embedding"]
+        enc, ep = p[f"enc_{d}"], f"encoders.{d}."
+        _conv_nd(enc["conv"], ep + "conv.", out)
+        _norm(enc["GroupNorm_0"], ep + "norm.", out)
+        _groupnorm_resblocks(enc, ep, out)
+        dec, dp = p[f"dec_{d}"], f"decoders.{depth - 1 - d}."
+        _conv_transpose_nd(dec["convtr"], dp + "convtr.", out)
+        _norm(dec["GroupNorm_0"], dp + "norm.", out)
+        _groupnorm_resblocks(dec, dp, out)
+    if "bilstm" in p:
+        b = p["bilstm"]
+        i = 0
+        while f"fwd_{i}" in b:
+            for ours, suffix in (("fwd", ""), ("bwd", "_reverse")):
+                lp = b[f"{ours}_{i}"]
+                for name in ("ih", "hh"):
+                    out[f"bilstm.lstm.weight_{name}_l{i}{suffix}"] = \
+                        np.asarray(lp[f"w_{name}"]).T
+                    out[f"bilstm.lstm.bias_{name}_l{i}{suffix}"] = \
+                        lp[f"b_{name}"]
+            i += 1
+        _dense(b["linear"], "bilstm.linear.", out)
+    if "transformer" in p:
+        out.update(transformer_state(p["transformer"], 6, "transformer."))
+    if "conv_codec" in p:
+        _conv_nd(p["conv_codec"], "conv_codec.", out)
+    return out
+
+
+def load_diffusion_unet(model: nn.Module, params: Tree) -> None:
+    """JAX `DiffusionUnet` params -> a port `DiffusionUnet`."""
+    _load(model, diffusion_unet_state(params, len(model.encoders)))
+
+
+def load_band_processor(processor: nn.Module, state) -> None:
+    """A JAX `MBPState` (counts, sum_x, sum_x2, sum_target_x2) -> a port
+    `MultiBandProcessor`'s buffers."""
+    _load(processor, {
+        "counts": np.asarray(state.counts, np.float32).reshape(1),
+        "sum_x": state.sum_x, "sum_x2": state.sum_x2,
+        "sum_target_x2": state.sum_target_x2})
+
+
+def load_audioseal(model, params: Tree) -> None:
+    """JAX AudioSeal params ({'generator', 'detector'}, each with its
+    'params') -> a port `AudioSeal`'s generator and detector."""
+    gen, det = model.generator, model.detector
+    p = _params(params["generator"])
+    out: dict = {}
+    _seanet(p["encoder"], gen.encoder.model, "encoder.", False, out)
+    _seanet(p["decoder"], gen.decoder.model, "decoder.", True, out)
+    if "msg_processor" in p:
+        out["msg_processor.msg_embeddings.weight"] = \
+            p["msg_processor"]["msg_emb"]["embedding"]
+    _load(gen, out)
+    p = _params(params["detector"])
+    out = {}
+    _seanet(p["encoder"], det.detector[0].model, "detector.0.", False, out)
+    _conv_transpose_nd(p["reverse_convolution"],
+                       "detector.0.reverse_convolution.", out)
+    _conv_nd(p["head"], "detector.1.", out)
+    _load(det, out)
+
+
+def flow_matching_state(model: nn.Module, params: Tree) -> dict:
+    """JAX `FlowMatchingModel` params -> the port's (upstream's) keys."""
+    from ..modules.jasco_conditioners import ChordsEmbConditioner
+    p = _params(params)
+    out: dict = {"emb.weight": np.asarray(p["emb"]["kernel"]).T}
+    _dense(p["linear"], "linear.", out)
+    for i in range(2):
+        _dense(p[f"temb_dense_{i}"], f"temb.dense.{i}.", out)
+    _dense(p["temb_proj"], "temb_proj.", out)
+    if "out_norm" in p:
+        _norm(p["out_norm"], "out_norm.", out)
+    tr = p["transformer"]
+    out.update(transformer_state(tr, len(model.transformer.layers),
+                                 "transformer."))
+    i = 0
+    while f"skip_proj_{i}" in tr:
+        _dense(tr[f"skip_proj_{i}"], f"transformer.skip_projections.{i}.", out)
+        i += 1
+    own = model.state_dict()
+    for name, cond in model.conditioners.items():
+        cp = p[f"conditioners_{name}"]
+        prefix = f"condition_provider.conditioners.{name}."
+        if isinstance(cond, ChordsEmbConditioner):
+            out[prefix + "emb.weight"] = cp["emb"]["embedding"]
+            for key in ("weight", "bias"):   # unused, as upstream's
+                out[prefix + "output_proj." + key] = \
+                    own[prefix + "output_proj." + key].cpu().numpy()
+            continue
+        _dense(cp["output_proj"], prefix + "output_proj.", out)
+        if isinstance(cond, LUTConditioner):
+            out[prefix + "embed.weight"] = cp["embed"]["embedding"]
+        elif isinstance(cond, T5Conditioner):
+            out.update(t5_state(cp["t5"], len(cond.t5.encoder.block),
+                                prefix + "t5."))
+    return out
+
+
+def load_flow_matching(model: nn.Module, params: Tree) -> None:
+    """JAX `FlowMatchingModel` params -> a port `FlowMatchingModel`."""
+    _load(model, flow_matching_state(model, params))

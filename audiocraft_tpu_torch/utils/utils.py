@@ -30,6 +30,15 @@ def check_module_device(module: torch.nn.Module, device: torch.device) -> None:
                              f"{t.device}, not {device}: move it first")
 
 
+def randn(shape: tp.Sequence[int], generator: tp.Optional[torch.Generator],
+          device: torch.device) -> torch.Tensor:
+    """Standard normal f32 draws of `shape` on `device`: the Gaussian noise
+    of the diffusion and flow-matching samplers, which their modules call
+    by this name so that a test can replace it."""
+    return torch.randn(tuple(shape), generator=generator, device=device,
+                       dtype=torch.float32)
+
+
 def hash_trick(word: str, vocab_size: int) -> int:
     """Hash a word into a fixed vocab (sha256, as the JAX package)."""
     digest = int(hashlib.sha256(word.encode("utf-8")).hexdigest(), 16)

@@ -92,11 +92,40 @@ Phases, each printing one JSON line:
            and that greedy tokens of the graphs equal the eager steps';
            prints the request, each stage's device time, the ms per forward
            (B 4 x 498 steps) with its kernels by device time, and the peak
-           memory.
+           memory;
+  mbd      full-width Multi-Band Diffusion (`solver/diffusion/default` over
+           `model/score/basic`, 4 bands at 32 kHz: a DiffusionUnet of
+           48-192-768-3072 channels with a 3072 BiLSTM per band, an 8-band
+           processor, 20 reverse steps; EnCodec 32 kHz; seeded random
+           weights, f32): `tokens_to_wav` on 2 x 10 s of seeded MusicGen
+           codes, then `regenerate` on 2 x 2 s of 44.1 kHz audio; checks
+           shapes and finiteness, and one band's U-Net and the 32-band split
+           on a 1 s slice against the CPU; prints the request split into
+           codec decode, condition, each band's reverse process and re-EQ,
+           ms per U-Net forward with its kernels, the BiLSTM's share and the
+           peak memory;
+  audioseal  AudioSeal at its base widths (16 bits, SEANet 128 / 32
+           filters, 2 LSTM layers, detector output 32; seeded random
+           weights, f32): watermarks the slice's 2 x 10 s of audio, taken to
+           16 kHz, with a seeded message, and detects it; checks both
+           against the CPU and that the detection probabilities sum to 1;
+           prints ms for each;
+  jasco    JASCO chords + drums at full width (`solver/jasco/chords_drums` at
+           `model_scale/small`: dim 1024, 16 heads, 24 layers, T5-base by
+           cross-attention; EnCodec 32 kHz; seeded random weights, f32) with
+           a full-width HTDemucs separating the drums: 2 texts x 10 s with
+           chords and 10 s of seeded drums by Dormand-Prince (cfg_coef_all
+           5), then 50 Euler steps; checks shapes, finiteness, the Euler
+           step count and one forward on a short sequence against the CPU;
+           prints each request split into tokenize (drum separation and
+           encode), conditions (T5), solve (with its evaluations) and codec
+           decode, ms per forward at B 4 x 500 with its kernels, and the
+           peak memory.
 Then the `{"kernels": [...]}` summary, and last `{"ok": true, "device": ...}`.
 Any failed check raises, so the script exits non-zero without the last line.
 It needs no network and imports nothing of JAX.
 """
+import gc
 import json
 import math
 import subprocess
@@ -775,7 +804,7 @@ def phase_slice(torch, card):
              "device_idle_share", "kernel_launches_per_forward",
              "host_launch_calls_per_forward", "graph_capture_s",
              "graph_capture_bytes")} for p in profiled])
-    return launches
+    return launches, wav
 
 
 def _seeded_music(torch, batch: int, seconds: int, sample_rate: int = 32000):
@@ -1550,14 +1579,30 @@ def phase_style(torch, card):
 MAGNET_SECONDS = 10
 
 
+def _profile_kernels(torch, fn, reps: int = 5, top: int = 8):
+    """(device ms per call, the `top` kernels by device time per call) of
+    `fn` over `reps` calls under `torch.profiler`."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / reps
+    ranked = sorted(kernels, key=lambda e: e.self_device_time_total,
+                    reverse=True)[:top]
+    return device_ms, [{"name": e.key[:80],
+                        "ms_per_forward": e.self_device_time_total / 1e3 / reps,
+                        "calls_per_forward": e.count / reps} for e in ranked]
+
+
 def phase_magnet(torch, card):
     """Full-width MAGNeT-small (24 layers of 1024, T5-base by
     cross-attention, EnCodec 32 kHz; seeded random weights, bf16): 2 texts
     x 10 s with the default generation parameters (top-p 0.9 at
     temperature 3, CFG 10 -> 1, [20, 10, 10, 10] steps, non-overlapping
     spans of 3)."""
-    from torch.profiler import ProfilerActivity, profile
-
     from audiocraft_tpu_torch.models import MAGNeT, builders
     from audiocraft_tpu_torch.models import lm as lm_module
     from audiocraft_tpu_torch.modules.conditioners import ConditioningAttributes
@@ -1648,15 +1693,8 @@ def phase_magnet(torch, card):
             "stage_0": time_ms(lambda: lm(seq, conditions), n=20),
             "stage_1_to_3": time_ms(lambda: lm(seq, conditions,
                                                attn_bias=bias), n=20)}
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(5):
-                lm(seq, conditions, attn_bias=bias)
-            torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / 5
-    top = sorted(kernels, key=lambda e: e.self_device_time_total,
-                 reverse=True)[:8]
+        device_ms, top_kernels = _profile_kernels(
+            torch, lambda: lm(seq, conditions, attn_bias=bias))
     n_params = sum(p.numel() for n, p in lm.named_parameters()
                    if not n.startswith("condition_provider"))
     emit("magnet", model="magnet-small (d 1024, 16 heads, 24 layers, 4 x "
@@ -1668,10 +1706,7 @@ def phase_magnet(torch, card):
          runs=runs, forwards=sum(m.generation_params["decoding_steps"]),
          forward_ms=forward_ms, forward_rows=4, forward_steps=frames,
          forward_tflop=2 * n_params * 4 * frames / 1e12,
-         profiled_device_ms_per_forward=device_ms,
-         top_kernels=[{"name": e.key[:80],
-                       "ms_per_forward": e.self_device_time_total / 1e3 / 5,
-                       "calls_per_forward": e.count / 5} for e in top],
+         profiled_device_ms_per_forward=device_ms, top_kernels=top_kernels,
          max_memory_allocated=peak, decode_attention_launches=0,
          graph_vs_eager=dict(greedy=True,
                              shape=list(greedy["graph"][0].shape),
@@ -1679,6 +1714,292 @@ def phase_magnet(torch, card):
                              eager_s=greedy["eager"][1]))
     del m, lm, codec
     torch.cuda.empty_cache()
+
+
+MBD_SECONDS = 10           # of MusicGen codes per row (50 Hz, 4 codebooks)
+MBD_REGENERATE_SECONDS = 2  # of 44.1 kHz mono audio per row to regenerate
+AUDIOSEAL_RATE = 16000
+JASCO_SECONDS = 10
+JASCO_CHORDS = [("C", 0.0), ("Am", 2.5), ("F", 5.0), ("G", 7.5)]
+
+
+def _sync_timed(torch, fn, times: list):
+    """`fn` wrapped to append the host seconds to the end of its device
+    work to `times`."""
+    def wrapped(*args, **kwargs):
+        out, seconds = _timed(torch, lambda: fn(*args, **kwargs))
+        times.append(seconds)
+        return out
+    return wrapped
+
+
+def _release(torch) -> int:
+    """Collect the cycles earlier phases left (timing wrappers close over
+    their modules), empty the allocator's cache, and return the bytes still
+    allocated: the base a phase's peak memory sits on."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated()
+
+
+def _card_vs_cpu(name, got, want, rel):
+    """max |card - CPU| <= rel * max(1, max |CPU|), else raise."""
+    want = want.float().cpu()
+    err = float((got.float().cpu() - want).abs().max())
+    scale = max(1.0, float(want.abs().max()))
+    if not err <= rel * scale:
+        raise AssertionError(f"{name}: card vs CPU max |err| {err} > "
+                             f"{rel} x {scale}")
+    return err
+
+
+def phase_mbd(torch, card):
+    """Multi-Band Diffusion at full width (`solver/diffusion/default` over
+    `model/score/basic`, 4 bands at 32 kHz: per band a DiffusionUnet of
+    48-192-768-3072 channels with a 3072 BiLSTM, an 8-band processor, 20
+    reverse steps; EnCodec 32 kHz; seeded random weights, f32) decodes 2 x
+    10 s of seeded MusicGen codes through `tokens_to_wav`, then regenerates
+    2 x 2 s of 44.1 kHz audio."""
+    import copy
+
+    from audiocraft_tpu_torch.models import builders
+    from audiocraft_tpu_torch.ops.filters import SplitBands
+    from audiocraft_tpu_torch.utils.timing import time_ms
+    resident = _release(torch)
+    t0 = time.perf_counter()
+    mbd = builders.get_mbd_32khz(device="cuda", seed=0)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    codec = mbd.codec_model
+    frames = int(MBD_SECONDS * codec.frame_rate)
+    hop = int(codec.sample_rate // codec.frame_rate)
+    g = torch.Generator("cuda").manual_seed(4)
+    tokens = torch.randint(0, codec.cardinality, (2, codec.num_codebooks,
+                                                  frames),
+                           device="cuda", generator=g)
+    pieces = {"codec_decode": [], "condition": [], "re_eq": []}
+    bands = [[] for _ in mbd.DPs]
+    codec.decode = _sync_timed(torch, codec.decode, pieces["codec_decode"])
+    mbd.get_emb = _sync_timed(torch, mbd.get_emb, pieces["condition"])
+    mbd.re_eq = _sync_timed(torch, mbd.re_eq, pieces["re_eq"])
+    for DP, times in zip(mbd.DPs, bands):
+        DP.generate = _sync_timed(torch, DP.generate, times)
+    torch.cuda.reset_peak_memory_stats()
+    wav, request_s = _timed(torch, lambda: mbd.tokens_to_wav(tokens))
+    peak = torch.cuda.max_memory_allocated()
+    if tuple(wav.shape) != (2, 1, frames * hop) or not bool(
+            torch.isfinite(wav).all()):
+        raise AssertionError(f"mbd: waveform {tuple(wav.shape)} or non-finite")
+    # `regenerate` on 2 x 2 s of 44.1 kHz mono music: resampled, encoded,
+    # diffused at 32 kHz
+    music = _seeded_music(torch, 2, MBD_REGENERATE_SECONDS, 44100)
+    regenerated, regenerate_s = _timed(torch, lambda: mbd.regenerate(
+        music, 44100))
+    expected = int(music.shape[-1] * codec.sample_rate / 44100)
+    if tuple(regenerated.shape) != (2, 1, expected) or not bool(
+            torch.isfinite(regenerated).all()):
+        raise AssertionError(f"mbd: regenerated {tuple(regenerated.shape)} "
+                             f"or non-finite")
+
+    # one band's U-Net forward at the request's shape, its BiLSTM alone
+    model = mbd.DPs[0].model
+    x = torch.randn(2, 1, frames * hop, device="cuda", generator=g)
+    emb = mbd.get_emb(tokens)
+    downsampling = math.prod(e.stride for e in model.encoders)
+    z = torch.randn(2, model.bilstm.linear.out_features,
+                    frames * hop // downsampling, device="cuda", generator=g)
+    with torch.no_grad():
+        forward_ms = time_ms(lambda: model(x, 999, emb), n=3)
+        device_ms, top_kernels = _profile_kernels(
+            torch, lambda: model(x, 999, emb), reps=2)
+        bilstm_ms = time_ms(lambda: model.bilstm(z), n=3)
+        re_eq_ms = time_ms(lambda: mbd.re_eq(x, x), n=3)
+
+    # card vs CPU on a 1 s slice: one band's U-Net and the 32-band split
+    x1 = x[:1, :, :codec.sample_rate]
+    emb1 = emb[:1, :, :int(codec.frame_rate)]
+    cpu_model = copy.deepcopy(model).cpu()
+    with torch.no_grad():
+        unet_err = _card_vs_cpu("mbd U-Net", model(x1, 949, emb1),
+                                cpu_model(x1.cpu(), 949, emb1.cpu()), 1e-3)
+    split = SplitBands(codec.sample_rate, 32)
+    split_err = _card_vs_cpu("mbd SplitBands", split(x1),
+                             split(x1.cpu()), 1e-4)
+    del cpu_model
+    emit("mbd", model="multi-band diffusion (4 bands; DiffusionUnet hidden "
+         "48, depth 4, growth 4, kernel 8, stride 4, BiLSTM 3072, codec_dim "
+         "128; 8-band processor; 20 of 1000 power-schedule steps; EnCodec 32 "
+         "kHz; seeded random weights, f32)", card=card, setup_s=setup_s,
+         rows=2, audio_s_per_row=MBD_SECONDS, codes_shape=list(tokens.shape),
+         request_s=request_s, audio_s_per_s=2 * MBD_SECONDS / request_s,
+         breakdown_s=dict(codec_decode=pieces["codec_decode"][0],
+                          condition=pieces["condition"][0],
+                          reverse_per_band=[b[0] for b in bands],
+                          re_eq=pieces["re_eq"][0]),
+         regenerate=dict(rows=2, input_s=MBD_REGENERATE_SECONDS,
+                         input_rate=44100, seconds=regenerate_s),
+         unet_forwards=20 * len(mbd.DPs), unet_forward_ms=forward_ms,
+         bilstm_ms=bilstm_ms, bilstm_share=bilstm_ms / forward_ms,
+         profiled_device_ms_per_forward=device_ms, top_kernels=top_kernels,
+         re_eq_ms=re_eq_ms,
+         unet_params=sum(p.numel() for p in model.parameters()),
+         max_memory_allocated=peak, resident_bytes_before_phase=resident,
+         card_vs_cpu=dict(unet_max_abs_err=unet_err, unet_rel_tol=1e-3,
+                          split_bands_max_abs_err=split_err,
+                          split_bands_rel_tol=1e-4, seconds=1))
+    del mbd, model, codec
+    _release(torch)
+
+
+def phase_audioseal(torch, card, music):
+    """AudioSeal at its base widths (16 bits, SEANet 128 / 32 filters,
+    ratios 8-5-4-2, 2 LSTM layers, detector output 32; seeded random
+    weights, f32) watermarks 2 x 10 s of the slice phase's MusicGen audio,
+    taken to 16 kHz, with a seeded message, then detects it."""
+    from audiocraft_tpu_torch.data.audio_utils import convert_audio
+    from audiocraft_tpu_torch.models import builders
+    from audiocraft_tpu_torch.utils.timing import time_ms
+    _release(torch)
+    model = builders.get_audioseal_base(device="cuda", seed=0)
+    x = convert_audio(music.float(), 32000, AUDIOSEAL_RATE, 1)
+    g = torch.Generator("cuda").manual_seed(5)
+    message = torch.randint(0, 2, (x.shape[0], model.nbits), device="cuda",
+                            generator=g)
+    marked, watermark_s = _timed(torch, lambda: model.forward(x, message))
+    detected, detect_s = _timed(torch, lambda: model.detect_watermark(marked))
+    if tuple(detected.shape) != (x.shape[0], 2 + model.nbits, x.shape[-1]):
+        raise AssertionError(f"audioseal: detector output "
+                             f"{tuple(detected.shape)}")
+    sums = detected[:, :2].sum(dim=1)
+    prob_err = float((sums - 1).abs().max())
+    if not prob_err < 1e-5:
+        raise AssertionError(f"audioseal: probabilities sum off 1 by "
+                             f"{prob_err}")
+    watermark_ms = time_ms(lambda: model.forward(x, message), n=5)
+    detect_ms = time_ms(lambda: model.detect_watermark(marked), n=5)
+    cpu = builders.get_audioseal_base(device="cpu", seed=0)
+    cpu.generator.load_state_dict(model.generator.state_dict())
+    cpu.detector.load_state_dict(model.detector.state_dict())
+    gen_err = _card_vs_cpu("audioseal generator", marked,
+                           cpu.forward(x.cpu(), message.cpu()), 1e-4)
+    det_err = _card_vs_cpu("audioseal detector", detected,
+                           cpu.detect_watermark(marked.cpu()), 1e-4)
+    emit("audioseal", model="audioseal base widths (seeded random weights, "
+         "f32)", card=card, rows=x.shape[0],
+         audio_s_per_row=x.shape[-1] / AUDIOSEAL_RATE,
+         sample_rate=AUDIOSEAL_RATE, first_call_s=dict(
+             watermark=watermark_s, detect=detect_s),
+         watermark_ms=watermark_ms, detect_ms=detect_ms,
+         detection_prob_sum_err=prob_err,
+         card_vs_cpu=dict(generator_max_abs_err=gen_err,
+                          detector_max_abs_err=det_err, rel_tol=1e-4))
+    del model, cpu
+    _release(torch)
+
+
+def phase_jasco(torch, card):
+    """JASCO chords + drums at full width (`solver/jasco/chords_drums` at
+    `model_scale/small`: dim 1024, 16 heads, 24 layers, T5-base by
+    cross-attention, chords 194 -> 16, drum latents of EnCodec 32 kHz 128
+    -> 16; seeded random weights, f32) with a full-width HTDemucs (seeded,
+    f32) separating the drums: 2 texts x 10 s with chords and 10 s of drums,
+    by Dormand-Prince at cfg_coef_all 5 (the defaults), then 50 Euler
+    steps."""
+    import copy
+
+    from audiocraft_tpu_torch.models import JASCO, builders
+    from audiocraft_tpu_torch.models.jasco import CHORD_MAPPING_PATH
+    from audiocraft_tpu_torch.modules.demucs import HTDemucs
+    from audiocraft_tpu_torch.utils.timing import time_ms
+    resident = _release(torch)
+    t0 = time.perf_counter()
+    model = builders.get_jasco_chords_drums_model(device="cuda", seed=0)
+    codec = builders.get_encodec_32khz(device="cuda", seed=1)
+    torch.manual_seed(2)
+    separator = HTDemucs().to("cuda").eval()
+    model.conditioners["self_wav"].set_separator(separator)
+    jasco = JASCO("jasco-chords-drums small (random weights)", codec, model,
+                  chords_mapping_path=CHORD_MAPPING_PATH, device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    drums = _seeded_music(torch, 1, JASCO_SECONDS, jasco.sample_rate)[0]
+    pieces = {"tokenize": [], "conditions": [], "decode": []}
+    jasco._tokenize = _sync_timed(torch, jasco._tokenize, pieces["tokenize"])
+    compute, last = model.compute_conditions, {}
+
+    def compute_conditions(tokenized):
+        out, seconds = _timed(torch, lambda: compute(tokenized))
+        pieces["conditions"].append(seconds)
+        last["conditions"] = out
+        return out
+
+    model.compute_conditions = compute_conditions
+    decoder = codec.decoder
+    decoder.forward = _sync_timed(torch, decoder.forward, pieces["decode"])
+    evaluations = [0]
+    model.register_forward_pre_hook(
+        lambda *_: evaluations.__setitem__(0, evaluations[0] + 1))
+    runs = {}
+    for solver, kw in (("dopri5", {}), ("euler", {"euler": True})):
+        jasco.set_generation_params(duration=JASCO_SECONDS, **kw)
+        for times in pieces.values():
+            times.clear()
+        evaluations[0] = 0
+        torch.cuda.reset_peak_memory_stats()
+        (wav, latents), request_s = _timed(torch, lambda: jasco.generate(
+            TEXTS, chords=JASCO_CHORDS, drums_wav=drums, return_tokens=True))
+        if tuple(wav.shape) != (2, 1, JASCO_SECONDS * jasco.sample_rate) \
+                or not bool(
+                torch.isfinite(wav).all()):
+            raise AssertionError(f"jasco {solver}: waveform "
+                                 f"{tuple(wav.shape)} or non-finite")
+        split = {k: v[0] for k, v in pieces.items()}
+        runs[solver] = dict(
+            request_s=request_s, function_evaluations=evaluations[0],
+            breakdown_s=dict(split, solve=request_s - sum(split.values())),
+            latents_shape=list(latents.shape),
+            max_memory_allocated=torch.cuda.max_memory_allocated())
+    if runs["euler"]["function_evaluations"] != 50:
+        raise AssertionError("jasco: the Euler path did not take 50 steps")
+
+    # one vector-field evaluation at B 4 x 500 (2 texts x 2 CFG terms), on
+    # the conditions of the last request
+    conditions = last["conditions"]
+    rows = int(conditions["description"][0].shape[0])
+    frames = int(JASCO_SECONDS * jasco.frame_rate)
+    z = torch.randn(rows, frames, model.flow_dim, device="cuda")
+    t = torch.full((rows,), 0.5, device="cuda")
+    with torch.no_grad():
+        forward_ms = time_ms(lambda: model(z, t, conditions), n=10)
+        device_ms, top_kernels = _profile_kernels(
+            torch, lambda: model(z, t, conditions), reps=3)
+        # card vs CPU, f32, on a short sequence of the same conditions
+        cpu_model = copy.deepcopy(model).cpu()
+        cpu_conditions = {k: (c.cpu(), m.cpu()) for k, (c, m)
+                          in conditions.items()}
+        short = z[:, :50]
+        err = _card_vs_cpu("jasco FlowMatchingModel",
+                           model(short, t, conditions),
+                           cpu_model(short.cpu(), t.cpu(), cpu_conditions),
+                           1e-4)
+    del cpu_model
+    n_params = sum(p.numel() for n, p in model.named_parameters()
+                   if not n.startswith("condition_provider"))
+    emit("jasco", model="jasco chords+drums (solver/jasco/chords_drums at "
+         "model_scale/small: dim 1024, 16 heads, 24 layers, FFN 4096, skips, "
+         "pre-norm, flow 128 + chords 16 + drums 16; T5-base by "
+         "cross-attention; EnCodec 32 kHz; HTDemucs drum separation; seeded "
+         "random weights, f32)", card=card, setup_s=setup_s, texts=len(TEXTS),
+         audio_s_per_text=JASCO_SECONDS, chords=JASCO_CHORDS,
+         cfg_coef_all=5.0, cfg_terms=rows // len(TEXTS), runs=runs,
+         forward_ms=forward_ms, forward_rows=rows,
+         profiled_device_ms_per_forward=device_ms, top_kernels=top_kernels,
+         forward_frames=frames, forward_tflop=2 * n_params * z.shape[0]
+         * frames / 1e12, flow_params=n_params,
+         resident_bytes_before_phase=resident,
+         card_vs_cpu=dict(forward_max_abs_err=err, rel_tol=1e-4, frames=50))
+    del jasco, model, codec, decoder, separator, compute
+    _release(torch)
 
 
 def main() -> int:
@@ -1701,7 +2022,7 @@ def main() -> int:
     flash_worst, flash_timing = phase_flash_kernels(torch)
     phase_reference(torch)
     phase_reference_train(torch)
-    launches = phase_slice(torch, card)
+    launches, music = phase_slice(torch, card)
     train_launches = phase_train(torch, card)
     int4_worst, int4_timings = phase_int4_kernels(torch)
     int4_launches = phase_int4_path(torch, card)
@@ -1711,6 +2032,9 @@ def main() -> int:
         torch, card)
     style_launches, style_worst, style_timings = phase_style(torch, card)
     phase_magnet(torch, card)
+    phase_mbd(torch, card)
+    phase_audioseal(torch, card, music)
+    phase_jasco(torch, card)
     launches += melody_launches + audiogen_launches + style_launches
     timings += melody_timings + audiogen_timings + style_timings
 

@@ -13,7 +13,10 @@ decode attention against its plain version, |err| <= 1e-2 * max(1, |plain|)
 (sums in another order can move a bf16-rounded weight by one ulp); the int8
 product's int32 sums exactly; HTDemucs on the card against the CPU, atol
 1e-4 * max(1, max |CPU|) (f32 cuFFT and cuDNN against the CPU's FFT and
-convolutions, TF32 off); greedy tokens equal."""
+convolutions, TF32 off); greedy tokens equal; Multi-Band Diffusion,
+AudioSeal and JASCO on the card against the CPU with the same weights and
+noise, atol 1e-4 * max(1, max |CPU|) (f32, TF32 off), and the same number
+of Dormand-Prince evaluations."""
 import pytest
 import torch
 
@@ -798,3 +801,114 @@ def test_magnet_stage_graph_equals_eager_steps():
     finally:
         lm_module._replay_decode_steps = replay
     assert tuple(graph.shape) == (2, 4, 48) and torch.equal(graph, eager)
+
+
+def _f32_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _close(got: torch.Tensor, want: torch.Tensor) -> None:
+    want = want.cpu()
+    tol = 1e-4 * max(1.0, float(want.abs().max()))
+    assert float((got.cpu() - want).abs().max()) <= tol
+
+
+def _seeded_noise(monkeypatch, module):
+    """Replace `module.randn` by draws of a seeded CPU generator, so the
+    CPU and the card take the same noise."""
+    g = torch.Generator().manual_seed(0)
+    monkeypatch.setattr(module, "randn", lambda shape, generator, device:
+                        torch.randn(tuple(shape), generator=g).to(device))
+    return g
+
+
+@pytest.mark.gpu
+def test_debug_mbd_on_card_matches_cpu(monkeypatch):
+    """2 small BiLSTM bands over the debug codec: `tokens_to_wav` on the
+    card equals the CPU's with the same weights and noise."""
+    _f32_card()
+    from audiocraft_tpu_torch.models import MultiBandDiffusion
+    from audiocraft_tpu_torch.models.multibanddiffusion import \
+        DiffusionProcess
+    from audiocraft_tpu_torch.modules import diffusion_schedule
+    cfg = {"channels": 1,
+           "diffusion_unet": dict(hidden=8, depth=2, growth=2, kernel=4,
+                                  stride=2, emb_all_layers=True, bilstm=True,
+                                  codec_dim=32),
+           "schedule": dict(beta_t0=1e-5, beta_t1=2.9e-2, beta_exp=7.5,
+                            num_steps=1000, variance="beta", clip=5.0),
+           "processor": {"use": True, "n_bands": 8}}
+    tokens = torch.randint(0, 400, (2, 4, 3),
+                           generator=torch.Generator().manual_seed(1))
+    out = {}
+    for device in ("cpu", "cuda"):
+        bands = []
+        for band in range(2):
+            model, schedule = builders.get_diffusion_band(cfg, 32000, "cpu",
+                                                          seed=band)
+            proc = schedule.sample_processor
+            proc.counts.fill_(2.0)
+            proc.sum_x2.fill_(1e-2)
+            proc.sum_target_x2.fill_(1.0)
+            bands.append(DiffusionProcess(model, schedule))
+        codec = builders.get_debug_compression_model(device="cpu", seed=3)
+        mbd = MultiBandDiffusion(bands, codec, device=device)
+        with monkeypatch.context() as m:
+            _seeded_noise(m, diffusion_schedule)
+            out[device] = mbd.tokens_to_wav(tokens)
+    assert tuple(out["cuda"].shape) == (2, 1, 3 * 1280)
+    _close(out["cuda"], out["cpu"])
+
+
+@pytest.mark.gpu
+def test_audioseal_base_on_card_matches_cpu():
+    """AudioSeal at its base widths on 1 s of 16 kHz audio: watermark and
+    detection on the card equal the CPU's; probabilities sum to 1."""
+    _f32_card()
+    cpu = builders.get_audioseal_base(device="cpu", seed=0)
+    card = builders.get_audioseal_base(device="cuda", seed=0)
+    card.generator.load_state_dict(cpu.generator.state_dict())
+    card.detector.load_state_dict(cpu.detector.state_dict())
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 1, 16000, generator=g) * 0.1
+    message = torch.randint(0, 2, (2, 16), generator=g)
+    _close(card.get_watermark(x, message), cpu.get_watermark(x, message))
+    detected = card.detect_watermark(card.forward(x, message))
+    _close(detected, cpu.detect_watermark(cpu.forward(x, message)))
+    assert float((detected[:, :2].sum(1) - 1).abs().max()) < 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("euler", [True, False], ids=["euler", "dopri5"])
+def test_debug_jasco_on_card_matches_cpu(monkeypatch, euler):
+    """The debug JASCO (with a chord mapping) on the card equals the CPU's
+    with the same weights and noise; Dormand-Prince takes the same number
+    of evaluations."""
+    _f32_card()
+    from audiocraft_tpu_torch.models import JASCO, flow_matching
+    from audiocraft_tpu_torch.models.jasco import (CHORD_MAPPING_PATH,
+                                                  load_chords_mapping)
+    cpu = JASCO.get_pretrained("debug", device="cpu")
+    card = JASCO.get_pretrained("debug", device="cuda")
+    card.model.load_state_dict(cpu.model.state_dict())
+    card.compression_model.load_state_dict(cpu.compression_model.state_dict())
+    out, evaluations = {}, {}
+    for name, m in (("cpu", cpu), ("cuda", card)):
+        m.chords_mapping = load_chords_mapping(CHORD_MAPPING_PATH)
+        m.set_generation_params(duration=0.4, euler=euler, euler_steps=8)
+        count = [0]
+        handle = m.model.register_forward_pre_hook(
+            lambda *_: count.__setitem__(0, count[0] + 1))
+        with monkeypatch.context() as mp:
+            _seeded_noise(mp, flow_matching)
+            out[name] = m.generate(TEXTS, chords=[("C", 0.0), ("G", 0.2)],
+                                   return_tokens=True)
+        handle.remove()
+        evaluations[name] = count[0]
+    assert evaluations["cuda"] == evaluations["cpu"]
+    assert tuple(out["cuda"][0].shape) == (2, 1, 12800)
+    for got, want in zip(out["cuda"], out["cpu"]):
+        _close(got, want)
