@@ -223,15 +223,19 @@ class LMModel(nn.Module):
 
     def compute_predictions(self, codes: torch.Tensor,
                             condition_tensors: ConditionTensors,
-                            dropout_seed: tp.Optional[int] = None) -> LMOutput:
+                            dropout_seed: tp.Optional[int] = None,
+                            attn_bias: tp.Optional[torch.Tensor] = None
+                            ) -> LMOutput:
         """Training forward: codes [B, K, T] -> logits [B, K, T, card] aligned
         with the codes, and their validity mask. The pattern sequence keeps
-        only its valid steps (T + 1 for the delay pattern)."""
+        only its valid steps (T + 1 for the delay pattern); `attn_bias`
+        spans them (MAGNeT's stage bias)."""
         B, K, T = codes.shape
         pattern = self.pattern_provider.get_pattern(T)
         sequence, _, _ = pattern.build_pattern_sequence(
             codes, self.special_token_id, keep_only_valid_steps=True)
-        logits = self(sequence, condition_tensors, dropout_seed=dropout_seed)
+        logits = self(sequence, condition_tensors, dropout_seed=dropout_seed,
+                      attn_bias=attn_bias)
         logits = logits.permute(0, 3, 1, 2)  # [B, card, K, S]
         logits, _, mask = pattern.revert_pattern_logits(
             logits, 0.0, keep_only_valid_steps=True)

@@ -478,9 +478,18 @@ class StyleConditioner(FeatureExtractor):
     -> every `ds_factor`-th step -> output projection. Weights keep
     upstream's names (`embed`, `transformer.layers.{i}...`,
     `batch_norm.running_mean`, `rvq.vq.layers.{q}._codebook.embed`,
-    `output_proj`). Inference only: the training forward (the batch norm's
-    update, the RVQ's EMA and dead-code updates) is not ported (ROADMAP,
-    slice E)."""
+    `output_proj`).
+
+    In training mode (`style.train()`, called directly: a solver runs the
+    provider's conditioners in eval mode, as the JAX package does) the batch
+    norm normalises by the batch's statistics (f32, biased variance) and
+    updates its running ones (momentum 0.1, unbiased variance), and the RVQ
+    runs its training forward over a random number of streams in
+    [1, n_q_out] (`q_dropout`; `n_q` fixes it), updating its codebooks by
+    EMA with dead codes below `rvq_threshold_ema_dead_code` replaced by
+    rows of the batch. Both draws come from the conditioner's generator
+    (`set_seed`); the JAX package passes a fixed key to every training
+    call, so it draws the same at each step."""
     TR_ARGS = {
         "xsmall": {"d_model": 256, "num_heads": 8, "num_layers": 4},
         "large": {"d_model": 1024, "num_heads": 16, "num_layers": 24},
@@ -518,33 +527,53 @@ class StyleConditioner(FeatureExtractor):
                            if batch_norm else None)
         self.rvq = None
         if n_q_out > 0:
-            self.rvq = ResidualVectorQuantizer(d_model, n_q_out, bins,
-                                               device=device)
+            self.rvq = ResidualVectorQuantizer(
+                d_model, n_q_out, bins, q_dropout=q_dropout,
+                threshold_ema_dead_code=rvq_threshold_ema_dead_code,
+                device=device)
             with torch.no_grad():   # kaiming-uniform codebooks, as at init
                 bound = (6.0 / d_model) ** 0.5
                 for layer in self.rvq.vq.layers:
                     layer._codebook.embed.uniform_(-bound, bound)
                     layer._codebook.embed_avg.copy_(layer._codebook.embed)
 
-    def forward(self, tokenized: dict) -> ConditionType:
-        if self.training:
-            raise NotImplementedError(
-                "the style conditioner's training forward (batch-norm "
-                "update, RVQ EMA and dead-code training) is not ported "
-                "(ROADMAP, slice E)")
+    def forward(self, tokenized: dict,
+                n_q: tp.Optional[int] = None) -> ConditionType:
         z = self._feat_embeds(tokenized)                         # [B, T, dim]
         if self.transformer is not None:
             z = self.transformer(z)
         if self.batch_norm is not None:
-            mean = self.batch_norm.running_mean.to(z.dtype)
-            std = torch.sqrt(self.batch_norm.running_var + 1e-5).to(z.dtype)
-            z = (z - mean) / std
-        if self.rvq is not None:
+            z = self._normalize(z)
+        if self.rvq is not None and self.training:
+            self.rvq.set_num_codebooks(self.n_q_out)
+            z = self.rvq(z.transpose(1, 2), frame_rate=1, n_q=n_q,
+                         generator=self.generator).x.transpose(1, 2)
+        elif self.rvq is not None:
             self.rvq.set_num_codebooks(self.eval_q)
             codes = self.rvq.encode(z.transpose(1, 2))
             z = self.rvq.decode(codes, dtype=torch.float32).transpose(1, 2)
         z = z[:, ::self.ds_factor].to(self.output_proj.weight.dtype)
         return self._valid(self.output_proj(z), tokenized)
+
+
+    def _normalize(self, z: torch.Tensor) -> torch.Tensor:
+        """The affine-free batch norm over [B, T, dim]: the batch's
+        statistics in training, taken in f32 or wider (updating the running
+        ones), else the running ones."""
+        bn = self.batch_norm
+        if not self.training:
+            mean, var = bn.running_mean, bn.running_var
+        else:
+            zf = z.to(torch.promote_types(z.dtype, torch.float32))
+            mean = zf.mean(dim=(0, 1))
+            var = zf.var(dim=(0, 1), unbiased=False)
+            with torch.no_grad():
+                n = zf.shape[0] * zf.shape[1]
+                unbiased = var * n / max(n - 1, 1)
+                bn.running_mean.copy_(0.9 * bn.running_mean + 0.1 * mean)
+                bn.running_var.copy_(0.9 * bn.running_var + 0.1 * unbiased)
+                bn.num_batches_tracked += 1
+        return (z - mean.to(z.dtype)) / torch.sqrt(var + 1e-5).to(z.dtype)
 
 
 def set_style_params(conditioner: StyleConditioner, *, eval_q: int = 3,

@@ -27,9 +27,10 @@ runs the int8 product and a plain weight keeps F.linear's math.
 Training mode (`module.train()`) applies residual dropout and
 attention-probs dropout; both are the identity at p = 0. Their masks come
 from a generator seeded per layer from `dropout_seed`, so that a layer
-recomputed under `checkpointing='torch'` draws the same masks.
+recomputed under `checkpointing` draws the same masks.
 """
 import dataclasses
+import functools
 import typing as tp
 
 import torch
@@ -46,6 +47,19 @@ from .activations import get_activation_fn
 from .rope import RopeConfig, rope_config, rope_rotate
 
 MAX_PERIOD = 10000.0
+
+_aten = torch.ops.aten
+_FLASH_FWD = torch.ops.audiocraft_tpu_torch.flash_causal_fwd.default
+# The ops whose outputs selective checkpointing saves, per policy (the JAX
+# package's `DOTS_REMAT_POLICY` and `DOTS_NB_REMAT_POLICY`): every matrix
+# product a Linear or an einsum dispatches to, or only the unbatched ones,
+# and in both the causal flash-attention forward, whose (out, lse) its
+# backward needs; recomputing it would run the kernel twice.
+SAC_SAVED_OPS = {
+    "dots": [_aten.mm.default, _aten.addmm.default, _aten.bmm.default,
+             _aten.baddbmm.default, _FLASH_FWD],
+    "dots_nb": [_aten.mm.default, _aten.addmm.default, _FLASH_FWD],
+}
 
 
 def create_sin_embedding(positions: torch.Tensor, dim: int,
@@ -432,9 +446,14 @@ class StreamingTransformer(nn.Module):
 
     `checkpointing='torch'` recomputes each layer in the backward
     (`torch.utils.checkpoint`, non-reentrant), saving only the layer inputs,
-    as the JAX package's `jax.checkpoint` of each layer does. The JAX
-    package's selective policies 'dots' and 'dots_nb' are not ported
-    (ROADMAP, slice E)."""
+    as the JAX package's `jax.checkpoint` of each layer does. 'dots' and
+    'dots_nb' checkpoint each layer selectively (`SAC_SAVED_OPS`): the
+    outputs of its matrix products and of the causal flash-attention
+    forward are saved, everything else (norms, activations, casts, softmax,
+    dropout) is recomputed; 'dots_nb' saves only the unbatched products
+    (the projections and the feed-forward), so the batched products of the
+    plain and cross attention are recomputed too, as the JAX package's
+    `DOTS_NB_REMAT_POLICY`."""
 
     def __init__(self, d_model: int, num_heads: int, num_layers: int,
                  dim_feedforward: int = 2048, dropout: float = 0.0,
@@ -453,12 +472,7 @@ class StreamingTransformer(nn.Module):
                  device=None, dtype=None):
         super().__init__()
         assert d_model % num_heads == 0
-        if checkpointing in ("dots", "dots_nb"):
-            raise NotImplementedError(
-                f"checkpointing={checkpointing!r} needs the flash kernel as a "
-                f"torch.library op for selective checkpointing; not ported "
-                f"yet (ROADMAP, slice E)")
-        if checkpointing not in ("none", "torch"):
+        if checkpointing not in ("none", "torch", *SAC_SAVED_OPS):
             raise ValueError(f"unknown checkpointing {checkpointing!r}")
         self.d_model = d_model
         self.num_heads = num_heads
@@ -522,14 +536,20 @@ class StreamingTransformer(nn.Module):
             if self.positional_scale != 1.0:
                 emb = self.positional_scale * emb
             x = x + emb
-        remat = (self.checkpointing == "torch" and caches is None
+        remat = (self.checkpointing != "none" and caches is None
                  and torch.is_grad_enabled())
+        context_fn = torch.utils.checkpoint.noop_context_fn
+        if self.checkpointing in SAC_SAVED_OPS:
+            context_fn = functools.partial(
+                torch.utils.checkpoint.create_selective_checkpoint_contexts,
+                SAC_SAVED_OPS[self.checkpointing])
         for i, layer in enumerate(self.layers):
             seed = None if dropout_seed is None else dropout_seed + i
             if remat:
                 x = torch.utils.checkpoint.checkpoint(
                     self._layer_call, layer, x, cross_attention_src,
-                    attn_bias, seed, use_reentrant=False)
+                    attn_bias, seed, use_reentrant=False,
+                    context_fn=context_fn)
             else:
                 x = layer(x, cross_attention_src=cross_attention_src,
                           cache=caches[i] if caches is not None else None,

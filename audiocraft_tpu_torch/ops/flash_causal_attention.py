@@ -2,21 +2,31 @@
 
 Counterpart of `audiocraft_tpu/ops/attention.py::flash_causal_attention`,
 which reaches the Pallas TPU flash-attention kernel (a forward plus a
-custom-VJP backward). On CUDA tensors `flash_causal_attention` runs the
-hand-written Hopper kernels of `csrc/flash_causal_attention.cu` inside a
-`torch.autograd.Function` (see the source header for the design: it is bound
-by tensor-core operations); on CPU tensors it computes the same function with
-`flash_causal_attention_reference`, whose gradient autograd derives. There is
-no other route.
+custom-VJP backward). The function is two `torch.library` ops that the
+dispatcher sees, so that selective activation checkpointing can save their
+outputs (`modules/transformer.py`, `checkpointing='dots'|'dots_nb'`):
+
+- `audiocraft_tpu_torch::flash_causal_fwd(q, k, v) -> (out, lse)`;
+- `audiocraft_tpu_torch::flash_causal_bwd(q, k, v, out, lse, dout)
+  -> (dq, dk, dv)`,
+
+joined by `register_autograd`. On CUDA tensors they run the hand-written
+Hopper kernels of `csrc/flash_causal_attention.cu` (see the source header
+for the design: it is bound by tensor-core operations); on CPU tensors the
+plain versions `flash_causal_attention_reference` and
+`flash_causal_attention_backward_reference`, which compute the same math
+in f32. There is no other route: another device raises.
 
 Layouts: q, k, v [B, T, H, D], float32 or bfloat16, the last dimension
 contiguous; other strides are read as they are, so the chunks of a fused qkv
-projection go in without a copy. Returns [B, T, H, D] in q's dtype. The
+projection go in without a copy. out [B, T, H, D] in q's dtype, contiguous;
+lse [B, H, T] f32, the natural log-sum-exp of each row's scaled scores. The
 TPU wrapper padded T to a multiple of 128; the kernel masks its ragged last
 tile instead.
 """
 import ctypes
 import math
+import typing as tp
 
 import torch
 
@@ -28,17 +38,46 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _launchers: dict = {}
 
 
-def flash_causal_attention_reference(q: torch.Tensor, k: torch.Tensor,
-                                     v: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version: f32 scores with the causal bias of
-    `make_causal_bias`, f32 softmax and products, output in q's dtype."""
-    _check_shapes(q, k, v)
+def _scaled_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """f32 q.k^T / sqrt(D) plus the causal bias: [B, H, T, T]."""
     T, D = q.shape[1], q.shape[3]
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float() * (1.0 / math.sqrt(D)),
                           k.float())
     pos = torch.arange(T, device=q.device)
-    w = torch.softmax(logits + make_causal_bias(pos, pos), dim=-1)
-    return torch.einsum("bhqk,bkhd->bqhd", w, v.float()).to(q.dtype)
+    return logits + make_causal_bias(pos, pos)
+
+
+def flash_causal_attention_reference(q: torch.Tensor, k: torch.Tensor,
+                                     v: torch.Tensor
+                                     ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch forward: f32 scores with the causal bias of
+    `make_causal_bias`, f32 softmax and products. Returns (out [B, T, H, D]
+    in q's dtype, lse [B, H, T] f32), both contiguous, as the kernel."""
+    _check_shapes(q, k, v)
+    scores = _scaled_scores(q, k)
+    lse = torch.logsumexp(scores, dim=-1)
+    w = torch.exp(scores - lse[..., None])
+    out = torch.einsum("bhqk,bkhd->bqhd", w, v.float())
+    return out.to(q.dtype).contiguous(), lse.contiguous()
+
+
+def flash_causal_attention_backward_reference(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+        lse: torch.Tensor, dout: torch.Tensor
+) -> tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch backward, the kernels' math in f32: P = exp(S - lse),
+    delta = rowsum(dO * O), dV = P^T dO, dS = P * (dO V^T - delta),
+    dQ = dS K / sqrt(D), dK = dS^T Q / sqrt(D). Returns (dq, dk, dv)
+    [B, T, H, D] in q's dtype, contiguous."""
+    scale = 1.0 / math.sqrt(q.shape[3])
+    p = torch.exp(_scaled_scores(q, k) - lse[..., None])       # [B, H, T, T]
+    do = dout.float()
+    delta = (do * out.float()).sum(-1).transpose(1, 2)          # [B, H, T]
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do)
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", do, v.float()) - delta[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
+    return tuple(t.to(q.dtype).contiguous() for t in (dq, dk, dv))
 
 
 def _check_shapes(q, k, v):
@@ -88,6 +127,8 @@ def _raise_on(err: int, what: str) -> None:
 
 
 def _forward(q, k, v):
+    """The forward kernel on the current stream: (out, lse)."""
+    _check_cuda(q, k, v)
     B, T, H, D = q.shape
     out = torch.empty(B, T, H, D, dtype=q.dtype, device=q.device)
     lse = torch.empty(B, H, T, dtype=torch.float32, device=q.device)
@@ -101,6 +142,7 @@ def _forward(q, k, v):
 
 
 def _backward(q, k, v, out, lse, dout):
+    """The delta pre-pass, dK/dV and dQ kernels: (dq, dk, dv)."""
     B, T, H, D = q.shape
     dout = dout.to(q.dtype).contiguous()
     delta = torch.empty(B, H, T, dtype=torch.float32, device=q.device)
@@ -115,36 +157,69 @@ def _backward(q, k, v, out, lse, dout):
     return dq, dk, dv
 
 
-class _FlashCausalAttention(torch.autograd.Function):
-    """Forward kernel saving the per-row log-sum-exp; backward kernels
-    (delta pre-pass, dK/dV, dQ) recomputing the probabilities from it."""
+@torch.library.custom_op("audiocraft_tpu_torch::flash_causal_fwd",
+                         mutates_args=(), device_types="cpu")
+def flash_causal_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                     ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
+    # the plain version in f32 whatever autocast asks of the ops inside
+    with torch.autocast("cpu", enabled=False):
+        return flash_causal_attention_reference(q, k, v)
 
-    @staticmethod
-    def forward(ctx, q, k, v):
-        out, lse = _forward(q, k, v)
-        ctx.save_for_backward(q, k, v, out, lse)
-        return out
 
-    @staticmethod
-    def backward(ctx, dout):
-        return _backward(*ctx.saved_tensors, dout)
+@torch.library.custom_op("audiocraft_tpu_torch::flash_causal_bwd",
+                         mutates_args=(), device_types="cpu")
+def flash_causal_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor
+                     ) -> tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    with torch.autocast("cpu", enabled=False):
+        return flash_causal_attention_backward_reference(q, k, v, out, lse,
+                                                         dout)
+
+
+flash_causal_fwd.register_kernel("cuda")(_forward)
+flash_causal_bwd.register_kernel("cuda")(_backward)
+
+
+@flash_causal_fwd.register_fake
+def _(q, k, v):
+    B, T, H, D = q.shape
+    return (q.new_empty(B, T, H, D),
+            q.new_empty(B, H, T, dtype=torch.float32))
+
+
+@flash_causal_bwd.register_fake
+def _(q, k, v, out, lse, dout):
+    return tuple(q.new_empty(q.shape) for _ in range(3))
+
+
+def _setup_context(ctx, inputs, output):
+    q, k, v = inputs
+    out, lse = output
+    ctx.mark_non_differentiable(lse)
+    ctx.save_for_backward(q, k, v, out, lse)
+
+
+def _backward_formula(ctx, dout, _dlse):
+    return flash_causal_bwd(*ctx.saved_tensors, dout)
+
+
+flash_causal_fwd.register_autograd(_backward_formula,
+                                   setup_context=_setup_context)
 
 
 def flash_causal_attention(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor) -> torch.Tensor:
     """softmax(q.k^T / sqrt(D) + causal mask).v over q, k, v [B, T, H, D].
 
-    CPU tensors take `flash_causal_attention_reference`; CUDA tensors launch
-    the kernels on the current stream (no synchronisation) or raise.
+    CPU tensors take the plain versions; CUDA tensors launch the kernels on
+    the current stream (no synchronisation) or raise. Both go through the
+    `flash_causal_fwd` / `flash_causal_bwd` ops.
     `flash_causal_attention.launches` counts forward launches and
     `.backward_launches` backward ones (three kernels each)."""
-    if q.device.type == "cpu":
-        return flash_causal_attention_reference(q, k, v)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_causal_attention runs on cpu or cuda, not "
                          f"{q.device}")
-    _check_cuda(q, k, v)
-    return _FlashCausalAttention.apply(q, k, v)
+    return flash_causal_fwd(q, k, v)[0]
 
 
 flash_causal_attention.launches = 0

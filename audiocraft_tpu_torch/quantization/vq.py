@@ -1,19 +1,42 @@
-"""Residual vector quantizer (counterpart of `audiocraft_tpu/quantization/vq.py`)
-for inference. Channels-first like the rest of the port: latents [B, D, T],
-codes [B, K, T]."""
+"""Residual vector quantizer (counterpart of `audiocraft_tpu/quantization/vq.py`).
+Channels-first like the rest of the port: latents [B, D, T], codes [B, K, T].
+
+`forward` is the training forward: the residual cascade with its
+commitment penalty, EMA codebook updates in training mode, and quantizer
+dropout (`q_dropout`: in training, a random number of levels in [1, n_q],
+drawn from the caller's generator unless `n_q` is given).
+"""
+import dataclasses
+import math
+import typing as tp
+
 import torch
 import torch.nn as nn
 
 from .core_vq import ResidualVectorQuantization
 
 
+@dataclasses.dataclass
+class QuantizedResult:
+    """x [B, D, T] (the quantized latents), codes [B, K, T], the bandwidth
+    in kb/s, and the commitment penalty (mean over the active levels)."""
+    x: torch.Tensor
+    codes: torch.Tensor
+    bandwidth: torch.Tensor
+    penalty: tp.Optional[torch.Tensor] = None
+
+
 class ResidualVectorQuantizer(nn.Module):
     def __init__(self, dimension: int = 256, n_q: int = 8, bins: int = 1024,
-                 device=None):
+                 q_dropout: bool = False, decay: float = 0.99,
+                 threshold_ema_dead_code: float = 2.0, device=None):
         super().__init__()
         self.dimension = dimension
         self.n_q = n_q
         self.bins = bins
+        self.q_dropout = q_dropout
+        self.decay = decay
+        self.threshold_ema_dead_code = threshold_ema_dead_code
         self.vq = ResidualVectorQuantization(n_q, dimension, bins, device)
 
     @property
@@ -28,6 +51,27 @@ class ResidualVectorQuantizer(nn.Module):
         """Use the first `n` codebooks (1 <= n <= total_codebooks)."""
         assert 0 < n <= self.total_codebooks
         self.n_q = n
+
+    def forward(self, x: torch.Tensor, frame_rate: int,
+                n_q: tp.Optional[int] = None,
+                generator: tp.Optional[torch.Generator] = None
+                ) -> QuantizedResult:
+        """x [B, D, T] through the first `n_q` levels (default: `self.n_q`,
+        or with `q_dropout` in training mode a draw from `generator`); in
+        training mode the active codebooks take their EMA step."""
+        if n_q is None:
+            n_q = self.n_q
+            if self.training and self.q_dropout:
+                n_q = int(torch.randint(1, self.n_q + 1, (1,),
+                                        generator=generator))
+        quantized, codes, commits = self.vq(
+            x.transpose(1, 2), n_q, self.training, generator,
+            decay=self.decay,
+            threshold_ema_dead_code=self.threshold_ema_dead_code)
+        bandwidth = torch.tensor(n_q * math.log2(self.bins) * frame_rate / 1000,
+                                 device=x.device)
+        return QuantizedResult(quantized.transpose(1, 2), codes, bandwidth,
+                               penalty=commits.sum() / max(n_q, 1))
 
     def encode(self, x: torch.Tensor) -> torch.Tensor:
         """x [B, D, T] -> codes [B, K, T] with K = the active n_q."""

@@ -5,16 +5,20 @@ import typing as tp
 import torch
 import torch.nn as nn
 
+from ..optim.dadam import DAdaptAdam
 from ..optim.lr_schedulers import get_lr_scheduler
 
 ParamGroups = tp.List[tp.Dict[str, tp.Any]]
 
 
 def get_solver(cfg: dict, device=None):
-    """The solver named by `cfg['solver']`: MusicGen or AudioGen."""
+    """The solver named by `cfg['solver']`: MusicGen, AudioGen, MAGNeT or
+    AudioGen-MAGNeT."""
     from .audiogen import AudioGenSolver
+    from .magnet import AudioMagnetSolver, MagnetSolver
     from .musicgen import MusicGenSolver
-    solvers = {"musicgen": MusicGenSolver, "audiogen": AudioGenSolver}
+    solvers = {"musicgen": MusicGenSolver, "audiogen": AudioGenSolver,
+               "magnet": MagnetSolver, "audio_magnet": AudioMagnetSolver}
     name = cfg["solver"]
     if name not in solvers:
         raise NotImplementedError(f"solver {name!r} is not ported (ROADMAP)")
@@ -88,16 +92,22 @@ def make_torch_optimizer(groups: ParamGroups, name: str, lr: float,
             g.pop("weight_decay", None)
         return torch.optim.Adam(groups, lr=lr, betas=tuple(betas), eps=eps)
     if name == "dadam":
-        raise NotImplementedError("the dadam optimizer is not ported "
-                                  "(ROADMAP, slice E)")
+        # the adapted step size takes the place of the rate: a multiplier of
+        # 1.0 for every group, as the JAX package's `dadapt_adam(1.0, ...)`
+        for g in groups:
+            g["lr"] = 1.0
+        return DAdaptAdam(groups, lr=1.0, betas=tuple(betas), eps=eps,
+                          weight_decay=weight_decay)
     raise ValueError(f"Unsupported Optimizer: {name}")
 
 
 def get_optimizer(params: tp.Union[ParamGroups, tp.Iterable[torch.Tensor]],
                   cfg: dict, total_updates: int = 1) -> ClippedOptimizer:
-    """AdamW or Adam with clipping and an LR schedule from an `optim` config:
-    `optimizer`, `lr`, `adam.{betas, eps, weight_decay}`, `max_norm`, and
-    `lr_scheduler` with its settings under the scheduler's name. `params` is
+    """AdamW, Adam or D-Adaptation Adam with clipping and an LR schedule
+    from an `optim` config: `optimizer`, `lr`, `adam.{betas, eps,
+    weight_decay}`, `max_norm`, and `lr_scheduler` with its settings under
+    the scheduler's name (D-Adaptation Adam takes no rate and no schedule,
+    as in the JAX package). `params` is
     a list of tensors or of groups from `get_optim_parameter_groups`; a
     group's 'lr' and 'weight_decay' override the config's, and every group
     follows the same schedule shape from its own peak rate."""
@@ -107,14 +117,15 @@ def get_optimizer(params: tp.Union[ParamGroups, tp.Iterable[torch.Tensor]],
     base_lr = float(cfg.get("lr", 1e-4))
     adam = cfg.get("adam", {}) or {}
     weight_decay = float(adam.get("weight_decay", 0.0))
-    sched_name = cfg.get("lr_scheduler")
+    name = cfg.get("optimizer", "adamw")
+    sched_name = cfg.get("lr_scheduler") if name != "dadam" else None
     sched_cfg = cfg.get(sched_name or "", {})
     sched_cfg = sched_cfg if isinstance(sched_cfg, dict) else {}
     groups = [{**g, "lr": float(g.get("lr", base_lr)),
                "weight_decay": float(g.get("weight_decay", weight_decay))}
               for g in groups]
     optimizer = make_torch_optimizer(
-        groups, cfg.get("optimizer", "adamw"), base_lr,
+        groups, name, base_lr,
         adam.get("betas", (0.9, 0.999)), float(adam.get("eps", 1e-8)),
         weight_decay)
     schedules = [get_lr_scheduler(sched_name, g["lr"], total_updates, sched_cfg)

@@ -5,10 +5,15 @@ A train step runs the conditioners and the LM's `compute_predictions`
 forward (under bf16 autocast when `transformer_lm.dtype` is bfloat16; the
 parameters stay f32), takes the cross-entropy over the positions the pattern
 predicts that are not padding, back-propagates, clips the gradients' global
-norm and steps the optimizer. Two facts of the JAX solver are kept as they
-are: it reads `lr_scheduler` from `optim`, where the MusicGen config has none
-(its schedule sits under `schedule:`), so the rate is constant; and it keeps
-no EMA of the weights whatever `optim.ema` says.
+norm and steps the optimizer. The conditioners run their eval forward in
+training too, as the JAX package's provider calls them (a style
+conditioner keeps its running statistics and codebooks). Two facts of the
+JAX solver are kept as they are: it reads `lr_scheduler` from `optim`, where
+the MusicGen config has none (its schedule sits under `schedule:`), so the
+rate is constant; and it keeps no EMA of the weights whatever `optim.ema`
+says. One is not: the JAX solver's 'valid' stage runs its train step, so
+it trains on the validation data; here a stage other than 'train' only
+evaluates.
 """
 import contextlib
 import typing as tp
@@ -22,9 +27,12 @@ from ..models.lm import LMModel
 from ..modules.conditioners import (AttributeDropout,
                                     ClassifierFreeGuidanceDropout,
                                     ConditioningAttributes)
+from ..utils import jax_weights
 from ..utils.utils import resolve_device
 from . import builders
 from .base import SolverRunMixin
+
+GENERATIVE_METRICS = ("fad", "kld", "text_consistency", "chroma_cosine")
 
 
 def compute_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
@@ -106,6 +114,7 @@ def train_step(model: LMModel, optimizer: builders.ClippedOptimizer,
     Returns 0-d device tensors: ce, ppl, grad_norm (before clipping), and
     ce_q{k}, ppl_q{k} per codebook; nothing here waits for the device."""
     model.train()
+    model.condition_provider.eval()
     with _autocast(codes.device, compute_dtype):
         condition_tensors = model.compute_conditions(tokenized)
         out = model.compute_predictions(codes, condition_tensors,
@@ -133,15 +142,32 @@ def eval_step(model: LMModel, codes: torch.Tensor,
             if not k.startswith("ppl_q")}
 
 
+def _rng_state(rng: np.random.RandomState) -> dict:
+    """A numpy RandomState's state as tensors and numbers (`torch.load`
+    with `weights_only` reads it back)."""
+    _, keys, pos, has_gauss, cached = rng.get_state()
+    return {"keys": torch.from_numpy(keys.astype(np.int64)), "pos": pos,
+            "has_gauss": has_gauss, "cached_gaussian": cached}
+
+
+def _set_rng_state(rng: np.random.RandomState, state: dict) -> None:
+    rng.set_state(("MT19937", state["keys"].numpy().astype(np.uint32),
+                   state["pos"], state["has_gauss"], state["cached_gaussian"]))
+
+
 class MusicGenSolver(SolverRunMixin):
     """MusicGen LM training from a solver config dict: a frozen compression
     model (the debug codec at the config's `sample_rate`, 32 or 16 kHz, for
-    `compression_model_checkpoint` 'debug' or None), the LM (`get_lm_model` when the config has `transformer_lm`, else
-    the debug LM), condition dropouts, and the optimizer. Runs on CUDA
-    unless `device` names another. Loaders are iterables of batches placed
-    in `self.dataloaders` (the datasets are ROADMAP slice H); a batch is
-    `(wav, infos)` or a precomputed dict with 'codes', 'tokenized' and
-    'padding_mask'."""
+    `compression_model_checkpoint` 'debug' or None), the LM (`get_lm_model`
+    when the config has `transformer_lm`, else the debug LM), condition
+    dropouts, and the optimizer. Runs on CUDA unless `device` names another.
+    Loaders are iterables of batches placed in `self.dataloaders` (the
+    datasets are ROADMAP slice H); a batch is `(wav, infos)` or a
+    precomputed dict with 'codes' and 'tokenized'. `run()` trains epochs
+    with checkpoints (`solvers/base.py`); the checkpoint holds the LM, the
+    optimizer and its schedule, the step, and the states of the solver's
+    generators, so a resumed run takes the same steps as one that was not
+    stopped."""
     DATASET_TYPE = "music"
 
     def __init__(self, cfg: dict, device=None):
@@ -169,8 +195,7 @@ class MusicGenSolver(SolverRunMixin):
             self.model = model_builders.get_lm_model(cfg, device=self.device,
                                                      seed=seed)
         else:
-            self.model = model_builders.get_debug_lm_model(device=self.device,
-                                                           seed=seed)
+            self.model = self._debug_lm(device=self.device, seed=seed)
         self.compute_dtype = (torch.bfloat16 if lm_cfg.get("dtype") == "bfloat16"
                               else None)
 
@@ -190,6 +215,8 @@ class MusicGenSolver(SolverRunMixin):
                                                 total_updates)
         self._rng = torch.Generator().manual_seed(seed)
         self.epoch = 1
+
+    _debug_lm = staticmethod(model_builders.get_debug_lm_model)
 
     def _next_dropout_seed(self) -> int:
         return int(torch.randint(0, 2 ** 62, (1,), generator=self._rng))
@@ -215,31 +242,109 @@ class MusicGenSolver(SolverRunMixin):
         codes = mask_padding(codes, padding_mask, self.model.special_token_id)
         return codes, tokenized, padding_mask
 
-    def run_step(self, idx: int, batch, metrics: dict) -> dict:
+    def _batch_codes(self, batch, training: bool = True):
+        """(codes, tokenized, padding mask) of a (wav, infos) batch or of a
+        precomputed dict (its padding mask, or None)."""
         if isinstance(batch, tuple) and len(batch) == 1 \
                 and isinstance(batch[0], dict):
             batch = batch[0]
         if isinstance(batch, dict) and "codes" in batch:
-            codes = torch.as_tensor(batch["codes"]).to(self.device)
-            tokenized = batch["tokenized"]
-        else:
-            codes, tokenized, _ = self._prepare_tokens_and_attributes(batch)
+            padding = batch.get("padding_mask")
+            return (torch.as_tensor(batch["codes"]).to(self.device),
+                    batch["tokenized"],
+                    None if padding is None
+                    else torch.as_tensor(padding).to(self.device))
+        return self._prepare_tokens_and_attributes(batch, training)
+
+    def run_step(self, idx: int, batch, metrics: dict) -> dict:
+        """A train step in the 'train' stage; in another stage (valid) the
+        CE without an update."""
+        training = self.current_stage == "train"
+        codes, tokenized, _ = self._batch_codes(batch, training)
+        if not training:
+            metrics.update(eval_step(self.model, codes, tokenized,
+                                     compute_dtype=self.compute_dtype))
+            return metrics
         metrics.update(train_step(self.model, self.optimizer, codes, tokenized,
                                   dropout_seed=self._next_dropout_seed(),
                                   compute_dtype=self.compute_dtype))
         return metrics
 
     def run_epoch(self, split: str = "train", max_updates: int = 0) -> dict:
-        loader = self.dataloaders[split]
-        if hasattr(loader, "set_epoch"):
-            loader.set_epoch(self.epoch)
+        return self._iter_split(split, max_updates)
+
+    def evaluate(self) -> dict:
+        """CE and perplexity averaged over the 'evaluate' loader's batches
+        ({} without one), then the generative metrics that
+        `evaluate.metrics` asks for."""
+        loader = self.dataloaders.get("evaluate")
+        if loader is None:
+            return {}
         average: tp.Dict[str, float] = {}
         count = 0
-        for idx, batch in enumerate(loader):
-            if max_updates and idx >= max_updates:
-                break
-            metrics = self.run_step(idx, batch, {})
+        for batch in loader:
+            codes, tokenized, _ = self._batch_codes(batch, training=False)
+            step = eval_step(self.model, codes, tokenized,
+                             compute_dtype=self.compute_dtype)
             count += 1
-            for key, value in metrics.items():
+            for key, value in step.items():
                 average[key] = average.get(key, 0.0) + float(value)
-        return {k: v / max(count, 1) for k, v in average.items()}
+        metrics = {k: v / max(count, 1) for k, v in average.items()}
+        metrics.update(self.evaluate_audio_generation())
+        return metrics
+
+    def evaluate_audio_generation(self) -> dict:
+        """The generative metrics (FAD, KLD, text consistency, chroma
+        cosine) are not ported: {} unless `evaluate.metrics` asks for one,
+        which raises."""
+        asked = ((self.cfg.get("evaluate", {}) or {}).get("metrics", {})
+                 or {})
+        wanted = [name for name in GENERATIVE_METRICS if asked.get(name)]
+        if wanted:
+            raise NotImplementedError(
+                f"the generative metrics {wanted} are not ported (ROADMAP, "
+                f"slice H: metrics/)")
+        return {}
+
+    def generate(self) -> dict:
+        """{} without a 'generate' (or 'evaluate', or 'valid') loader, as in
+        the JAX package; with one it raises: the sample manager that stores
+        the samples is not ported."""
+        loader = (self.dataloaders.get("generate")
+                  or self.dataloaders.get("evaluate")
+                  or self.dataloaders.get("valid"))
+        if loader is None:
+            return {}
+        raise NotImplementedError("the generate stage needs the sample "
+                                  "manager, which is not ported (ROADMAP, "
+                                  "slice H: utils/samples/)")
+
+    # ------------------------------------------------------------ checkpoints
+    def _rng_states(self) -> dict:
+        return {"dropout": self._rng.get_state(),
+                "cfg_dropout": _rng_state(self.cfg_dropout.rng),
+                "att_dropout": _rng_state(self.att_dropout.rng)}
+
+    def _set_rng_states(self, states: dict) -> None:
+        self._rng.set_state(states["dropout"])
+        _set_rng_state(self.cfg_dropout.rng, states["cfg_dropout"])
+        _set_rng_state(self.att_dropout.rng, states["att_dropout"])
+
+    def state_dict(self) -> dict:
+        return {"model": self.model.state_dict(),
+                "optimizer": self.optimizer.optimizer.state_dict(),
+                "lr_scheduler": self.optimizer.scheduler.state_dict(),
+                "step": self.optimizer.scheduler.last_epoch,
+                "rng": self._rng_states()}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.model.load_state_dict(state["model"])
+        self.optimizer.optimizer.load_state_dict(state["optimizer"])
+        self.optimizer.scheduler.load_state_dict(state["lr_scheduler"])
+        self._set_rng_states(state["rng"])
+
+    def load_model_weights(self, state: dict) -> None:
+        self.model.load_state_dict(state["model"])
+
+    def load_jax_params(self, tree) -> None:
+        jax_weights.load_lm(self.model, tree)

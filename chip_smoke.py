@@ -38,6 +38,24 @@ Phases, each printing one JSON line:
            of seeded audio encoded by the full-width EnCodec; checks finite
            and falling CE and that every self-attention forward and backward
            launched K2;
+  train_remat  the same solver and batch under checkpointing 'none',
+           'torch', 'dots' and 'dots_nb' (selective checkpointing that saves
+           the products' and K2's outputs), 3 steps each from the same
+           weights: K2's launches per step (forward L, 2L under 'torch';
+           backward L), the first step's gradients against 'none''s, the
+           steady step time, the peak memory and device ms by kernel group;
+  resume   2 more steps, `save_checkpoints`, a fresh solver that
+           `restore`s them (weights equal bit for bit), then one step in
+           each: equal CE and weights within 2 x lr;
+  magnet_train  MAGNeT-small training at full width (8 x 10 s): two steps
+           of each codebook stage, then two `run_step`s; finite CE, ms per
+           step, peak memory, no K2 launch (non-causal attention);
+  style_train  MusicGen-Style training at full width: the style
+           conditioner's training forward (batch-norm statistics, RVQ EMA,
+           quantizer dropout and dead codes) on the card against the CPU in
+           f64, then 3 `run_step`s of the medium LM on 4 x 30 s with the
+           conditioner in its eval forward (its buffers unchanged) and K2 on
+           every layer;
   int4_kernel_check / int4_kernel_timing  hold the int4-KV decode attention
            K3 against its plain version (B 1, 2, 4, 512; D 64, 128; S 504, 512;
            lengths 1, 33, 384, S; with and without a window of 7; and a
@@ -478,7 +496,7 @@ def phase_flash_kernels(torch):
             torch.cuda.synchronize()
             # the plain version in f32 on the same (rounded) inputs
             refs = [t.detach().float().requires_grad_(True) for t in (q, k, v)]
-            ref = flash_causal_attention_reference(*refs)
+            ref = flash_causal_attention_reference(*refs)[0]
             ref.backward(dout.float())
             got = [out] + [t.reshape(B, T, H, D) for t in x.grad.chunk(3, -1)]
             want = [ref] + [t.grad for t in refs]
@@ -541,7 +559,7 @@ def _time_flash(torch, B, T, H, D, g):
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
     plain_ms = time_ms(lambda: flash_causal_attention_reference(*leaves),
                         flush_bytes=flush)
-    ref = flash_causal_attention_reference(*leaves)
+    ref = flash_causal_attention_reference(*leaves)[0]
     plain_bwd_ms = time_ms(lambda: torch.autograd.grad(
         ref, leaves, dout, retain_graph=True), flush_bytes=flush)
     del ref
@@ -896,7 +914,334 @@ def phase_train(torch, card):
          k2_forward_launches=launches[0], k2_backward_launches=launches[1],
          expected_launches=expected, decode_attention_launches=launches[2],
          max_memory_allocated=peak)
+    return launches, solver, batch
+
+
+REMAT_STEPS = 3
+# bf16 autocast rounds every product's inputs to 8 bits of mantissa
+# (2^-8 = 3.9e-3 relative); a recompute replays the same kernels on the
+# same inputs, so only sums that the card orders by atomics (the embedding
+# and cross-entropy gradients) may move, by a few bf16 ulps of the largest
+# entry of a gradient
+REMAT_GRAD_RTOL = 2e-2
+MAGNET_TRAIN_BATCH = 8      # cut from magnet_32khz's 192 to fit one card
+STYLE_TRAIN_BATCH = 4       # cut from musicgen_style_32khz's to fit one card
+STYLE_TRAIN_SECONDS = 30
+# the style conditioner runs in f64 for its card-vs-CPU check, except its
+# attention logits, which are f32 as in the JAX package (1e-7 relative
+# apart on card and CPU); through 8 layers of random weights that grows to
+# about 1e-5 of the largest entry in the residual rows that replace the
+# dead codes (8e-6 measured on an H100)
+STYLE_F64_TOL = 1e-4
+
+
+def _kernel_groups(torch, fn):
+    """Device ms of one call of `fn` by kernel group (the groups of
+    `scripts/torch_profile_train.py`), through `_profile_kernels`."""
+    group_of = _script("torch_profile_train").group_of
+    device_ms, kernels = _profile_kernels(torch, fn, reps=1, top=100000)
+    groups: dict = {}
+    for k in kernels:
+        group = group_of(k["name"])
+        groups[group] = groups.get(group, 0.0) + k["ms_per_forward"]
+    return device_ms, groups
+
+
+def phase_train_remat(torch, card, solver, batch):
+    """The train phase's solver and batch under each checkpointing policy
+    ('none', 'torch', 'dots', 'dots_nb'): the same initial weights, 3
+    `run_step`s each; K2's launches per step (forward L under 'none',
+    'dots' and 'dots_nb', 2L under 'torch'; backward L), the first step's
+    gradients against 'none''s, the steady step time, the peak memory and
+    a profiled step's device time by kernel group."""
+    from audiocraft_tpu_torch.ops.flash_causal_attention import \
+        flash_causal_attention as fca
+    lm = solver.model
+    L = lm.num_layers
+    init = {k: v.detach().clone() for k, v in lm.state_dict().items()}
+    expected = {"none": (L, L), "torch": (2 * L, L), "dots": (L, L),
+                "dots_nb": (L, L)}
+    runs, reference = {}, None
+    for mode in expected:
+        lm.load_state_dict(init)
+        solver.optimizer.optimizer.state.clear()
+        lm.transformer.checkpointing = mode
+        resident = _release(torch)
+        torch.cuda.reset_peak_memory_stats()
+        fca.launches = fca.backward_launches = 0
+        step_s, ces, grad_err = [], [], 0.0
+        for idx in range(REMAT_STEPS):
+            t = time.perf_counter()
+            metrics = solver.run_step(idx, batch, {})
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t)
+            ces.append(float(metrics["ce"]))
+            if idx:
+                continue
+            grads = {n: p.grad.detach().clone()
+                     for n, p in lm.named_parameters() if p.grad is not None}
+            if reference is None:
+                reference = grads
+                continue
+            for name, g0 in reference.items():
+                err = float((grads[name] - g0).abs().max())
+                grad_err = max(grad_err, err / max(float(g0.abs().max()),
+                                                   1e-30))
+            del grads
+        launches = (fca.launches / REMAT_STEPS,
+                    fca.backward_launches / REMAT_STEPS)
+        peak = torch.cuda.max_memory_allocated()
+        if launches != expected[mode]:
+            raise AssertionError(f"checkpointing={mode!r}: K2 launched "
+                                 f"{launches} (forward, backward) per step, "
+                                 f"expected {expected[mode]}")
+        if not all(math.isfinite(ce) for ce in ces):
+            raise AssertionError(f"checkpointing={mode!r}: CE {ces}")
+        if not grad_err <= REMAT_GRAD_RTOL:
+            raise AssertionError(f"checkpointing={mode!r}: gradients differ "
+                                 f"from 'none' by {grad_err} of their largest "
+                                 f"entry, beyond {REMAT_GRAD_RTOL}")
+        device_ms, groups = _kernel_groups(
+            torch, lambda: solver.run_step(REMAT_STEPS, batch, {}))
+        runs[mode] = dict(
+            step_s=step_s, steady_step_s=sorted(step_s[1:])[len(step_s) // 2 - 1],
+            ce=ces, k2_launches_per_step=launches,
+            grad_max_rel_err_vs_none=grad_err if mode != "none" else 0.0,
+            max_memory_allocated=peak, resident_bytes_before=resident,
+            profiled_step_device_ms=device_ms, device_ms_by_group=groups)
+    lm.transformer.checkpointing = "none"
+    lm.load_state_dict(init)
+    solver.optimizer.optimizer.state.clear()
+    del init, reference
+    base = runs["none"]["steady_step_s"]
+    launches = {m: r["k2_launches_per_step"] for m, r in runs.items()}
+    emit("train_remat", card=card, batch=TRAIN_BATCH,
+         seconds_per_item=TRAIN_SECONDS, steps=REMAT_STEPS, layers=L,
+         grad_tolerance=f"max |g - g_none| <= {REMAT_GRAD_RTOL} x max |g_none| "
+                        f"per parameter (bf16 autocast)",
+         step_s_vs_none={m: r["steady_step_s"] / base for m, r in runs.items()},
+         **runs)
     return launches
+
+
+def phase_resume(torch, card, solver, batch):
+    """Checkpoint and resume at full width: 2 steps, `save_checkpoints`, a
+    fresh solver (`get_solver`) that `restore`s them (weights equal bit
+    for bit), then one more step in each: the same CE, and weights within
+    2 x lr of each other (the card sums the embedding gradients with
+    atomics, so Adam's first steps on near-zero gradients may differ in
+    sign; on the CPU the resumed step is bitwise, `tests/
+    test_torch_solvers.py`)."""
+    import shutil
+    from audiocraft_tpu_torch.solvers import get_solver
+    folder = Path(__file__).resolve().parent / "build" / "smoke_resume"
+    shutil.rmtree(folder, ignore_errors=True)
+    solver.cfg["folder"] = str(folder)
+    try:
+        for idx in range(2):
+            solver.run_step(idx, batch, {})
+        _, save_s = _timed(torch, solver.save_checkpoints)
+        path = solver.checkpoint_path()
+        t0 = time.perf_counter()
+        fresh = get_solver(solver.cfg)
+        build_s = time.perf_counter() - t0
+        restored, restore_s = _timed(torch, fresh.restore)
+        if not restored or fresh.epoch != solver.epoch:
+            raise AssertionError("the fresh solver did not restore the "
+                                 "checkpoint")
+        ours, theirs = solver.model.state_dict(), fresh.model.state_dict()
+        unequal = [k for k in ours if not torch.equal(ours[k], theirs[k])]
+        if unequal:
+            raise AssertionError(f"restored weights differ: {unequal[:5]}")
+        ce_a = float(solver.run_step(2, batch, {})["ce"])
+        ce_b = float(fresh.run_step(2, batch, {})["ce"])
+        torch.cuda.synchronize()
+        lr = solver.optimizer.optimizer.param_groups[0]["lr"]
+        diffs = [(ours[k].float() - theirs[k].float()).abs() for k in ours
+                 if ours[k].is_floating_point()]
+        weight_err = max(float(d.max()) for d in diffs)
+        moved = sum(int((d > 0).sum()) for d in diffs)
+        total = sum(d.numel() for d in diffs)
+        if not abs(ce_a - ce_b) <= 1e-5 * abs(ce_a):
+            raise AssertionError(f"resumed CE {ce_b} vs {ce_a}")
+        if not weight_err <= 2 * lr:
+            raise AssertionError(f"resumed weights differ by {weight_err} "
+                                 f"(> 2 x lr = {2 * lr})")
+        emit("resume", card=card, checkpoint_bytes=path.stat().st_size,
+             save_s=save_s, fresh_solver_build_s=build_s, restore_s=restore_s,
+             ce_continued=ce_a, ce_resumed=ce_b, weights_max_abs_diff=weight_err,
+             weights_differing_share=moved / total, weight_tolerance=2 * lr,
+             ce_tolerance="1e-5 relative")
+        del fresh, ours, theirs, diffs
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+
+
+def phase_magnet_train(torch, card):
+    """MAGNeT-small training at full width (`solver/magnet/magnet_32khz`:
+    24 layers of 1024, T5-base by cross-attention, the parallel pattern;
+    seeded random weights, f32 parameters, bf16 autocast, AdamW) on 8 x
+    10 s of seeded audio encoded by the full-width EnCodec: two steps of
+    each stage (the mask drawn by the solver), then two `run_step`s; finite
+    CE, ms per step and stage, peak memory, and no K2 launch (the
+    non-causal LM takes the plain attention in both packages)."""
+    from audiocraft_tpu_torch.config import apply_overrides, load_config
+    from audiocraft_tpu_torch.models import builders
+    from audiocraft_tpu_torch.modules.conditioners import ConditioningAttributes
+    from audiocraft_tpu_torch.ops.flash_causal_attention import \
+        flash_causal_attention as fca
+    from audiocraft_tpu_torch.solvers import get_solver
+    t0 = time.perf_counter()
+    cfg = load_config("solver/magnet/magnet_32khz")
+    apply_overrides(cfg, [f"dataset.batch_size={MAGNET_TRAIN_BATCH}",
+                          "transformer_lm.dtype=bfloat16"])
+    solver = get_solver(cfg)
+    codec = builders.get_encodec_32khz(device="cuda", dtype=torch.bfloat16,
+                                       seed=1)
+    codes, _ = codec.encode(_seeded_music(torch, MAGNET_TRAIN_BATCH,
+                                          MAGNET_SECONDS))
+    del codec
+    B, K, T = codes.shape
+    texts = [f"{TEXTS[i % 2]}, take {i}" for i in range(B)]
+    tokenized = solver.model.condition_provider.tokenize(
+        [ConditioningAttributes(text={"description": t}) for t in texts])
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    resident = _release(torch)
+    torch.cuda.reset_peak_memory_stats()
+    fca.launches = fca.backward_launches = 0
+    per_stage = {}
+    for stage in range(K):
+        times, ces = [], []
+        for _ in range(2):
+            mask = solver._draw_mask(solver._mask_rng, B, T)
+            metrics, seconds = _timed(torch, lambda: solver.masked_step(
+                codes, tokenized, None, stage, mask))
+            times.append(seconds)
+            ces.append(float(metrics["ce"]))
+        per_stage[stage] = dict(step_s=times, ce=ces)
+    batch = {"codes": codes, "tokenized": tokenized}
+    run_ces = [float(_timed(torch, lambda: solver.run_step(i, batch, {}))[0]
+                     ["ce"]) for i in range(2)]
+    launches = (fca.launches, fca.backward_launches)
+    peak = torch.cuda.max_memory_allocated()
+    ces = [c for v in per_stage.values() for c in v["ce"]] + run_ces
+    if not all(math.isfinite(c) for c in ces):
+        raise AssertionError(f"MAGNeT training CE {ces}")
+    if launches != (0, 0):
+        raise AssertionError(f"K2 launched {launches} times in MAGNeT "
+                             f"training (its attention is non-causal)")
+    emit("magnet_train", card=card, config="solver/magnet/magnet_32khz + "
+         f"dataset.batch_size={B} transformer_lm.dtype=bfloat16",
+         batch=B, frames=T, setup_s=setup_s, per_stage=per_stage,
+         run_step_ce=run_ces, k2_launches=launches,
+         max_memory_allocated=peak, resident_bytes_before=resident)
+    del solver, codes, tokenized, batch
+
+
+def phase_style_train(torch, card):
+    """MusicGen-Style training at full width (`solver/musicgen/
+    musicgen_style_32khz` at the medium scale; MERT of HuBERT-base width
+    bound to the style conditioner (style transformer 8 x 512, RVQ 6 x
+    1024), T5-base; seeded random weights, f32 parameters, bf16 autocast).
+    First the style conditioner's training forward on the MERT features of
+    4 x 30 s of seeded music, on the card against the CPU in f64 (but for
+    the attention's f32 logits, so that no nearest-code choice falls
+    differently): the output, the batch
+    norm's running statistics and every codebook after the step, with the
+    quantizer dropout and dead-code draws from the conditioner's seeded
+    generator; then its f32 training forward timed on the card; then 3
+    `run_step`s of the LM (the conditioner in its eval forward, its buffers
+    unchanged), with K2's launches, ms per step and peak memory."""
+    import copy
+    from audiocraft_tpu_torch.config import apply_overrides
+    from audiocraft_tpu_torch.models import builders
+    from audiocraft_tpu_torch.modules.conditioners import (
+        ConditioningAttributes, WavCondition, bind_feat_extractor)
+    from audiocraft_tpu_torch.ops.flash_causal_attention import \
+        flash_causal_attention as fca
+    from audiocraft_tpu_torch.solvers import get_solver
+    t0 = time.perf_counter()
+    cfg = builders._medium_config("solver/musicgen/musicgen_style_32khz")
+    apply_overrides(cfg, [f"dataset.batch_size={STYLE_TRAIN_BATCH}",
+                          "transformer_lm.dtype=bfloat16"])
+    solver = get_solver(cfg)
+    lm = solver.model
+    style = lm.condition_provider.conditioners["self_wav"]
+    bind_feat_extractor(style, builders.get_mert_base("cuda", seed=1))
+    B = STYLE_TRAIN_BATCH
+    clips = _seeded_music(torch, B, STYLE_TRAIN_SECONDS)
+    attrs = [ConditioningAttributes(text={"description": TEXTS[i % 2]})
+             for i in range(B)]
+    for a, wav in zip(attrs, clips):
+        a.wav["self_wav"] = WavCondition(wav[None], torch.tensor(
+            [wav.shape[-1]]), [32000], [None])
+    tokenized = lm.condition_provider.tokenize(attrs)
+    feats = tokenized["self_wav"]
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    outs = {}
+    for device in ("cuda", "cpu"):
+        cond = copy.deepcopy(style).to(device=device, dtype=torch.float64)
+        cond.set_seed(0)
+        cond.train()
+        out = cond({k: v.to(device, torch.float64) for k, v in feats.items()})
+        buffers = {k: v.detach() for k, v in cond.state_dict().items()
+                   if "batch_norm" in k or "rvq" in k}
+        outs[device] = (out[0].detach(), buffers)
+        del cond
+    errs = {"output": _card_vs_cpu("style training output", outs["cuda"][0],
+                                   outs["cpu"][0], STYLE_F64_TOL)}
+    for name, want in outs["cpu"][1].items():
+        if want.is_floating_point():
+            errs[name] = _card_vs_cpu(f"style {name}", outs["cuda"][1][name],
+                                      want, STYLE_F64_TOL)
+        elif not torch.equal(outs["cuda"][1][name].cpu(), want):
+            raise AssertionError(f"style {name} differs")
+    del outs
+    cond = copy.deepcopy(style).train()
+    cond({k: v for k, v in feats.items()})
+    _, forward_s = _timed(torch, lambda: cond(feats))
+    del cond
+
+    before = {k: v.clone() for k, v in style.state_dict().items()
+              if "batch_norm" in k or "rvq" in k}
+    frames = STYLE_TRAIN_SECONDS * TOKENS_PER_SECOND
+    codes = torch.randint(0, lm.card, (B, 4, frames), device="cuda",
+                          generator=torch.Generator("cuda").manual_seed(2))
+    batch = {"codes": codes, "tokenized": tokenized}
+    resident = _release(torch)
+    torch.cuda.reset_peak_memory_stats()
+    fca.launches = fca.backward_launches = 0
+    step_s, ces = [], []
+    for idx in range(3):
+        metrics, seconds = _timed(torch, lambda: solver.run_step(idx, batch, {}))
+        step_s.append(seconds)
+        ces.append(float(metrics["ce"]))
+    launches = (fca.launches, fca.backward_launches)
+    peak = torch.cuda.max_memory_allocated()
+    after = style.state_dict()
+    if not all(torch.equal(v, after[k]) for k, v in before.items()):
+        raise AssertionError("the style conditioner's statistics or codebooks "
+                             "moved in an LM step")
+    if not all(math.isfinite(c) for c in ces):
+        raise AssertionError(f"style LM CE {ces}")
+    if launches != (3 * lm.num_layers, 3 * lm.num_layers):
+        raise AssertionError(f"K2 launched {launches}, expected "
+                             f"{3 * lm.num_layers} forward and backward")
+    emit("style_train", card=card, config="solver/musicgen/"
+         "musicgen_style_32khz at model_scale/medium + dataset.batch_size="
+         f"{B} transformer_lm.dtype=bfloat16", batch=B,
+         seconds_per_item=STYLE_TRAIN_SECONDS, setup_s=setup_s,
+         style_tokens=int(feats["mert"].shape[1]),
+         conditioner_card_vs_cpu_f64_max_abs_err=errs,
+         conditioner_tolerance=f"{STYLE_F64_TOL} x max(1, max |CPU|), f64 "
+                               f"(the attention's logits in f32)",
+         conditioner_training_forward_s=forward_s, lm_step_s=step_s, ce=ces,
+         k2_launches=launches, max_memory_allocated=peak,
+         resident_bytes_before=resident)
+    del solver, lm, style, batch, tokenized
 
 
 def _int4_bytes_and_ops(B, H, D, length):
@@ -2023,7 +2368,13 @@ def main() -> int:
     phase_reference(torch)
     phase_reference_train(torch)
     launches, music = phase_slice(torch, card)
-    train_launches = phase_train(torch, card)
+    train_launches, solver, batch = phase_train(torch, card)
+    remat = phase_train_remat(torch, card, solver, batch)
+    phase_resume(torch, card, solver, batch)
+    del solver, batch
+    _release(torch)
+    phase_magnet_train(torch, card)
+    phase_style_train(torch, card)
     int4_worst, int4_timings = phase_int4_kernels(torch)
     int4_launches = phase_int4_path(torch, card)
     variants_worst = phase_variants(torch, card)
@@ -2069,7 +2420,9 @@ def main() -> int:
         "ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
         "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
         "library_ms": fwd["library_ms"],
-        "backward_launches": train_launches[1], "backward_ms": bwd["ms"],
+        "backward_launches": train_launches[1],
+        "launches_per_train_step_by_checkpointing": remat,
+        "backward_ms": bwd["ms"],
         "backward_plain_ms": bwd["plain_ms"],
         "backward_bound_ms": bwd["bound_ms"],
         "backward_bound_by": bwd["bound_by"],

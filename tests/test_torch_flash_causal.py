@@ -1,17 +1,23 @@
 """The port's causal flash attention (K2) on the CPU: its plain version
 against the JAX package's off-TPU route (`dot_product_attention` with
 `make_causal_bias`, which `tests/ops/test_flash_attention.py` holds the Pallas
-kernel against), the eligibility rule, the transformer's routing, dropout and
-`checkpointing='torch'`.
+kernel against), its explicit backward, `opcheck` of the two
+`torch.library` ops, the eligibility rule, the transformer's routing,
+dropout, `checkpointing='torch'`, and the selective policies 'dots' and
+'dots_nb' against the JAX package's.
 
 Tolerance: f32, output and dQ/dK/dV atol 1e-5 (the same sums in another
 order). The CUDA kernels themselves are held against the plain version on the
 card (`tests/test_torch_gpu.py`, `chip_smoke.py`)."""
+import collections
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from audiocraft_tpu.ops import attention as jattn
 from audiocraft_tpu_torch.modules import transformer as ttr
@@ -19,6 +25,9 @@ from audiocraft_tpu_torch.ops.attention import (dot_product_attention, dropout,
                                                 flash_causal_eligible)
 from audiocraft_tpu_torch.ops.flash_causal_attention import (
     flash_causal_attention, flash_causal_attention_reference)
+
+# the module (the package re-exports the function under its name)
+fca_module = sys.modules["audiocraft_tpu_torch.ops.flash_causal_attention"]
 
 
 def _jax_causal(q, k, v):
@@ -49,7 +58,7 @@ def test_cpu_tensors_take_the_plain_version_and_no_launch():
     before = (flash_causal_attention.launches,
               flash_causal_attention.backward_launches)
     assert torch.equal(flash_causal_attention(q, q, q),
-                       flash_causal_attention_reference(q, q, q))
+                       flash_causal_attention_reference(q, q, q)[0])
     assert (flash_causal_attention.launches,
             flash_causal_attention.backward_launches) == before
 
@@ -222,7 +231,150 @@ def test_torch_checkpointing_gives_the_same_gradients(monkeypatch, p):
         torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-6)
 
 
+def _jax_stack_grads(mode, x, src, params):
+    """The JAX package's transformer of `_layer_stack`'s shape under
+    `checkpointing=mode`: output and the gradients of sum(y^2)."""
+    from audiocraft_tpu.modules.transformer import StreamingTransformer
+    tr = StreamingTransformer(d_model=128, num_heads=2, num_layers=2,
+                              dim_feedforward=256, causal=True,
+                              cross_attention=True, checkpointing=mode)
+
+    def loss(p):
+        y, _ = tr.apply(p, jnp.asarray(x), cross_attention_src=jnp.asarray(src))
+        return jnp.sum(y ** 2), y
+    (_, y), grads = jax.jit(jax.value_and_grad(loss, has_aux=True))(params)
+    return np.asarray(y), grads
+
+
 @pytest.mark.parametrize("mode", ["dots", "dots_nb"])
-def test_selective_checkpointing_is_not_ported(mode):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _layer_stack(0.0, mode)
+def test_selective_checkpointing_matches_jax(mode):
+    """'dots' and 'dots_nb' give the JAX package's outputs and every
+    gradient under the same policy (f32; outputs atol 1e-5, each gradient
+    within 1e-5 of its largest entry: sums of 24 rows of order-1 terms in
+    another order)."""
+    from audiocraft_tpu.modules.transformer import StreamingTransformer
+    from audiocraft_tpu_torch.utils import jax_weights
+    rs = np.random.RandomState(8)
+    x = rs.randn(2, 12, 128).astype(np.float32)
+    src = rs.randn(2, 3, 128).astype(np.float32)
+    params = StreamingTransformer(
+        d_model=128, num_heads=2, num_layers=2, dim_feedforward=256,
+        causal=True, cross_attention=True).init(
+        jax.random.PRNGKey(0), jnp.asarray(x),
+        cross_attention_src=jnp.asarray(src))
+    want_y, want_grads = _jax_stack_grads(mode, x, src, params)
+    net = _layer_stack(0.0, mode)
+    jax_weights.load_transformer(net, jax.tree.map(np.asarray, params))
+    net.train()
+    y = net(torch.from_numpy(x), cross_attention_src=torch.from_numpy(src))
+    y.square().sum().backward()
+    np.testing.assert_allclose(y.detach().numpy(), want_y, atol=1e-5, rtol=0)
+    expected = jax_weights.transformer_state(
+        jax.tree.map(np.asarray, want_grads)["params"], 2)
+    named = dict(net.named_parameters())
+    assert set(named) == set(expected)
+    for name, p in named.items():
+        want = expected[name]
+        scale = max(1.0, float(np.abs(want).max()))
+        np.testing.assert_allclose(p.grad.numpy(), want, atol=1e-5 * scale,
+                                   rtol=0, err_msg=name)
+
+
+class _OpCounter(TorchDispatchMode):
+    def __init__(self):
+        super().__init__()
+        self.counts = collections.Counter()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.counts[func] += 1
+        return func(*args, **(kwargs or {}))
+
+
+def _backward_ops(mode: str, p: float = 0.0) -> collections.Counter:
+    """The ops the backward of a training forward dispatches, with the
+    recompute of the checkpointed layers."""
+    x = torch.randn(2, 12, 128, generator=torch.Generator().manual_seed(2))
+    src = torch.randn(2, 3, 128, generator=torch.Generator().manual_seed(3))
+    net = _layer_stack(p, mode)
+    net.train()
+    out = net(x, cross_attention_src=src, dropout_seed=5)
+    with _OpCounter() as counter:
+        out.square().sum().backward()
+    return counter.counts
+
+
+@pytest.mark.parametrize("mode", ["dots", "dots_nb"])
+def test_selective_checkpointing_recomputes_no_product(mode):
+    """A dispatch counter over the backward: under both policies it runs
+    the unbatched products ('mm', 'addmm') and the flash forward exactly as
+    often as without checkpointing (none is recomputed), while 'torch'
+    recomputes them; under 'dots_nb' the batched products of the
+    cross-attention (two per layer) are recomputed, under 'dots' none."""
+    aten = torch.ops.aten
+    fwd = torch.ops.audiocraft_tpu_torch.flash_causal_fwd.default
+    none, ours, full = (_backward_ops(m) for m in ("none", mode, "torch"))
+    for op in (aten.mm.default, aten.addmm.default, fwd):
+        assert ours[op] == none[op], op
+    assert none[fwd] == 0 and full[fwd] == 2 and full[aten.addmm.default] > 0
+    extra_bmm = ours[aten.bmm.default] - none[aten.bmm.default]
+    assert extra_bmm == {"dots": 0, "dots_nb": 4}[mode]
+
+
+@pytest.mark.parametrize("mode", ["dots", "dots_nb"])
+def test_selective_checkpointing_replays_dropout(mode):
+    """With residual dropout the recompute draws the same masks: outputs
+    and gradients equal 'none''s."""
+    x = torch.randn(2, 12, 128)
+    src = torch.randn(2, 3, 128)
+    results = []
+    for m in ("none", mode):
+        net = _layer_stack(0.2, m)
+        net.train()
+        out = net(x, cross_attention_src=src, dropout_seed=11)
+        out.square().sum().backward()
+        results.append((out.detach(), [q.grad for q in net.parameters()]))
+    assert torch.equal(results[0][0], results[1][0])
+    for a, b in zip(results[0][1], results[1][1]):
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("inputs", ["separate", "fused_qkv_chunks"])
+def test_the_forward_op_passes_opcheck(inputs):
+    """`torch.library.opcheck` on the CPU: schema, fake tensor (shapes,
+    dtypes and contiguous strides), autograd registration."""
+    g = torch.Generator().manual_seed(4)
+    if inputs == "separate":
+        args = tuple(torch.randn(2, 37, 2, 64, generator=g).requires_grad_()
+                     for _ in range(3))
+    else:
+        x = torch.randn(2, 37, 3 * 128, generator=g).requires_grad_()
+        args = tuple(t.reshape(2, 37, 2, 64) for t in x.chunk(3, dim=-1))
+    torch.library.opcheck(fca_module.flash_causal_fwd, args)
+
+
+def test_the_backward_op_passes_opcheck():
+    g = torch.Generator().manual_seed(5)
+    q, k, v = (torch.randn(1, 20, 2, 128, generator=g) for _ in range(3))
+    out, lse = fca_module.flash_causal_fwd(q, k, v)
+    torch.library.opcheck(fca_module.flash_causal_bwd,
+                          (q, k, v, out, lse, torch.randn_like(out)))
+
+
+@pytest.mark.parametrize("T", [1, 33, 130])
+def test_plain_backward_equals_autograd_and_jax(T):
+    """The explicit backward (delta, dS, dQ, dK, dV from the saved lse)
+    equals autograd of the plain forward and the JAX package's VJP."""
+    rs = np.random.RandomState(T)
+    q, k, v, do = (rs.randn(2, T, 2, 64).astype(np.float32) for _ in range(4))
+    _, vjp = jax.vjp(_jax_causal, q, k, v)
+    want = vjp(jnp.asarray(do))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_(True) for a in (q, k, v))
+    out, lse = fca_module.flash_causal_attention_reference(tq, tk, tv)
+    auto = torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(do))
+    plain = fca_module.flash_causal_attention_backward_reference(
+        tq.detach(), tk.detach(), tv.detach(), out.detach(), lse.detach(),
+        torch.from_numpy(do))
+    for got, a, w in zip(plain, auto, want):
+        np.testing.assert_allclose(got.numpy(), a.numpy(), atol=1e-5, rtol=0)
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), atol=1e-5,
+                                   rtol=0)

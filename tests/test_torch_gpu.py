@@ -16,7 +16,10 @@ product's int32 sums exactly; HTDemucs on the card against the CPU, atol
 convolutions, TF32 off); greedy tokens equal; Multi-Band Diffusion,
 AudioSeal and JASCO on the card against the CPU with the same weights and
 noise, atol 1e-4 * max(1, max |CPU|) (f32, TF32 off), and the same number
-of Dormand-Prince evaluations."""
+of Dormand-Prince evaluations; K2's ops against their plain versions as
+the kernel (lse 1e-4); gradients under each checkpointing policy against
+'none', 1e-5 (f32, the same kernels replayed); a MAGNeT training step on
+the card against the CPU, CE 1e-5 and gradients atol 1e-5 / rtol 1e-4."""
 import pytest
 import torch
 
@@ -382,7 +385,7 @@ def test_flash_causal_kernel_matches_reference(dtype, B, H, T, D, fused):
             flash_causal_attention.backward_launches) == (before[0] + 1,
                                                           before[1] + 1)
     refs = [t.detach().float().requires_grad_() for t in (q, k, v)]
-    ref = flash_causal_attention_reference(*refs)
+    ref = flash_causal_attention_reference(*refs)[0]
     ref_grads = torch.autograd.grad(ref, refs, dout.float())
     out_tol, grad_tol = (1e-5, 1e-4) if dtype == "float32" else (2e-2, 2e-2)
     torch.testing.assert_close(out.float(), ref, atol=out_tol, rtol=out_tol)
@@ -912,3 +915,108 @@ def test_debug_jasco_on_card_matches_cpu(monkeypatch, euler):
     assert tuple(out["cuda"][0].shape) == (2, 1, 12800)
     for got, want in zip(out["cuda"], out["cpu"]):
         _close(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_causal_ops_match_their_plain_versions(dtype):
+    """`flash_causal_fwd` / `flash_causal_bwd` on the card against the
+    plain versions on the same inputs: out, lse (f32) and dq, dk, dv, on
+    the strided chunks of a fused projection; each op call launches its
+    kernel once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    import sys
+    ops = sys.modules["audiocraft_tpu_torch.ops.flash_causal_attention"]
+    dt = getattr(torch, dtype)
+    B, T, H, D = 2, 300, 4, 64
+    g = torch.Generator("cuda").manual_seed(0)
+    x = torch.randn(B, T, 3 * H * D, device="cuda", generator=g).to(dt)
+    q, k, v = (t.reshape(B, T, H, D) for t in x.chunk(3, dim=-1))
+    dout = torch.randn(B, T, H, D, device="cuda", generator=g).to(dt)
+    before = (flash_causal_attention.launches,
+              flash_causal_attention.backward_launches)
+    out, lse = ops.flash_causal_fwd(q, k, v)
+    grads = ops.flash_causal_bwd(q, k, v, out, lse, dout)
+    torch.cuda.synchronize()
+    assert (flash_causal_attention.launches - before[0],
+            flash_causal_attention.backward_launches - before[1]) == (1, 1)
+    assert out.is_contiguous() and lse.dtype == torch.float32
+    ref_out, ref_lse = ops.flash_causal_attention_reference(q, k, v)
+    ref_grads = ops.flash_causal_attention_backward_reference(
+        q.float(), k.float(), v.float(), ref_out.float(), ref_lse,
+        dout.float())
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=tol,
+                               rtol=tol)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-4)
+    for got, want in zip(grads, ref_grads):
+        assert got.dtype == dt and got.is_contiguous()
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode, forwards", [
+    ("none", 2), ("torch", 4), ("dots", 2), ("dots_nb", 2)])
+def test_selective_checkpointing_launches_on_the_card(mode, forwards):
+    """A 2-layer causal stack on the card: K2's forward launches per step
+    are L under 'none', 'dots' and 'dots_nb' (its outputs are saved) and
+    2L under 'torch'; backward L under all; gradients equal 'none''s."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    _f32_card()
+    x = torch.randn(2, 130, 128, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(1))
+    grads = {}
+    for m in ("none", mode):
+        torch.manual_seed(0)
+        net = transformer.StreamingTransformer(
+            128, 2, 2, dim_feedforward=256, causal=True, checkpointing=m,
+            device="cuda")
+        net.train()
+        before = (flash_causal_attention.launches,
+                  flash_causal_attention.backward_launches)
+        net(x).square().sum().backward()
+        torch.cuda.synchronize()
+        launched = (flash_causal_attention.launches - before[0],
+                    flash_causal_attention.backward_launches - before[1])
+        grads[m] = [p.grad for p in net.parameters()]
+    assert launched == (forwards, 2)
+    for a, b in zip(grads["none"], grads[mode]):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stage", [0, 3])
+def test_debug_magnet_train_step_on_card_matches_cpu(stage):
+    """One MAGNeT solver step on the debug LM, the same weights, batch,
+    stage and mask on the card and on the CPU: CE and every gradient."""
+    _f32_card()
+    import numpy as np
+    from audiocraft_tpu_torch.solvers.magnet import MagnetSolver
+    rs = np.random.RandomState(stage)
+    codes = torch.from_numpy(rs.randint(0, 400, (2, 4, 20)))
+    mask = MagnetSolver._get_mask
+    out = {}
+    for device in ("cpu", "cuda"):
+        solver = MagnetSolver({"seed": 0, "solver": "magnet"}, device=device)
+        if device == "cuda":
+            solver.model.load_state_dict(out["cpu"][2])
+        solver.optimizer = get_optimizer(solver.model.parameters(),
+                                         {"lr": 0.0})
+        stage_mask = mask(solver, np.random.RandomState(7),
+                          np.array([0.6, 0.4]), 2, 20)
+        tokenized = solver.model.condition_provider.tokenize(
+            [ConditioningAttributes(text={"description": t}) for t in TEXTS])
+        m = solver.masked_step(codes.to(device), tokenized, None, stage,
+                               stage_mask)
+        out[device] = (m["ce"].item(),
+                       {n: p.grad.cpu() for n, p in
+                        solver.model.named_parameters()},
+                       {k: v.cpu() for k, v in
+                        solver.model.state_dict().items()})
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-5
+    for name, g in out["cpu"][1].items():
+        torch.testing.assert_close(out["cuda"][1][name], g, atol=1e-5,
+                                   rtol=1e-4)

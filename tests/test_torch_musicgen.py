@@ -89,10 +89,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     scripts = sorted(str(p) for p in (ROOT / "scripts").glob("torch_*.py"))
     assert any(p.endswith("torch_int4_decode.py") for p in scripts)
     assert any(p.endswith("torch_demucs_precision.py") for p in scripts)
-    # the melody and AudioGen slice's modules are among those imported
+    # the melody, AudioGen and training slices' modules are among those
+    # imported
     assert {f"audiocraft_tpu_torch.{m}" for m in (
         "ops.stft", "modules.chroma", "modules.demucs", "models.audiogen",
-        "solvers.audiogen")} <= set(modules)
+        "solvers.audiogen", "solvers.base", "solvers.magnet", "optim.dadam",
+        "optim.ema", "utils.checkpoint", "utils.writers", "utils.profiler",
+        "utils.deadlock", "environment")} <= set(modules)
     script = (
         "import sys, importlib, importlib.util\n"
         "for name in ('jax', 'jaxlib', 'flax', 'audiocraft_tpu'):\n"

@@ -3,7 +3,9 @@ weights (small sizes, f32, greedy decoding on the CPU): MERT, the style
 conditioner on both feature paths (EnCodec codes and MERT states) with its
 batch-norm statistics and RVQ codebooks carried across, the style knobs,
 the two-condition prepend, and `debug-style` generation under batched and
-double CFG. The same paths on the card are tested in `test_torch_gpu.py`.
+double CFG; the training half: the RVQ's training forward and EMA codebook
+update, the style conditioner's training forward, and a solver step of the
+style LM. The same paths on the card are tested in `test_torch_gpu.py`.
 
 The JAX feature extractor draws its excerpt's start from an unseeded numpy
 RandomState, the port from its own generator; so every waveform here is
@@ -292,17 +294,212 @@ def test_style_excerpt_draws_from_the_conditioner_generator(style_models):
         style.use_middle_of_segment = False
 
 
-def test_style_training_forward_is_refused(style_models):
-    _, mg = style_models
-    style = mg.lm.condition_provider.conditioners["self_wav"]
-    ours, _ = _conds(_music(1, 1000, seed=33), [1000])
+# ------------------------------------------------ training (RVQ, style, LM)
+
+def _jax_books(rs, n_q, C, D):
+    """A JAX RVQ state with seeded codebooks, EMA sums and cluster sizes
+    (some below 1, so a dead-code threshold of 1 expires them)."""
+    from audiocraft_tpu.quantization.core_vq import CodebookState, RVQState
+    embed = rs.randn(n_q, C, D).astype(np.float32)
+    size = (rs.rand(n_q, C) * 3).astype(np.float32)
+    return RVQState(CodebookState(
+        inited=jnp.ones((n_q,), bool), cluster_size=jnp.asarray(size),
+        embed=jnp.asarray(embed),
+        embed_avg=jnp.asarray(embed * size[..., None])))
+
+
+def _port_books(state):
+    from audiocraft_tpu_torch.quantization import ResidualVectorQuantization
+    books = state.codebooks
+    n_q, C, D = books.embed.shape
+    rvq = ResidualVectorQuantization(n_q, D, C)
+    for q, layer in enumerate(rvq.layers):
+        for name in ("embed", "embed_avg", "cluster_size"):
+            getattr(layer._codebook, name).copy_(
+                torch.from_numpy(np.array(getattr(books, name)[q])))
+    return rvq
+
+
+def _assert_books_equal(rvq, state, atol):
+    books = state.codebooks
+    for q, layer in enumerate(rvq.layers):
+        for name in ("embed", "embed_avg", "cluster_size"):
+            np.testing.assert_allclose(
+                getattr(layer._codebook, name).numpy(),
+                np.asarray(getattr(books, name)[q]), rtol=0, atol=atol,
+                err_msg=f"level {q} {name}")
+
+
+@pytest.mark.parametrize("n_active", [1, 3])
+def test_rvq_training_forward_matches_jax(n_active):
+    """`rvq_forward` in training (no dead-code expiry): the quantized
+    output, the codes of every level, the gated commitment losses, the
+    codebooks after the EMA step, and the gradient through the
+    straight-through estimator and the commitment losses (atol 1e-5)."""
+    from audiocraft_tpu.quantization.core_vq import rvq_forward
+    rs = np.random.RandomState(40 + n_active)
+    state = _jax_books(rs, 3, 16, 8)
+    x = rs.randn(2, 5, 8).astype(np.float32)
+    w = rs.randn(2, 5, 8).astype(np.float32)
+
+    def loss(x):
+        q, codes, commits, new = rvq_forward(
+            state, x, n_q_active=jnp.asarray(n_active), training=True,
+            rng=jax.random.PRNGKey(3), threshold_ema_dead_code=0.0)
+        return jnp.sum(q * w) + jnp.sum(commits), (q, codes, commits, new)
+    (_, (jq, jcodes, jcommits, jstate)), jgrad = jax.value_and_grad(
+        loss, has_aux=True)(jnp.asarray(x))
+    rvq = _port_books(state)
+    tx = torch.from_numpy(x).requires_grad_(True)
+    q, codes, commits = rvq(tx, n_active, True, threshold_ema_dead_code=0.0)
+    (q * torch.from_numpy(w)).sum().add(commits.sum()).backward()
+    np.testing.assert_array_equal(codes.numpy(), np.asarray(jcodes))
+    np.testing.assert_allclose(q.detach().numpy(), np.asarray(jq), atol=1e-5)
+    np.testing.assert_allclose(commits.detach().numpy(), np.asarray(jcommits),
+                               atol=1e-5)
+    assert (commits[n_active:] == 0).all()
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(jgrad), atol=1e-5)
+    _assert_books_equal(rvq, jstate, atol=1e-5)
+
+
+def test_ema_codebook_update_expires_dead_codes_as_jax():
+    """A threshold of 1 with the replacement rows the JAX function draws
+    injected: expired codes take them, the rest their EMA (atol 1e-5)."""
+    from audiocraft_tpu.quantization.core_vq import (ema_codebook_update,
+                                                     sample_vectors)
+    from audiocraft_tpu_torch.quantization import core_vq
+    rs = np.random.RandomState(44)
+    state = _jax_books(rs, 1, 16, 8)
+    level = jax.tree.map(lambda a: a[0], state.codebooks)
+    flat = rs.randn(40, 8).astype(np.float32)
+    rng = jax.random.PRNGKey(9)
+    new = ema_codebook_update(level, jnp.asarray(flat), None, rng, decay=0.9,
+                              epsilon=1e-5, threshold_ema_dead_code=1.0)
+    replacement = sample_vectors(jax.random.split(rng)[1], jnp.asarray(flat),
+                                 16)
+    book = _port_books(state).layers[0]._codebook
+    expired = book.cluster_size < 1.0
+    assert 0 < int(expired.sum()) < 16
+    core_vq.ema_codebook_update(
+        book, torch.from_numpy(flat), decay=0.9, epsilon=1e-5,
+        threshold_ema_dead_code=1.0,
+        replacement=torch.from_numpy(np.array(replacement)))
+    for name in ("embed", "embed_avg", "cluster_size"):
+        np.testing.assert_allclose(getattr(book, name).numpy(),
+                                   np.asarray(getattr(new, name)), rtol=0,
+                                   atol=1e-5, err_msg=name)
+    assert torch.equal(book.embed[expired],
+                       torch.from_numpy(np.array(replacement))[expired])
+    # without injected rows, the rows come from the generator: the batch's
+    g = torch.Generator().manual_seed(0)
+    core_vq.ema_codebook_update(book, torch.from_numpy(flat), decay=0.9,
+                                epsilon=1e-5, threshold_ema_dead_code=5.0,
+                                generator=g)
+    rows = torch.from_numpy(flat)
+    assert all(any(torch.equal(e, r) for r in rows) for e in book.embed)
+
+
+def test_style_training_forward_matches_jax(style_models):
+    """A direct call of the conditioner in training mode: the JAX
+    `__call__(training=True)` with 'batch_stats' and 'quantizer' mutable.
+    The JAX package draws the RVQ streams from the fixed key PRNGKey(1);
+    the port takes that count as `n_q`; no dead-code expiry (threshold 0).
+    Embeddings and mask, the running statistics and every codebook after
+    the step (atol 1e-5)."""
+    import copy
+    jmg, mg = style_models
+    jstyle, jvars = _jax_style(jmg)
+    style = copy.deepcopy(mg.lm.condition_provider.conditioners["self_wav"])
+    style.rvq.threshold_ema_dead_code = 0.0
+    ours, theirs = _conds(_music(3, 1500, seed=45), [1500, 1200, 1500])
+    jt = jstyle.tokenize(theirs)
     tok = style.tokenize(ours)
+    (je, jm), new_vars = jstyle.clone(rvq_threshold_ema_dead_code=0.0).apply(
+        jvars, jt, training=True, mutable=["batch_stats", "quantizer"])
+    drng = jax.random.split(jax.random.PRNGKey(1))[1]
+    n_q = int(jax.random.randint(drng, (), 1, style.n_q_out + 1))
     style.train()
-    try:
-        with pytest.raises(NotImplementedError, match="slice E"):
-            style(tok)
-    finally:
-        style.eval()
+    pe, pm = style(tok, n_q=n_q)
+    np.testing.assert_allclose(pe.detach().numpy(), np.asarray(je), atol=1e-5,
+                               rtol=0)
+    np.testing.assert_array_equal(pm.numpy(), np.asarray(jm))
+    stats = new_vars["batch_stats"]
+    np.testing.assert_allclose(style.batch_norm.running_mean.numpy(),
+                               np.asarray(stats["bn_mean"]), atol=1e-5)
+    np.testing.assert_allclose(style.batch_norm.running_var.numpy(),
+                               np.asarray(stats["bn_var"]), atol=1e-5)
+    assert int(style.batch_norm.num_batches_tracked) == 1
+    _assert_books_equal(style.rvq.vq, new_vars["quantizer"]["style_rvq"],
+                        atol=1e-5)
+    # the eval forward afterwards reads the updated statistics
+    style.eval()
+    with torch.no_grad():
+        assert torch.isfinite(style(tok)[0]).all()
+
+
+def test_style_lm_solver_step_matches_jax_train_step(style_models):
+    """The repair: `MusicGenSolver.run_step` on the debug style LM gives
+    the JAX `make_train_step`'s CE and every gradient, with the
+    style conditioner in its eval forward as the JAX provider calls it
+    (1e-5 relative to each tensor's largest entry); its statistics and
+    codebooks do not move."""
+    import copy
+    import optax
+    from audiocraft_tpu.models import lm as jlm
+    from audiocraft_tpu.solvers import musicgen as jsolver
+    from audiocraft_tpu_torch.solvers import builders as solver_builders
+    from audiocraft_tpu_torch.solvers import musicgen as tsolver
+    jmg, mg = style_models
+    rs = np.random.RandomState(46)
+    wav = _music(2, 1500, seed=47)
+    attrs = mg._prepare_tokens_and_attributes(TEXTS, None)[0]
+    jattrs = jmg._prepare_tokens_and_attributes(TEXTS, None)[0]
+    for i in range(2):
+        attrs[i].wav["self_wav"] = WavCondition(
+            torch.from_numpy(wav[i:i + 1]), torch.tensor([1500]), [32000],
+            [None])
+        jattrs[i].wav["self_wav"] = jcond.WavCondition(
+            wav[i:i + 1], np.array([1500]), [32000], [None])
+    codes = rs.randint(0, mg.lm.card, (2, 4, 9))
+    jlm_model, params = jmg.lm, jmg.lm_params
+    tokenized = jlm.tokenize_conditions(jlm_model, jattrs)
+    # an optimizer that keeps the gradients as its state and updates nothing
+    keep = optax.GradientTransformation(
+        lambda p: jax.tree.map(jnp.zeros_like, p),
+        lambda g, state, p=None: (jax.tree.map(jnp.zeros_like, g), g))
+    step = jsolver.make_train_step(jlm_model, keep)
+    # the step donates its state: hand it a copy of the fixture's weights
+    new_state, jmetrics = step(jsolver.init_train_state(
+        jlm_model, jax.tree.map(jnp.copy, params), keep), jnp.asarray(codes),
+        tokenized, None, jax.random.PRNGKey(0))
+    expected = jax_weights.lm_state(mg.lm, jax.tree.map(
+        np.asarray, dict(params, params=new_state.opt_state)))
+
+    solver = tsolver.MusicGenSolver({"seed": 0}, device="cpu")
+    solver.model = copy.deepcopy(mg.lm)
+    solver.optimizer = solver_builders.get_optimizer(
+        [p for p in solver.model.parameters() if p.requires_grad],
+        {"lr": 0.0})
+    style = solver.model.condition_provider.conditioners["self_wav"]
+    before = {k: v.clone() for k, v in style.state_dict().items()
+              if "batch_norm" in k or "rvq" in k}
+    batch = {"codes": torch.from_numpy(codes),
+             "tokenized": solver.model.condition_provider.tokenize(attrs)}
+    metrics = solver.run_step(0, batch, {})
+    np.testing.assert_allclose(metrics["ce"].item(), float(jmetrics["ce"]),
+                               rtol=1e-5)
+    named = dict(solver.model.named_parameters())
+    assert set(named) == {k for k in expected if k in named}
+    for name, p in named.items():
+        want = expected[name]
+        if p.grad is None:  # behind the RVQ's codes: no gradient reaches it
+            assert not np.any(want), name
+            continue
+        scale = max(1e-30, float(np.abs(want).max()))
+        np.testing.assert_allclose(p.grad.numpy(), want, atol=1e-5 * scale,
+                                   rtol=0, err_msg=name)
+    after = style.state_dict()
+    assert all(torch.equal(v, after[k]) for k, v in before.items())
 
 
 def test_two_prepended_conditions_match_jax(style_models):

@@ -217,27 +217,33 @@ class _Toy(nn.Module):
 
 @pytest.mark.parametrize("case", ["none", "cosine", "polynomial_decay",
                                   "inverse_sqrt", "linear_warmup",
-                                  "cosine_groups", "adam", "make_optimizer"])
+                                  "cosine_groups", "adam", "make_optimizer",
+                                  "dadam", "dadam_groups"])
 def test_optimizer_matches_optax_over_10_steps(case):
     rs = np.random.RandomState(4)
     arrays = {"transformer": rs.randn(4, 3).astype(np.float32),
               "emb": rs.randn(5).astype(np.float32)}
-    grads = [{k: (0.6 * rs.randn(*v.shape)).astype(np.float32)
+    # D-Adaptation's estimate grows only under small gradients
+    scale = 0.006 if case.startswith("dadam") else 0.6
+    grads = [{k: (scale * rs.randn(*v.shape)).astype(np.float32)
               for k, v in arrays.items()} for _ in range(10)]
-    sched = case.split("_groups")[0] if case not in ("adam", "make_optimizer") \
-        else "cosine"
-    cfg = {"optimizer": "adam" if case == "adam" else "adamw", "lr": 1e-2,
+    sched = case.split("_groups")[0] if case not in (
+        "adam", "make_optimizer", "dadam", "dadam_groups") else "cosine"
+    optimizer = case.split("_")[0] if case.startswith(("adam", "dadam")) \
+        else "adamw"
+    cfg = {"optimizer": optimizer, "lr": 1e-2,
            "adam": {"betas": [0.9, 0.95], "eps": 1e-8, "weight_decay": 0.1},
            "max_norm": 1.0, "lr_scheduler": None if sched == "none" else sched,
            sched: {"warmup": 3, "lr_min_ratio": 0.1, "end_lr": 1e-3,
                    "power": 2.0, "warmup_init_lr": 1e-3}}
     overrides = {"transformer": {"lr": 3e-2, "weight_decay": 0.0}}
+    initial = {k: v.copy() for k, v in arrays.items()}
     module = _Toy(arrays)
     if case == "make_optimizer":
         schedule = tsched.cosine_with_warmup(1e-2, 3, 10)
         jopt = jmg.make_optimizer(jsched.cosine_with_warmup(1e-2, 3, 10))
         opt = tmg.make_optimizer(module.parameters(), schedule)
-    elif case == "cosine_groups":
+    elif case.endswith("_groups"):
         jopt = jsolver_builders.get_optimizer(
             cfg, 10, param_groups=jsolver_builders.get_optim_parameter_groups(
                 arrays, overrides))
@@ -262,6 +268,14 @@ def test_optimizer_matches_optax_over_10_steps(case):
                                np.asarray(params["transformer"]), atol=1e-6)
     np.testing.assert_allclose(module.emb.w.detach().numpy(),
                                np.asarray(params["emb"]), atol=1e-6)
+    if optimizer == "dadam":  # its steps are of order d0 = 1e-6: compare them
+        assert all(float(g["d"]) > 1e-6 for g in opt.optimizer.param_groups)
+        for name, w in (("transformer", module.transformer.w),
+                        ("emb", module.emb.w)):
+            moved = np.asarray(params[name]) - initial[name]
+            assert np.abs(moved).max() > 1e-6
+            np.testing.assert_allclose(w.detach().numpy() - initial[name],
+                                       moved, rtol=1e-4, atol=1e-11)
 
 
 @pytest.mark.parametrize("name, kw", [
@@ -342,8 +356,8 @@ def _fake_batch(B=2, T=12800, sr=32000):
 
 def test_musicgen_solver_steps_on_the_debug_model():
     """As the JAX package's `tests/models/test_solvers.py`: two run_steps on
-    (wav, infos) give a finite CE; the cached-batch dict path and one train
-    stage run too."""
+    (wav, infos) give a finite CE; the cached-batch dict path, one train
+    stage and the evaluate stage run too."""
     solver = tmg.MusicGenSolver({"seed": 0, "sample_rate": 32000,
                                  "compression_model_checkpoint": "debug"},
                                 device="cpu")
@@ -366,8 +380,10 @@ def test_musicgen_solver_steps_on_the_debug_model():
     evaluated = tmg.eval_step(solver.model, codes, tokenized)
     assert set(evaluated) == {"ce", "ppl", "ce_q1", "ce_q2", "ce_q3", "ce_q4"}
     assert np.isfinite(evaluated["ce"].item()) and not solver.model.training
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        solver.run_one_stage("evaluate")
+    solver.dataloaders["evaluate"] = [batch]
+    evaluated = solver.run_one_stage("evaluate")
+    assert set(evaluated) == {"ce", "ppl", "ce_q1", "ce_q2", "ce_q3", "ce_q4"}
+    assert np.isfinite(evaluated["ce"])
 
 
 def test_solver_from_the_debug_config_freezes_t5():
@@ -401,11 +417,7 @@ def test_lm_options_config_trains(option):
 
 @pytest.mark.parametrize("change, match", [  # ids as before kv_repeat left
     pytest.param({"solver": "compression"}, "not ported",
-                 id="change0-not ported"),
-    pytest.param({"optim": {"optimizer": "dadam"}}, "dadam",
-                 id="change1-dadam"),
-    pytest.param({"transformer_lm": {"checkpointing": "dots"}}, "ROADMAP",
-                 id="change3-ROADMAP")])
+                 id="change0-not ported")])
 def test_unported_options_raise(change, match):
     cfg = config.load_config("solver/musicgen/debug")
     for key, value in change.items():
