@@ -2,4 +2,5 @@
 datasets and loaders themselves are not ported yet (ROADMAP, slice H)."""
 from .audio_dataset import AudioMeta, SegmentInfo
 from .info_audio_dataset import AudioInfo
+from .jasco_dataset import JascoInfo
 from .music_dataset import MusicInfo

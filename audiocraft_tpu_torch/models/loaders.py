@@ -8,14 +8,22 @@ the JAX package reads too: `*.th`, `state_dict.bin` (the LM) and
 `best_state` (the state dict) and `xp.cfg` (the solver config, a dict or
 its YAML text). The port's modules keep upstream's names and state-dict
 keys, so a package loads without conversion, strictly: a missing or
-unexpected key raises. Besides: the Multi-Band Diffusion bundle
+unexpected key raises. One exception: upstream's T5 conditioner keeps its
+encoder out of the state dict, so a released LM package has no
+`...<name>.t5.*` keys; an LM package may lack exactly those, and the
+encoder keeps the builder's seeded init (the JAX package leaves it out of
+the parameters, and its generate then raises).
+
+A codec also loads from the JAX package's own export (`*.npz` written by
+`audiocraft_tpu/utils/export.py`: flattened `a/b/c` arrays beside a
+`__meta__` JSON of the builder config), and from a Hugging Face EnCodec
+snapshot (`config.json` with `model_type: encodec`, and `model.safetensors`
+read by `utils/safetensors.py`, or `pytorch_model.bin`), its keys renamed to
+upstream's. Besides: the Multi-Band Diffusion bundle
 (`load_diffusion_models`, its configs pickled OmegaConf objects read by a
 restricted unpickler), AudioSeal's generator and detector
 (`load_audioseal_models`) and JASCO's flow-matching model
 (`load_jasco_model`).
-
-Not ported: the Hugging Face EnCodec snapshot format (`config.json` +
-`model.safetensors`; ROADMAP).
 """
 import _compat_pickle
 import json
@@ -26,13 +34,17 @@ import typing as tp
 from collections import OrderedDict
 from pathlib import Path
 
+import numpy as np
 import torch
 import yaml
 
-from ..modules.conditioners import ChromaStemConditioner
-from . import builders
+from ..modules.conditioners import ChromaStemConditioner, T5Conditioner
+from ..modules.conv import StreamableConv1d, StreamableConvTranspose1d
+from ..modules.seanet import SEANetResnetBlock
+from ..utils import checkpoint, jax_weights, safetensors
 from ..utils.utils import resolve_device
-from .encodec import CompressionModel
+from . import builders
+from .encodec import CompressionModel, EncodecModel
 from .lm import LMModel
 
 
@@ -106,18 +118,22 @@ def load_package(path: Path) -> tp.Tuple[tp.Dict[str, torch.Tensor], dict]:
 
 
 def load_compression_model(name: str, device=None) -> CompressionModel:
-    """The codec of an export package at `name`
-    (`compression_state_dict.bin` or `*.th`). The config's `seanet`, `rvq`,
-    `sample_rate` and `channels` may sit at its top level (audiocraft's
-    exports) or under `encodec`; convolutions are weight-normed unless it
-    says otherwise."""
+    """The codec at `name`: a Hugging Face EnCodec snapshot (a directory
+    whose `config.json` says `model_type: encodec`), else the first of
+    `*.th`, `*.npz` (a JAX export) and `compression_state_dict.bin` in a
+    directory, or the file itself, as the JAX package looks them up. An
+    audiocraft package's config may hold `seanet`, `rvq`, `sample_rate` and
+    `channels` at its top level (audiocraft's exports) or under `encodec`;
+    its convolutions are weight-normed unless it says otherwise."""
     path = _resolve(name)
     if path.is_dir() and (path / "config.json").exists():
-        raise NotImplementedError(
-            f"{path} is a Hugging Face EnCodec snapshot (config.json + "
-            f"safetensors), which the port does not read yet (ROADMAP)")
-    state, cfg = load_package(_package_file(
-        path, ("*.th", "compression_state_dict.bin")))
+        hf_cfg = json.loads((path / "config.json").read_text())
+        if hf_cfg.get("model_type") == "encodec":
+            return load_hf_encodec(path, device=device)
+    path = _package_file(path, ("*.th", "*.npz", "compression_state_dict.bin"))
+    if path.suffix == ".npz":
+        return load_exported_compression_model(path, device=device)
+    state, cfg = load_package(path)
     enc = dict(cfg.get("encodec", {}) or {})
     for key in ("seanet", "rvq", "sample_rate", "channels"):
         if key not in enc and key in cfg:
@@ -129,6 +145,136 @@ def load_compression_model(name: str, device=None) -> CompressionModel:
         {"compression_model": cfg.get("compression_model", "encodec"),
          "encodec": enc}, device=device)
     model.load_state_dict(state, strict=True)
+    return model
+
+
+def load_exported_compression_model(path: tp.Union[str, Path],
+                                    device=None) -> EncodecModel:
+    """The codec of a JAX `export_encodec` package (read with
+    `allow_pickle=False`): built from the builder config in its `__meta__`
+    JSON by `builders.get_compression_model`, its flattened variables
+    (`params/{encoder,decoder}/...`, `quantizer/codebooks/...`) carried in
+    by `jax_weights.load_encodec`."""
+    with np.load(path, allow_pickle=False) as data:
+        flat = {k: data[k] for k in data.files}
+    meta = json.loads(flat.pop("__meta__").tobytes().decode()) \
+        if "__meta__" in flat else {}
+    if not meta.get("exported"):
+        raise ValueError(f"{path} is not an exported inference checkpoint")
+    model = builders.get_compression_model(meta["xp.cfg"], device=device)
+    jax_weights.load_encodec(model, checkpoint.unflatten(flat))
+    return model
+
+
+def _hf_weights(path: Path) -> tp.Dict[str, torch.Tensor]:
+    if (path / "model.safetensors").exists():
+        return safetensors.load_file(path / "model.safetensors")
+    for filename in ("pytorch_model.bin", "model.bin"):
+        if (path / filename).exists():
+            return dict(torch.load(path / filename, map_location="cpu",
+                                   weights_only=True))
+    raise FileNotFoundError(f"no model.safetensors or pytorch_model.bin in "
+                            f"{path}")
+
+
+def _hf_encodec_model(cfg: dict, n_q: int, device) -> EncodecModel:
+    """The EnCodec of a Hugging Face `EncodecConfig`, with the widths the
+    JAX package's `load_hf_encodec_from_dir` reads."""
+    seanet = dict(
+        dimension=cfg.get("hidden_size", 128),
+        n_filters=cfg.get("num_filters", 32),
+        n_residual_layers=cfg.get("num_residual_layers", 1),
+        ratios=list(cfg["upsampling_ratios"]),
+        lstm=cfg.get("num_lstm_layers", 2),
+        kernel_size=cfg.get("kernel_size", 7),
+        last_kernel_size=cfg.get("last_kernel_size", 7),
+        residual_kernel_size=cfg.get("residual_kernel_size", 3),
+        dilation_base=cfg.get("dilation_growth_rate", 2),
+        causal=cfg.get("use_causal_conv", True),
+        true_skip=not cfg.get("use_conv_shortcut", True),
+        norm="weight_norm" if cfg.get("norm_type") == "weight_norm"
+        else "none")
+    channels = cfg.get("audio_channels", 1)
+    return builders.get_compression_model({"encodec": {
+        "sample_rate": cfg.get("sampling_rate", 32000), "channels": channels,
+        "renormalize": cfg.get("normalize", False),
+        "seanet": dict(seanet, channels=channels),
+        "rvq": {"n_q": n_q, "bins": cfg.get("codebook_size", 1024)}}},
+        device=device)
+
+
+def convert_hf_encodec_state(src: tp.Mapping[str, torch.Tensor],
+                             model: EncodecModel) -> tp.Dict[str, torch.Tensor]:
+    """Hugging Face `EncodecModel` keys -> upstream's, the layer kinds read
+    off `model`: `{tower}.layers.{i}.conv.*` -> `{tower}.model.{i}.conv.conv.*`
+    (a transposed convolution's -> `convtr.convtr.*`), residual blocks'
+    `block.{j}.conv.*` and `shortcut.conv.*` likewise, LSTMs unchanged,
+    weight norm's `parametrizations.weight.original0/1` -> `weight_g/v`,
+    `quantizer.layers.{q}.codebook.*` -> `quantizer.vq.layers.{q}._codebook.*`.
+    """
+    out = {}
+    for key, value in src.items():
+        k = key.replace(".parametrizations.weight.original0", ".weight_g")
+        k = k.replace(".parametrizations.weight.original1", ".weight_v")
+        if k.startswith("quantizer.layers."):
+            k = k.replace("quantizer.layers.", "quantizer.vq.layers.", 1)
+            k = k.replace(".codebook.", "._codebook.", 1)
+        elif k.split(".")[1:2] == ["layers"]:
+            tower, _, idx, tail = k.split(".", 3)
+            layer = getattr(model, tower).model[int(idx)]
+            parts = tail.split(".")
+            if isinstance(layer, StreamableConvTranspose1d):
+                parts[0] = "convtr.convtr"
+            elif isinstance(layer, (StreamableConv1d, SEANetResnetBlock)):
+                ci = parts.index("conv")
+                parts[ci] = "conv.conv"
+            k = ".".join([tower, "model", idx] + parts)
+        out[k] = value
+    return out
+
+
+def hf_encodec_state_dict(model: EncodecModel) -> tp.Dict[str, torch.Tensor]:
+    """A port EnCodec's state dict under Hugging Face's names, with every
+    convolution weight-normed as Hugging Face's are (a plain weight `w` is
+    written as `original0` = its norm per output row and `original1` = `w`):
+    the inverse of `convert_hf_encodec_state`."""
+    out = {}
+    for key, value in model.state_dict().items():
+        k = key
+        if k.startswith("quantizer.vq.layers."):
+            k = k.replace("quantizer.vq.layers.", "quantizer.layers.", 1)
+            k = k.replace("._codebook.", ".codebook.", 1)
+            out[k] = value
+            continue
+        k = k.replace(".model.", ".layers.", 1)
+        k = k.replace("convtr.convtr.", "conv.", 1).replace("conv.conv.",
+                                                            "conv.", 1)
+        if k.endswith(".weight_g") or k.endswith(".weight_v"):
+            suffix = "original0" if k.endswith("_g") else "original1"
+            k = k[:-len(".weight_g")] + ".parametrizations.weight." + suffix
+        elif k.endswith(".conv.weight"):
+            base = k[:-len(".weight")] + ".parametrizations.weight."
+            out[base + "original0"] = value.square().sum(
+                dim=(1, 2), keepdim=True).sqrt()
+            k = base + "original1"
+        out[k] = value
+    return out
+
+
+def load_hf_encodec(path: tp.Union[str, Path], device=None) -> EncodecModel:
+    """The EnCodec of a Hugging Face snapshot directory (`config.json` +
+    `model.safetensors` or `pytorch_model.bin`), e.g. facebook/encodec_32khz,
+    the codec MusicGen's Hugging Face checkpoints ship with: the widths from
+    the config, `n_q` from the quantizer's keys, loaded strictly."""
+    path = Path(path)
+    cfg = json.loads((path / "config.json").read_text())
+    if cfg.get("model_type") != "encodec":
+        raise ValueError(f"{path} holds a {cfg.get('model_type')!r} model, "
+                         f"not encodec")
+    src = _hf_weights(path)
+    n_q = len({k.split(".")[2] for k in src if k.startswith("quantizer.")})
+    model = _hf_encodec_model(cfg, n_q, resolve_device(device))
+    model.load_state_dict(convert_hf_encodec_state(src, model), strict=True)
     return model
 
 
@@ -162,13 +308,20 @@ def load_lm_model_magnet(name: str, compression_model_frame_rate: int = 50,
 
 def _load_lm(state: dict, cfg: dict, device) -> LMModel:
     model = builders.get_lm_model(cfg, device=device)
-    # a melody conditioner's chroma filter bank and window are computed,
-    # not loaded: drop them where an export carries them
+    own = model.state_dict()
     for cond_name, cond in model.condition_provider.conditioners.items():
+        prefix = f"condition_provider.conditioners.{cond_name}."
         if isinstance(cond, ChromaStemConditioner):
-            prefix = f"condition_provider.conditioners.{cond_name}.chroma."
+            # a melody conditioner's chroma filter bank and window are
+            # computed, not loaded: drop them where an export carries them
             state = {k: v for k, v in state.items()
-                     if not k.startswith(prefix)}
+                     if not k.startswith(prefix + "chroma.")}
+        elif isinstance(cond, T5Conditioner):
+            # upstream keeps the T5 encoder out of the state dict: without
+            # any of its keys it keeps the seeded init
+            t5_keys = [k for k in own if k.startswith(prefix + "t5.")]
+            if not any(k in state for k in t5_keys):
+                state = {**{k: own[k] for k in t5_keys}, **state}
     model.load_state_dict(state, strict=True)
     return model
 

@@ -1,15 +1,17 @@
-"""Diffusion noise schedule and sample processors for serving (counterpart
-of `audiocraft_tpu/modules/diffusion_schedule.py`): the power-law beta
-schedule, the full and subsampled DDPM reverse processes, and the
-`MultiBandProcessor` per-band normalisation with its statistics held as
-buffers under upstream's names (`counts`, `sum_x`, `sum_x2`,
-`sum_target_x2`).
+"""Diffusion noise schedule and sample processors (counterpart of
+`audiocraft_tpu/modules/diffusion_schedule.py`): the power-law beta
+schedule, the noising of a training batch (`get_training_item`), the full
+and subsampled DDPM reverse processes, and the `MultiBandProcessor`
+per-band normalisation with its statistics held as buffers under
+upstream's names (`counts`, `sum_x`, `sum_x2`, `sum_target_x2`), gathered
+by `update` over the first `num_samples` training samples.
 
-The schedule's scalars stay float64 numpy, as in the JAX package. Gaussian
-draws go through this module's `randn` (of shape, generator and device),
-so a test can replace it with the JAX package's draws. Training
-(`get_training_item`, `MultiBandProcessor.update`) waits for the diffusion
-solver (ROADMAP, slice G).
+Training takes channels-first batches [B, C, T], as the JAX solver's step
+does. The schedule's scalars stay float64 numpy, as in the JAX package.
+Random draws come from explicit generators: Gaussian ones through this
+module's `randn` (of shape, generator and device), so a test can replace
+it with the JAX package's draws; the training calls also take their draws
+as arguments.
 """
 import typing as tp
 
@@ -19,6 +21,12 @@ import torch.nn as nn
 
 from ..ops.filters import SplitBands
 from ..utils.utils import randn
+
+
+class TrainingItem(tp.NamedTuple):
+    noisy: torch.Tensor
+    noise: torch.Tensor
+    step: torch.Tensor
 
 
 def betas_from_alpha_bar(alpha_bar: np.ndarray) -> np.ndarray:
@@ -34,6 +42,11 @@ class SampleProcessor(nn.Module):
 
     def return_sample(self, z: torch.Tensor) -> torch.Tensor:
         return z
+
+    def update(self, x: torch.Tensor,
+               generator: tp.Optional[torch.Generator] = None,
+               noise: tp.Optional[torch.Tensor] = None) -> None:
+        """Nothing to gather."""
 
 
 class MultiBandProcessor(SampleProcessor):
@@ -66,6 +79,26 @@ class MultiBandProcessor(SampleProcessor):
                                 device=counts.device).reshape(-1, 1, 1, 1)
         return (mean.reshape(-1, 1, 1, 1), std.reshape(-1, 1, 1, 1),
                 target_std.reshape(-1, 1, 1, 1), power)
+
+    @torch.no_grad()
+    def update(self, x: torch.Tensor,
+               generator: tp.Optional[torch.Generator] = None,
+               noise: tp.Optional[torch.Tensor] = None) -> None:
+        """Add a batch [B, C, T] to the statistics while fewer than
+        `num_samples` samples were seen: each band's mean and mean square,
+        and the mean square of the same band of Gaussian noise of x's shape
+        (`noise`, or drawn from `generator`). The gate is a device select,
+        so the update never waits for the device."""
+        if noise is None:
+            noise = randn(x.shape, generator, x.device)
+        bands = self.split_bands(x)                 # [F, B, C, T]
+        ref_bands = self.split_bands(noise)
+        gate = (self.counts < self.num_samples).to(x.dtype)
+        self.counts += gate * x.shape[0]
+        self.sum_x += gate * bands.mean(dim=(2, 3)).sum(dim=1)
+        self.sum_x2 += gate * bands.square().mean(dim=(2, 3)).sum(dim=1)
+        self.sum_target_x2 += gate * ref_bands.square().mean(
+            dim=(2, 3)).sum(dim=1)
 
     def project_sample(self, x: torch.Tensor) -> torch.Tensor:
         assert x.dim() == 3
@@ -121,6 +154,35 @@ class NoiseSchedule:
         if isinstance(step, int):
             return float(np.prod(1 - self.betas[:step + 1]))
         return np.cumprod(1 - self.betas)[step]
+
+    def get_training_item(self, x: torch.Tensor,
+                          generator: tp.Optional[torch.Generator] = None,
+                          tensor_step: bool = True,
+                          step: tp.Optional[torch.Tensor] = None,
+                          noise: tp.Optional[torch.Tensor] = None
+                          ) -> TrainingItem:
+        """Noise a clean batch [B, C, T]: a step per row (or one for the
+        batch with `tensor_step=False`) uniform in [0, num_steps), the
+        batch projected by the sample processor, then
+        sqrt(alpha_bar) / rescale * x + sqrt(1 - alpha_bar) * noise *
+        noise_scale. `step` and `noise` are drawn from `generator` unless
+        given."""
+        if step is None:
+            step = torch.randint(0, self.num_steps,
+                                 (x.shape[0],) if tensor_step else (),
+                                 generator=generator, device=x.device)
+        step = torch.as_tensor(step, device=x.device)
+        alpha_bars = torch.as_tensor(self.get_alpha_bar(), dtype=torch.float32,
+                                     device=x.device)
+        alpha_bar = alpha_bars[step]
+        if step.dim() > 0:
+            alpha_bar = alpha_bar.reshape(-1, 1, 1)
+        x = self.sample_processor.project_sample(x)
+        if noise is None:
+            noise = randn(x.shape, generator, x.device)
+        noisy = (alpha_bar.sqrt() / self.rescale) * x \
+            + (1 - alpha_bar).sqrt() * noise * self.noise_scale
+        return TrainingItem(noisy, noise, step)
 
     @torch.no_grad()
     def _reverse(self, model_fn, initial: torch.Tensor, condition,

@@ -5,7 +5,8 @@
 and post-LN transformer layers, 75 frames per second of 24 kHz audio.
 
 Module names are Hugging Face `HubertModel`'s, so a local
-`m-a-p/MERT-v1-95M` `pytorch_model.bin` loads by name (`load_mert`): the
+`m-a-p/MERT-v1-95M` snapshot loads by name (`load_mert`: its
+`pytorch_model.bin`, or its `model.safetensors` when it has no `.bin`): the
 `hubert.` prefix is stripped and the weight-normed positional conv becomes
 its effective weight. Nothing is downloaded; `get_mert` finds a checkpoint
 at `$MERT_CHECKPOINT` or under `$AUDIOCRAFT_CACHE_DIR/mert`.
@@ -20,6 +21,8 @@ from pathlib import Path
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ..utils import safetensors
 
 
 def _gelu(x: torch.Tensor) -> torch.Tensor:
@@ -210,10 +213,7 @@ def _read_state(path: Path) -> tp.Dict[str, torch.Tensor]:
                 raise FileNotFoundError(f"no MERT checkpoint under {path}")
             path = found[0]
     if path.suffix == ".safetensors":
-        raise NotImplementedError(
-            f"{path} is a safetensors snapshot, which the port does not read "
-            f"yet (ROADMAP §1 item 4, the numpy safetensors reader); use the "
-            f"snapshot's pytorch_model.bin")
+        return safetensors.load_file(path)
     state = torch.load(path, map_location="cpu", weights_only=True)
     if "state_dict" in state:
         state = state["state_dict"]
@@ -245,7 +245,8 @@ def convert_hubert_state(state: tp.Dict[str, torch.Tensor]
 
 def load_mert(path, device=None, layer_norm_eps: float = 1e-5) -> MERTModel:
     """A `MERTModel` from a local HF snapshot directory or checkpoint file
-    (`pytorch_model.bin`), sized from its weights and loaded strictly."""
+    (`pytorch_model.bin`, or `model.safetensors` alone), sized from its
+    weights and loaded strictly."""
     src = convert_hubert_state(_read_state(Path(path)))
     n_conv = 1 + max(int(k.split(".")[2]) for k in src
                      if k.startswith("feature_extractor.conv_layers."))

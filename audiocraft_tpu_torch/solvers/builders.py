@@ -11,18 +11,45 @@ from ..optim.lr_schedulers import get_lr_scheduler
 ParamGroups = tp.List[tp.Dict[str, tp.Any]]
 
 
+_UNPORTED_SOLVERS = {"compression": "slice F: codec training",
+                     "watermarking": "slice G part 2: AudioSeal training"}
+
+
 def get_solver(cfg: dict, device=None):
-    """The solver named by `cfg['solver']`: MusicGen, AudioGen, MAGNeT or
-    AudioGen-MAGNeT."""
+    """The solver named by `cfg['solver']`: MusicGen, AudioGen, MAGNeT,
+    AudioGen-MAGNeT, Multi-Band Diffusion (`diffusion`) or JASCO."""
     from .audiogen import AudioGenSolver
+    from .diffusion import DiffusionSolver
+    from .jasco import JascoSolver
     from .magnet import AudioMagnetSolver, MagnetSolver
     from .musicgen import MusicGenSolver
     solvers = {"musicgen": MusicGenSolver, "audiogen": AudioGenSolver,
-               "magnet": MagnetSolver, "audio_magnet": AudioMagnetSolver}
+               "magnet": MagnetSolver, "audio_magnet": AudioMagnetSolver,
+               "diffusion": DiffusionSolver, "jasco": JascoSolver}
     name = cfg["solver"]
     if name not in solvers:
-        raise NotImplementedError(f"solver {name!r} is not ported (ROADMAP)")
+        where = _UNPORTED_SOLVERS.get(name)
+        raise NotImplementedError(f"solver {name!r} is not ported (ROADMAP"
+                                  + (f", {where})" if where else ")"))
     return solvers[name](cfg, device=device)
+
+
+def compression_model_from_checkpoint(checkpoint: tp.Optional[str], device,
+                                      sample_rate: int = 32000):
+    """The frozen codec of a solver's `compression_model_checkpoint`: the
+    debug codec at `sample_rate` for 'debug' or None, else the codec
+    package at that path (or under `AUDIOCRAFT_CACHE_DIR`) through
+    `models.loaders.load_compression_model`, as the JAX package's
+    `CompressionSolver.model_from_checkpoint`; `//sig/` references are
+    not resolved. Evaluation mode, no gradients."""
+    from ..models import builders as model_builders
+    from ..models import loaders
+    if checkpoint in ("debug", None):
+        model = model_builders.get_debug_compression_model(
+            device=device, sample_rate=sample_rate)
+    else:
+        model = loaders.load_compression_model(str(checkpoint), device=device)
+    return model.eval().requires_grad_(False)
 
 
 def get_optim_parameter_groups(model: nn.Module,
@@ -78,6 +105,15 @@ class ClippedOptimizer:
         self.optimizer.step()
         self.scheduler.step()
         return norm
+
+
+def fill_missing_grads(optimizer: torch.optim.Optimizer) -> None:
+    """Zero gradients for the parameters the loss did not reach, so torch's
+    optimizer steps them as optax steps every parameter (AdamW's decay)."""
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
 
 
 def make_torch_optimizer(groups: ParamGroups, name: str, lr: float,

@@ -157,8 +157,9 @@ def _set_rng_state(rng: np.random.RandomState, state: dict) -> None:
 
 class MusicGenSolver(SolverRunMixin):
     """MusicGen LM training from a solver config dict: a frozen compression
-    model (the debug codec at the config's `sample_rate`, 32 or 16 kHz, for
-    `compression_model_checkpoint` 'debug' or None), the LM (`get_lm_model`
+    model (`compression_model_checkpoint`: a codec package's path, or the
+    debug codec at the config's `sample_rate`, 32 or 16 kHz, for 'debug'
+    or None; `builders.compression_model_from_checkpoint`), the LM (`get_lm_model`
     when the config has `transformer_lm`, else the debug LM), condition
     dropouts, and the optimizer. Runs on CUDA unless `device` names another.
     Loaders are iterables of batches placed in `self.dataloaders` (the
@@ -183,12 +184,9 @@ class MusicGenSolver(SolverRunMixin):
         self.dataloaders: tp.Dict[str, tp.Iterable] = {}
         seed = cfg.get("seed", 2036)
 
-        ckpt = cfg.get("compression_model_checkpoint")
-        if ckpt not in ("debug", None):
-            raise NotImplementedError("loading a compression model checkpoint "
-                                      "is not ported (ROADMAP, slice A item 3)")
-        self.compression_model = model_builders.get_debug_compression_model(
-            device=self.device, sample_rate=cfg.get("sample_rate", 32000))
+        self.compression_model = builders.compression_model_from_checkpoint(
+            cfg.get("compression_model_checkpoint"), self.device,
+            sample_rate=cfg.get("sample_rate", 32000))
 
         lm_cfg = cfg.get("transformer_lm") or {}
         if lm_cfg:

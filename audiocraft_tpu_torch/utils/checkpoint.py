@@ -93,21 +93,27 @@ class _Node(dict):
             raise AttributeError(key) from None
 
 
+def unflatten(flat: tp.Mapping[str, np.ndarray]) -> _Node:
+    """Flattened `a/b/c` arrays (the JAX package's npz layout) as nested
+    `_Node`s."""
+    tree = _Node()
+    for key, value in flat.items():
+        parts = key.split("/")
+        node = tree
+        for part in parts[:-1]:
+            node = node.setdefault(part, _Node())
+        node[parts[-1]] = value
+    return tree
+
+
 def load_jax_params(path: tp.Union[Path, str]) -> _Node:
     """The `params` of a JAX training state saved by the JAX package's
     `save_checkpoint` (keys `params/<collection>/...`), as nested dicts of
     numpy arrays; the step and the optimizer state are left out."""
-    tree = _Node()
     with np.load(path, allow_pickle=False) as data:
-        for key in data.files:
-            parts = key.split("/")
-            if parts[0] != "params" or len(parts) < 2:
-                continue
-            node = tree
-            for part in parts[1:-1]:
-                node = node.setdefault(part, _Node())
-            node[parts[-1]] = data[key]
-    return tree
+        return unflatten({key[len("params/"):]: data[key]
+                          for key in data.files
+                          if key.startswith("params/")})
 
 
 def flush_stale_checkpoints(checkpoint_path: Path, keep_last: int = 0) -> None:

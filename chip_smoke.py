@@ -138,7 +138,26 @@ Phases, each printing one JSON line:
            prints each request split into tokenize (drum separation and
            encode), conditions (T5), solve (with its evaluations) and codec
            decode, ms per forward at B 4 x 500 with its kernels, and the
-           peak memory.
+           peak memory;
+  loaders  full-width MusicGen-small (`solver/musicgen/default`, seeded,
+           f32) saved as upstream does, without its T5 keys, loads through
+           `loaders.load_lm_model`; with the in-memory model's T5 weights its
+           greedy tokens for 2 texts x 1 s equal the in-memory model's,
+           through K1; EnCodec 32 kHz saved as `compression_state_dict.bin`
+           and as a Hugging Face snapshot (HF names, weight-normed,
+           `model.safetensors` from the port's numpy writer) decodes them to
+           the in-memory codec's waveform; prints the load seconds;
+  mbd_train  `DiffusionSolver` at `solver/diffusion/default`'s widths at
+           32 kHz over that codec package: 1 s segments at the largest batch
+           of 128 / 64 / 32 / 16 that fits, 5 `run_step`s (step s, audio-s/s,
+           peak memory, the condition's codec pass, the U-Net's forward and
+           backward with its BiLSTM's share, the loss per step), then the
+           loss and every gradient on 2 rows against the CPU;
+  jasco_train  `JascoSolver` at smoke-jasco's model over the same codec:
+           16 rows of 10 s, each with its clip as `self_wav` (HTDemucs
+           separates the drums) and seeded frame chords, 5 `run_step`s split
+           into separation + drum latents, latents, tokenize and the train
+           step, then the loss on 2 rows of 2 s against the CPU.
 Then the `{"kernels": [...]}` summary, and last `{"ok": true, "device": ...}`.
 Any failed check raises, so the script exits non-zero without the last line.
 It needs no network and imports nothing of JAX.
@@ -146,6 +165,7 @@ It needs no network and imports nothing of JAX.
 import gc
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -2347,6 +2367,379 @@ def phase_jasco(torch, card):
     _release(torch)
 
 
+LOADERS_SECONDS = 1          # of greedy tokens per text from the loaded LM
+LOADERS_WAV_TOL = 1e-4       # relative to max(1, max |in-memory decode|)
+MBD_TRAIN_BATCHES = (128, 64, 32, 16)   # solver/diffusion's; the largest
+MBD_TRAIN_SECONDS = 1        # fitting one card is taken
+MBD_TRAIN_STEPS = 5
+MBD_CHECK_ROWS = 2
+MBD_LOSS_RTOL = 1e-4         # card vs CPU, f32, no TF32
+MBD_GRAD_TOL = 1e-3          # |card - CPU| / |CPU| per parameter (L2)
+JASCO_TRAIN_BATCH = 16       # cut from solver/jasco's 128 to fit one card
+JASCO_TRAIN_SECONDS = 10
+JASCO_TRAIN_STEPS = 5
+JASCO_CHECK_SECONDS = 2      # of the 2 rows held card against CPU
+JASCO_LOSS_RTOL = 1e-4
+
+
+def _packages_dir() -> Path:
+    """Where the loaders phase writes its packages: under the checkout's
+    `build/`, which git ignores."""
+    path = Path(__file__).resolve().parent / "build" / "smoke_packages"
+    path.mkdir(parents=True, exist_ok=True)
+    return path
+
+
+def phase_loaders(torch, card):
+    """Checkpoint loading at full width: MusicGen-small saved as upstream
+    does (its state dict without the T5 encoder's keys, f32, seeded port
+    weights) loads through `loaders.load_lm_model` and, with the in-memory
+    model's T5 weights, greedy-generates its tokens through K1; the seeded
+    EnCodec 32 kHz saved as `compression_state_dict.bin` and as a Hugging
+    Face snapshot (HF names, weight-normed, `model.safetensors` written by
+    the port's numpy writer) decodes those tokens to the in-memory codec's
+    waveform. Returns (K1 launches, the codec package's directory)."""
+    from audiocraft_tpu_torch.config import load_config
+    from audiocraft_tpu_torch.models import MusicGen, builders, loaders
+    from audiocraft_tpu_torch.ops.decode_attention import decode_attention
+    from audiocraft_tpu_torch.utils import safetensors
+    root = _packages_dir()
+    cfg = load_config("solver/musicgen/default")
+    lm = builders.get_lm_model(cfg, device="cuda", seed=7)
+    lm.reset_parameters(7)
+    t5_prefix = "condition_provider.conditioners.description.t5."
+    state = {k: v for k, v in lm.state_dict().items()
+             if not k.startswith(t5_prefix)}
+    (root / "lm").mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    torch.save({"best_state": state, "xp.cfg": cfg},
+               root / "lm" / "state_dict.bin")
+    save_s = time.perf_counter() - t0
+    del state
+    (loaded, _), lm_load_s = _timed(torch, lambda: loaders.load_lm_model(
+        str(root / "lm"), device="cuda"))
+    t5 = loaded.condition_provider.conditioners["description"].t5
+    t5.load_state_dict(lm.condition_provider.conditioners["description"]
+                       .t5.state_dict())
+
+    codec = builders.get_encodec_32khz(device="cuda", seed=3)
+    codec_cfg = {"compression_model": "encodec", "sample_rate": 32000,
+                 "channels": 1, "seanet": {
+                     "dimension": 128, "n_filters": 64, "n_residual_layers": 1,
+                     "ratios": [8, 5, 4, 4], "lstm": 2, "norm": "none"},
+                 "rvq": {"n_q": 4, "bins": 2048}}
+    (root / "codec").mkdir(exist_ok=True)
+    torch.save({"best_state": codec.state_dict(), "xp.cfg": codec_cfg},
+               root / "codec" / "compression_state_dict.bin")
+    (root / "hf").mkdir(exist_ok=True)
+    (root / "hf" / "config.json").write_text(json.dumps({
+        "model_type": "encodec", "sampling_rate": 32000, "audio_channels": 1,
+        "hidden_size": 128, "num_filters": 64, "num_residual_layers": 1,
+        "upsampling_ratios": [8, 5, 4, 4], "codebook_size": 2048,
+        "num_lstm_layers": 2, "use_conv_shortcut": False,
+        "use_causal_conv": False, "norm_type": "weight_norm",
+        "normalize": False, "kernel_size": 7, "last_kernel_size": 7,
+        "residual_kernel_size": 3, "dilation_growth_rate": 2}))
+    safetensors.save_file(loaders.hf_encodec_state_dict(codec),
+                          root / "hf" / "model.safetensors")
+    package_codec, codec_load_s = _timed(torch, lambda: loaders
+                                         .load_compression_model(
+                                             str(root / "codec"), device="cuda"))
+    hf_codec, hf_load_s = _timed(torch, lambda: loaders.load_compression_model(
+        str(root / "hf"), device="cuda"))
+
+    tokens = {}
+    decode_attention.launches = 0
+    for name, model in (("in_memory", lm), ("loaded", loaded)):
+        mg = MusicGen(f"musicgen-small {name} (random weights)", codec, model,
+                      device="cuda")
+        mg.set_generation_params(duration=LOADERS_SECONDS, use_sampling=False)
+        (_, tokens[name]), _ = _timed(torch, lambda: mg.generate(
+            TEXTS, return_tokens=True))
+    launches = decode_attention.launches
+    frames = LOADERS_SECONDS * TOKENS_PER_SECOND
+    expected = 2 * _k1_launches(lm, frames)
+    if launches != expected:
+        raise AssertionError(f"loaders: decode_attention launched {launches} "
+                             f"times, expected {expected}")
+    if tuple(tokens["loaded"].shape) != (2, 4, frames) or not torch.equal(
+            tokens["loaded"], tokens["in_memory"]):
+        raise AssertionError("loaders: the loaded package's greedy tokens "
+                             "differ from the in-memory model's")
+    want = codec.decode(tokens["in_memory"], device="cuda")
+    errors = {name: _card_vs_cpu(f"loaders {name} decode",
+                                 model.decode(tokens["in_memory"],
+                                              device="cuda"), want,
+                                 LOADERS_WAV_TOL)
+              for name, model in (("compression_state_dict", package_codec),
+                                  ("hugging_face", hf_codec))}
+    emit("loaders", card=card, lm="solver/musicgen/default (MusicGen-small: "
+         "T5-base, 24 layers, d 1024; seeded random weights, f32), saved "
+         "without its T5 keys", lm_package_bytes=(root / "lm" /
+                                                  "state_dict.bin").stat().st_size,
+         lm_save_s=save_s, lm_load_s=lm_load_s,
+         codec_package_load_s=codec_load_s, hf_snapshot_load_s=hf_load_s,
+         texts=len(TEXTS), audio_s_per_text=LOADERS_SECONDS,
+         tokens_equal=True, k1_launches=launches,
+         decode_max_abs_err=errors,
+         decode_tolerance=f"{LOADERS_WAV_TOL} x max(1, max |in-memory|)")
+    (root / "lm" / "state_dict.bin").unlink()
+    del lm, loaded, codec, package_codec, hf_codec, t5
+    _release(torch)
+    return launches, root / "codec"
+
+
+def _on(tree, device):
+    """Tensors of a tokenized batch (dicts, tuples, named tuples) moved."""
+    if isinstance(tree, dict):
+        return {k: _on(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        items = [_on(v, device) for v in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
+    return tree.to(device) if hasattr(tree, "to") and hasattr(
+        tree, "device") else tree
+
+
+def _grads(model):
+    return {n: p.grad.detach().clone() for n, p in model.named_parameters()
+            if p.grad is not None}
+
+
+def phase_mbd_train(torch, card, codec_dir):
+    """Multi-Band Diffusion training at the widths of
+    `solver/diffusion/default` (a DiffusionUnet of 48-192-768-3072 channels
+    with a 3072 BiLSTM and a 128-dim codec condition; 1000 schedule steps;
+    the 8-band processor) at 32 kHz, its frozen codec the loaders phase's
+    `compression_state_dict.bin`: 1 s segments at the largest batch of
+    128 / 64 / 32 / 16 that fits, 5 `run_step`s, then card against CPU on
+    2 rows with injected draws."""
+    import copy
+    from audiocraft_tpu_torch.config import load_config
+    from audiocraft_tpu_torch.solvers import diffusion as tdiff
+    from audiocraft_tpu_torch.solvers import get_solver
+    resident = _release(torch)
+    cfg = load_config("solver/diffusion/default")
+    cfg.update(sample_rate=32000, compression_model_checkpoint=str(codec_dir))
+    solver, setup_s = _timed(torch, lambda: get_solver(cfg, device="cuda"))
+    segment = MBD_TRAIN_SECONDS * solver.sample_rate
+    audio = _seeded_music(torch, MBD_TRAIN_BATCHES[0], MBD_TRAIN_SECONDS)
+    # the largest batch whose step fits: a step that runs out of memory
+    # leaves the weights as they were (Adam steps after the backward)
+    batch, refused = None, []
+    for rows in MBD_TRAIN_BATCHES:
+        try:
+            solver.run_step(0, audio[:rows], {})
+            torch.cuda.synchronize()
+            batch = rows
+            break
+        except RuntimeError as e:  # torch's or cuDNN's allocation failure
+            if "out of memory" not in str(e) and "ALLOC" not in str(e):
+                raise
+            refused.append(rows)
+            solver.optimizer.zero_grad(set_to_none=True)
+            _release(torch)
+    if batch is None:
+        raise AssertionError("mbd_train: no batch of 16 or more fits")
+    x = audio[:batch]
+    condition_s = []
+    solver.get_condition = _sync_timed(torch, solver.get_condition, condition_s)
+    torch.cuda.reset_peak_memory_stats()
+    step_s, losses = [], []
+    for idx in range(MBD_TRAIN_STEPS):
+        metrics, seconds = _timed(torch, lambda: solver.run_step(idx, x, {}))
+        step_s.append(seconds)
+        losses.append(float(metrics["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"mbd_train: loss {losses}")
+    # the U-Net's forward and backward at the step's shapes, and its BiLSTM's
+    model = solver.model
+    condition = solver.get_condition(x)
+    item = solver.schedule.get_training_item(x, solver._rng)
+    seen = {}
+    hook = model.bilstm.register_forward_hook(
+        lambda m, args, out: seen.setdefault("z", args[0].detach()))
+
+    def unet_pass():
+        model(item.noisy, item.step, condition).square().mean().backward()
+
+    def bilstm_pass():
+        z = seen["z"].requires_grad_(True)
+        model.bilstm(z).square().mean().backward()
+
+    _, unet_s = _timed(torch, unet_pass)
+    hook.remove()
+    _, unet_s = _timed(torch, unet_pass)
+    _, bilstm_s = _timed(torch, bilstm_pass)
+    solver.optimizer.zero_grad(set_to_none=True)
+
+    # card vs CPU on 2 rows: the same weights, statistics and draws
+    rows = x[:MBD_CHECK_ROWS]
+    g = torch.Generator().manual_seed(6)
+    draws = dict(ref_noise=torch.randn(rows.shape, generator=g),
+                 step=torch.randint(0, solver.num_steps, (MBD_CHECK_ROWS,),
+                                    generator=g),
+                 noise=torch.randn(rows.shape, generator=g))
+    cond_rows = solver.get_condition(rows)
+    results = {}
+    for device in ("cuda", "cpu"):
+        net = model if device == "cuda" else copy.deepcopy(model).cpu()
+        schedule = copy.deepcopy(solver.schedule)
+        schedule.sample_processor = schedule.sample_processor.to(device)
+        net.zero_grad(set_to_none=True)
+        loss, _, _ = tdiff.diffusion_loss(
+            net, schedule, rows.to(device), cond_rows.to(device),
+            update_processor=False,
+            **{k: v.to(device) for k, v in draws.items()})
+        loss.backward()
+        results[device] = (loss.item(), _grads(net))
+        del net
+    solver.optimizer.zero_grad(set_to_none=True)
+    loss_err = abs(results["cuda"][0] - results["cpu"][0])
+    if not loss_err <= MBD_LOSS_RTOL * abs(results["cpu"][0]):
+        raise AssertionError(f"mbd_train: card loss {results['cuda'][0]} vs "
+                             f"CPU {results['cpu'][0]}")
+    grad_err, worst = 0.0, ""
+    for name, want in results["cpu"][1].items():
+        err = float((results["cuda"][1][name].cpu() - want).norm()
+                    / want.norm().clamp_min(1e-30))
+        if not err <= MBD_GRAD_TOL:
+            raise AssertionError(f"mbd_train: gradient of {name} differs by "
+                                 f"{err} of its norm card vs CPU")
+        grad_err, worst = max((grad_err, worst), (err, name))
+    steady = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    emit("mbd_train", card=card, config="solver/diffusion/default + "
+         "sample_rate=32000 (DiffusionUnet hidden 48, depth 4, growth 4, "
+         "BiLSTM 3072, codec_dim 128; 1000 steps; 8-band processor; f32, "
+         "Adam 2e-4; seeded random weights)", codec_package=str(codec_dir),
+         batch=batch, batches_refused_out_of_memory=refused,
+         batch_cut_from=MBD_TRAIN_BATCHES[0],
+         seconds_per_item=MBD_TRAIN_SECONDS, samples_per_item=segment,
+         setup_s=setup_s, step_s=step_s, steady_step_s=steady,
+         audio_s_per_s=batch * MBD_TRAIN_SECONDS / steady,
+         condition_codec_s=condition_s[:MBD_TRAIN_STEPS],
+         unet_forward_backward_s=unet_s, bilstm_forward_backward_s=bilstm_s,
+         bilstm_share=bilstm_s / unet_s, loss=losses,
+         processor_counts=float(solver.sample_processor.counts),
+         unet_params=sum(p.numel() for p in model.parameters()),
+         max_memory_allocated=peak, peak_gb=peak / 1e9,
+         resident_bytes_before_phase=resident,
+         card_vs_cpu=dict(rows=MBD_CHECK_ROWS, loss_cuda=results["cuda"][0],
+                          loss_cpu=results["cpu"][0], loss_abs_err=loss_err,
+                          loss_rtol=MBD_LOSS_RTOL,
+                          max_grad_rel_l2_err=grad_err,
+                          worst_parameter=worst,
+                          grad_tol=f"|card - CPU| <= {MBD_GRAD_TOL} x |CPU| "
+                                   f"(L2) per parameter"))
+    del solver, model, results, item, condition, audio, x
+    _release(torch)
+
+
+def phase_jasco_train(torch, card, codec_dir):
+    """JASCO training at smoke-jasco's model (`solver/jasco/chords_drums` at
+    `model_scale/small`, as `get_jasco_chords_drums_model` builds it; T5-base;
+    f32, AdamW) over the loaders phase's EnCodec 32 kHz package, with a
+    full-width HTDemucs separating each row's drums from its `self_wav`:
+    16 rows of 10 s with seeded frame chords, 5 `run_step`s, then card
+    against CPU on 2 rows of 2 s with injected t and z0."""
+    import copy
+    from audiocraft_tpu_torch.config import load_config
+    from audiocraft_tpu_torch.data import AudioMeta, JascoInfo
+    from audiocraft_tpu_torch.modules.conditioners import (SymbolicCondition,
+                                                           WavCondition)
+    from audiocraft_tpu_torch.modules.demucs import HTDemucs
+    from audiocraft_tpu_torch.solvers import get_solver
+    from audiocraft_tpu_torch.solvers import jasco as tjasco
+    resident = _release(torch)
+    cfg = load_config("solver/jasco/chords_drums")
+    cfg["transformer_lm"].update(
+        load_config("model/lm/model_scale/small")["transformer_lm"])
+    cfg["compression_model_checkpoint"] = str(codec_dir)
+    t0 = time.perf_counter()
+    solver = get_solver(cfg, device="cuda")
+    torch.manual_seed(2)
+    drums = solver.model.conditioners["self_wav"]
+    drums.set_separator(HTDemucs().to("cuda").eval())
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    B, sr = JASCO_TRAIN_BATCH, solver.compression_model.sample_rate
+    wav = _seeded_music(torch, B, JASCO_TRAIN_SECONDS, sr)
+    frames = int(JASCO_TRAIN_SECONDS * solver.compression_model.frame_rate)
+    g = torch.Generator().manual_seed(7)
+    meta = AudioMeta(path="seeded.wav", duration=JASCO_TRAIN_SECONDS,
+                     sample_rate=sr)
+
+    def infos(rows, seconds):
+        n = seconds * sr
+        return [JascoInfo(
+            meta=meta, seek_time=0.0, n_frames=n, total_frames=n,
+            sample_rate=sr, channels=1, description=f"{TEXTS[i % 2]}, take {i}",
+            self_wav=WavCondition(rows[i:i + 1, :, :n], torch.tensor([n]),
+                                  [sr], [None]),
+            chords=SymbolicCondition(frame_chords=torch.randint(
+                0, 194, (int(seconds * solver.compression_model.frame_rate),),
+                generator=g).numpy()))
+            for i in range(rows.shape[0])]
+
+    batch = (wav, infos(wav, JASCO_TRAIN_SECONDS))
+    pieces = {"drums": [], "latents": [], "tokenize": []}
+    drums.tokenize = _sync_timed(torch, drums.tokenize, pieces["drums"])
+    solver.get_latents = _sync_timed(torch, solver.get_latents,
+                                     pieces["latents"])
+    solver._tokenize_batch = _sync_timed(torch, solver._tokenize_batch,
+                                         pieces["tokenize"])
+    torch.cuda.reset_peak_memory_stats()
+    step_s, losses = [], []
+    for idx in range(JASCO_TRAIN_STEPS):
+        metrics, seconds = _timed(torch, lambda: solver.run_step(idx, batch,
+                                                                 {}))
+        step_s.append(seconds)
+        losses.append(float(metrics["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"jasco_train: loss {losses}")
+    splits = [dict(separation_and_drum_latents=d, latents=lt,
+                   tokenize_rest=tk - d - lt, train_step=s - tk)
+              for d, lt, tk, s in zip(pieces["drums"], pieces["latents"],
+                                      pieces["tokenize"], step_s)]
+
+    # card vs CPU on 2 rows of 2 s: the same conditions, t and z0
+    short = wav[:2, :, :JASCO_CHECK_SECONDS * sr]
+    latents, tokenized = solver._tokenize_batch(short, infos(
+        short, JASCO_CHECK_SECONDS))
+    draws = dict(t=torch.rand((2,), generator=g),
+                 z0=torch.randn(latents.shape, generator=g))
+    losses_check = {}
+    for device in ("cuda", "cpu"):
+        model = solver.model if device == "cuda" else copy.deepcopy(
+            solver.model).cpu()
+        with torch.no_grad():
+            losses_check[device] = float(tjasco.flow_matching_loss(
+                model, latents.to(device), _on(tokenized, device),
+                **{k: v.to(device) for k, v in draws.items()}))
+        del model
+    loss_err = abs(losses_check["cuda"] - losses_check["cpu"])
+    if not loss_err <= JASCO_LOSS_RTOL * abs(losses_check["cpu"]):
+        raise AssertionError(f"jasco_train: card loss {losses_check['cuda']} "
+                             f"vs CPU {losses_check['cpu']}")
+    steady = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    emit("jasco_train", card=card, config="solver/jasco/chords_drums at "
+         "model/lm/model_scale/small (dim 1024, 16 heads, 24 layers; T5-base; "
+         "chords 194 -> 16, drum latents 128 -> 16; f32, AdamW 1e-4; seeded "
+         "random weights) + HTDemucs drums", codec_package=str(codec_dir),
+         batch=B, batch_cut_from=128, seconds_per_item=JASCO_TRAIN_SECONDS,
+         frames=frames, setup_s=setup_s, step_s=step_s, steady_step_s=steady,
+         split_s=splits, audio_s_per_s=B * JASCO_TRAIN_SECONDS / steady,
+         loss=losses, max_memory_allocated=peak, peak_gb=peak / 1e9,
+         resident_bytes_before_phase=resident,
+         card_vs_cpu=dict(rows=2, seconds=JASCO_CHECK_SECONDS,
+                          loss_cuda=losses_check["cuda"],
+                          loss_cpu=losses_check["cpu"], loss_abs_err=loss_err,
+                          loss_rtol=JASCO_LOSS_RTOL))
+    del solver, drums, batch, wav, tokenized, latents
+    _release(torch)
+
+
 def main() -> int:
     root = Path(__file__).resolve().parent
     if not (root / "audiocraft_tpu_torch" / "csrc").is_dir():
@@ -2386,7 +2779,12 @@ def main() -> int:
     phase_mbd(torch, card)
     phase_audioseal(torch, card, music)
     phase_jasco(torch, card)
-    launches += melody_launches + audiogen_launches + style_launches
+    loaders_launches, codec_dir = phase_loaders(torch, card)
+    phase_mbd_train(torch, card, codec_dir)
+    phase_jasco_train(torch, card, codec_dir)
+    shutil.rmtree(codec_dir.parent)
+    launches += (melody_launches + audiogen_launches + style_launches
+                 + loaders_launches)
     timings += melody_timings + audiogen_timings + style_timings
 
     main_t = timings[0]

@@ -19,7 +19,11 @@ noise, atol 1e-4 * max(1, max |CPU|) (f32, TF32 off), and the same number
 of Dormand-Prince evaluations; K2's ops against their plain versions as
 the kernel (lse 1e-4); gradients under each checkpointing policy against
 'none', 1e-5 (f32, the same kernels replayed); a MAGNeT training step on
-the card against the CPU, CE 1e-5 and gradients atol 1e-5 / rtol 1e-4."""
+the card against the CPU, CE 1e-5 and gradients atol 1e-5 / rtol 1e-4;
+Multi-Band Diffusion and JASCO solver steps on the card against the CPU
+with the same draws, loss rtol 1e-4 and each gradient within 1e-4 of its
+largest entry (f32, TF32 off), the band processor's statistics within
+1e-5 of each one's largest entry (a band's mean is near 0)."""
 import pytest
 import torch
 
@@ -1020,3 +1024,83 @@ def test_debug_magnet_train_step_on_card_matches_cpu(stage):
     for name, g in out["cpu"][1].items():
         torch.testing.assert_close(out["cuda"][1][name], g, atol=1e-5,
                                    rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_diffusion_solver_step_on_card_matches_cpu():
+    """One Multi-Band Diffusion solver step (a small BiLSTM U-Net over the
+    debug codec, 8-band processor) with the same weights, batch and draws on
+    the card and on the CPU: the loss, the processor's statistics and every
+    gradient."""
+    _f32_card()
+    from audiocraft_tpu_torch.solvers import diffusion as tdiff
+    from audiocraft_tpu_torch.solvers import get_solver
+    cfg = {"solver": "diffusion", "seed": 1, "sample_rate": 32000,
+           "diffusion_unet": dict(hidden=8, depth=2, growth=2.0, kernel=4,
+                                  stride=2, emb_all_layers=True, bilstm=True,
+                                  codec_dim=32)}
+    g = torch.Generator().manual_seed(2)
+    x = 0.2 * torch.randn(2, 1, 5120, generator=g)
+    draws = dict(ref_noise=torch.randn(x.shape, generator=g),
+                 step=torch.randint(0, 1000, (2,), generator=g),
+                 noise=torch.randn(x.shape, generator=g))
+    out = {}
+    for device in ("cpu", "cuda"):
+        solver = get_solver(cfg, device=device)
+        if device == "cuda":  # the CPU's weights (inits draw per device)
+            solver.model.load_state_dict(weights[0])
+            solver.codec.load_state_dict(weights[1])
+        weights = (solver.model.state_dict(), solver.codec.state_dict())
+        condition = solver.get_condition(x)
+        loss, _, _ = tdiff.diffusion_loss(
+            solver.model, solver.schedule, x.to(device), condition,
+            **{k: v.to(device) for k, v in draws.items()})
+        loss.backward()
+        out[device] = (loss.item(), condition.cpu(),
+                       {k: v.cpu() for k, v in
+                        solver.sample_processor.state_dict().items()},
+                       {n: p.grad.cpu() for n, p in
+                        solver.model.named_parameters()})
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-4 * abs(out["cpu"][0])
+    _close(out["cuda"][1], out["cpu"][1])
+    for name, value in out["cpu"][2].items():
+        tol = 1e-5 * max(1e-30, float(value.abs().max()))
+        assert float((out["cuda"][2][name] - value).abs().max()) <= tol, name
+    for name, grad in out["cpu"][3].items():
+        tol = 1e-4 * max(1e-30, float(grad.abs().max()))
+        assert float((out["cuda"][3][name] - grad).abs().max()) <= tol, name
+
+
+@pytest.mark.gpu
+def test_jasco_solver_step_on_card_matches_cpu():
+    """One JASCO solver step on the debug model, the same weights, batch, t
+    and z0 on the card and on the CPU: the loss and every gradient."""
+    _f32_card()
+    from audiocraft_tpu_torch.solvers import get_solver
+    from audiocraft_tpu_torch.solvers import jasco as tjasco
+    g = torch.Generator().manual_seed(3)
+    wav = 0.1 * torch.randn(2, 1, 12800, generator=g)
+    t = torch.rand((2,), generator=g)
+    z0 = torch.randn(2, 10, 32, generator=g)
+    out = {}
+    for device in ("cpu", "cuda"):
+        solver = get_solver({"solver": "jasco", "seed": 0}, device=device)
+        if device == "cuda":  # the CPU's weights (inits draw per device)
+            solver.model.load_state_dict(weights[0])
+            solver.compression_model.load_state_dict(weights[1])
+        weights = (solver.model.state_dict(),
+                   solver.compression_model.state_dict())
+        latents, tokenized = solver._tokenize_batch(wav, None)
+        loss = tjasco.flow_matching_loss(solver.model, latents, tokenized,
+                                         t=t.to(device), z0=z0.to(device))
+        loss.backward()
+        out[device] = (loss.item(), latents.cpu(),
+                       {n: p.grad.cpu() for n, p in
+                        solver.model.named_parameters()
+                        if p.grad is not None})
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-4 * abs(out["cpu"][0])
+    _close(out["cuda"][1], out["cpu"][1])
+    assert out["cuda"][2].keys() == out["cpu"][2].keys()
+    for name, grad in out["cpu"][2].items():
+        tol = 1e-4 * max(1e-30, float(grad.abs().max()))
+        assert float((out["cuda"][2][name] - grad).abs().max()) <= tol, name

@@ -51,6 +51,19 @@ SCHEDULE = dict(beta_t0=1e-5, beta_t1=2.9e-2, beta_exp=7.5, num_steps=1000,
                 variance="beta", clip=5.0)   # solver/diffusion/default
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """A module's torch work runs in one thread (the MBD, JASCO and
+    checkpoint test files import this fixture). Their CPU kernels of many
+    small steps (the BiLSTM's, the FIR band filters') parallelise through
+    spinning thread teams, which slow 100-fold when several test workers
+    share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _np(tree):
     return jax.tree.map(np.asarray, tree)
 
