@@ -24,7 +24,7 @@ from ..modules.patterns import (CoarseFirstPattern, CodebooksPatternProvider,
                                 ParallelPatternProvider,
                                 UnrolledPatternProvider)
 from ..modules.seanet import SEANetDecoder, SEANetEncoder
-from ..quantization import ResidualVectorQuantizer
+from ..quantization import DummyQuantizer, ResidualVectorQuantizer
 from ..utils.utils import resolve_device
 from .encodec import (CompressionModel, EncodecModel,
                       InterleaveStereoCompressionModel)
@@ -69,22 +69,24 @@ def get_encodec(sample_rate: int, ratios, n_filters: int, dimension: int,
 
 def get_compression_model(cfg: dict, device=None) -> EncodecModel:
     """The EnCodec model of a config (`compression_model: encodec` with an
-    `encodec` group: `seanet` with its `encoder`/`decoder` overrides, `rvq`,
-    `sample_rate`, `channels`), as the JAX package's `get_compression_model`
-    builds it; torch's default init. Training-only quantizer settings (EMA
-    decay, k-means, dead-code and orthogonal terms) are read and dropped."""
+    `encodec` group: `seanet` with its `encoder`/`decoder` overrides, the
+    `rvq` quantizer or `no_quant`, `sample_rate`, `channels`, `causal`,
+    `renormalize`), as the JAX package's `get_compression_model` builds
+    it; torch's default init. The RVQ's training settings (`decay`,
+    `kmeans_init`, `threshold_ema_dead_code`, `q_dropout`) are taken; its
+    `kmeans_iters` and orthogonal terms are accepted and unused, as in the
+    JAX package."""
     device = resolve_device(device)
     if cfg.get("compression_model", "encodec") != "encodec":
         raise KeyError(f"unexpected compression model "
                        f"{cfg.get('compression_model')!r}")
     enc = dict(cfg.get("encodec", {}) or {})
+    quantizer_name = enc.get("quantizer", "rvq")
     if enc.get("autoencoder", "seanet") != "seanet" or \
-            enc.get("quantizer", "rvq") != "rvq":
+            quantizer_name not in ("rvq", "no_quant"):
         raise NotImplementedError(f"only the seanet autoencoder and the rvq "
-                                  f"quantizer are ported, got {enc}")
-    if enc.get("renormalize") or enc.get("renorm"):
-        raise NotImplementedError("renormalizing EnCodec is not ported "
-                                  "(ROADMAP, slice F)")
+                                  f"and no_quant quantizers are ported, got "
+                                  f"{enc}")
     seanet = dict(enc.get("seanet", {}) or {})
     overrides = {part: dict(seanet.pop(part, {}) or {})
                  for part in ("encoder", "decoder")}
@@ -103,14 +105,21 @@ def get_compression_model(cfg: dict, device=None) -> EncodecModel:
                             device=device)
     decoder = SEANetDecoder(**{**seanet, **overrides["decoder"]},
                             device=device)
-    rvq = dict(enc.get("rvq", {}) or {})
-    quantizer = ResidualVectorQuantizer(encoder.dimension, rvq.get("n_q", 8),
-                                        rvq.get("bins", 1024), device=device)
+    if quantizer_name == "no_quant":
+        quantizer = DummyQuantizer()
+    else:
+        rvq = dict(enc.get("rvq", {}) or {})
+        rvq.pop("dimension", None)
+        quantizer = ResidualVectorQuantizer(
+            encoder.dimension, rvq.pop("n_q", 8), rvq.pop("bins", 1024),
+            device=device, kmeans_init=rvq.pop("kmeans_init", True), **rvq)
     sample_rate = enc["sample_rate"]
     return EncodecModel(encoder, decoder, quantizer,
                         frame_rate=sample_rate // encoder.hop_length,
-                        sample_rate=sample_rate,
-                        channels=enc["channels"]).eval()
+                        sample_rate=sample_rate, channels=enc["channels"],
+                        causal=enc.get("causal", False),
+                        renormalize=bool(enc.get("renormalize", False))
+                        ).eval()
 
 
 DEBUG_CODEC_RATIOS = {16000: (10, 8, 8), 32000: (10, 8, 16)}  # 25 Hz

@@ -5,7 +5,8 @@ Layout is channels-first [B, C, T]. Module nesting follows upstream
 audiocraft (`StreamableConv1d.conv.conv.weight`); with weight norm the
 parameters are `weight_g` / `weight_v` as in torch's `weight_norm(dim=0)`:
 per output channel for a conv ([Cout, Cin, K]) and per *input* channel for a
-transposed conv ([Cin, Cout, K]).
+transposed conv ([Cin, Cout, K]). `NormConv2d` (the discriminators') is
+NCHW, its weight [Cout, Cin, kh, kw] normed per output channel.
 """
 import math
 import typing as tp
@@ -57,6 +58,11 @@ def weight_norm_kernel(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return v * (g / norm.clamp_min(1e-12))
 
 
+def _norm_over_rest(w: torch.Tensor) -> torch.Tensor:
+    """||w|| over every axis but the first, kept as [C, 1, ...]."""
+    return w.square().sum(dim=tuple(range(1, w.dim())), keepdim=True).sqrt()
+
+
 class _NormMixin:
     """Weight-norm reparametrisation of a torch conv's `weight`."""
 
@@ -68,8 +74,7 @@ class _NormMixin:
             w = self.weight.detach()
             del self.weight
             self.weight_v = nn.Parameter(w.clone())
-            self.weight_g = nn.Parameter(
-                w.square().sum(dim=(1, 2), keepdim=True).sqrt())
+            self.weight_g = nn.Parameter(_norm_over_rest(w))
 
     def reset_parameters(self) -> None:
         """torch's conv init; with weight norm, v takes it and g = ||v||."""
@@ -80,9 +85,9 @@ class _NormMixin:
             w = torch.empty_like(self.weight_v)
             nn.init.kaiming_uniform_(w, a=math.sqrt(5))
             self.weight_v.copy_(w)
-            self.weight_g.copy_(w.square().sum(dim=(1, 2), keepdim=True).sqrt())
+            self.weight_g.copy_(_norm_over_rest(w))
             if self.bias is not None:
-                bound = 1 / math.sqrt(w.shape[1] * w.shape[2])
+                bound = 1 / math.sqrt(math.prod(w.shape[1:]))
                 nn.init.uniform_(self.bias, -bound, bound)
 
     def _weight(self) -> torch.Tensor:
@@ -107,6 +112,15 @@ class ConvTranspose1d(_NormMixin, nn.ConvTranspose1d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.conv_transpose1d(x, self._weight(), self.bias, self.stride)
+
+
+class Conv2d(_NormMixin, nn.Conv2d):
+    def __init__(self, *args, norm: str = "none", **kwargs):
+        super().__init__(*args, **kwargs)
+        self._setup_norm(norm)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, self._weight(), self.bias)
 
 
 class NormConv1d(nn.Module):
@@ -184,3 +198,15 @@ class StreamableConvTranspose1d(nn.Module):
         else:
             padding_right = padding_total // 2
         return unpad1d(y, (padding_total - padding_right, padding_right))
+
+
+class NormConv2d(nn.Module):
+    """Conv2d over NCHW with its normalization (upstream key
+    `conv.weight...`)."""
+
+    def __init__(self, *args, norm: str = "none", **kwargs):
+        super().__init__()
+        self.conv = Conv2d(*args, norm=norm, **kwargs)
+
+    def forward(self, x):
+        return self.conv(x)

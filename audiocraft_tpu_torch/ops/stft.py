@@ -5,11 +5,15 @@ Two normalisations share the `normalized` flag, as in PyTorch and
 torchaudio: `stft(normalized=True)` divides by sqrt(n_fft) (torch.stft's
 "frame_length"), `spectrogram(normalized=True)` by the window's L2 norm
 (torchaudio's Spectrogram, "window"). Either function takes the mode by
-name too.
+name too. `mel_spectrogram` applies the HTK-scale triangular filterbank of
+`mel_filters` (torchaudio's `melscale_fbanks`, as the JAX package builds
+it in numpy).
 """
 import math
 import typing as tp
+from functools import lru_cache
 
+import numpy as np
 import torch
 
 Normalized = tp.Union[bool, str]
@@ -110,3 +114,58 @@ def spectrogram(x: torch.Tensor, n_fft: int, hop_length: int,
     if power == 2.0:
         return mag2
     return mag2 ** (power / 2.0)
+
+
+def _hz_to_mel(f, htk: bool = True):
+    if htk:
+        return 2595.0 * np.log10(1.0 + f / 700.0)
+    f = np.asarray(f, dtype=np.float64)
+    log_step = np.log(6.4) / 27.0
+    return np.where(f >= 1000.0,
+                    15.0 + np.log(np.maximum(f, 1e-10) / 1000.0) / log_step,
+                    f / (200.0 / 3))
+
+
+def _mel_to_hz(m, htk: bool = True):
+    if htk:
+        return 700.0 * (10.0 ** (m / 2595.0) - 1.0)
+    m = np.asarray(m, dtype=np.float64)
+    log_step = np.log(6.4) / 27.0
+    return np.where(m >= 15.0, 1000.0 * np.exp(log_step * (m - 15.0)),
+                    m * (200.0 / 3))
+
+
+@lru_cache(maxsize=32)
+def mel_filters(sample_rate: int, n_fft: int, n_mels: int, f_min: float = 0.0,
+                f_max: tp.Optional[float] = None, htk: bool = True,
+                norm: tp.Optional[str] = None) -> np.ndarray:
+    """Triangular mel filterbank [n_fft // 2 + 1, n_mels] (f32, from f64
+    numpy): HTK scale by default, Slaney's with `htk=False`; `norm="slaney"`
+    scales each filter to unit area."""
+    f_max = f_max or sample_rate / 2
+    all_freqs = np.linspace(0, sample_rate // 2, n_fft // 2 + 1)
+    m_pts = np.linspace(_hz_to_mel(f_min, htk), _hz_to_mel(f_max, htk),
+                        n_mels + 2)
+    f_pts = _mel_to_hz(m_pts, htk)
+    f_diff = np.diff(f_pts)
+    slopes = f_pts[None, :] - all_freqs[:, None]
+    down = -slopes[:, :-2] / f_diff[:-1]
+    up = slopes[:, 2:] / f_diff[1:]
+    fb = np.maximum(0.0, np.minimum(down, up))
+    if norm == "slaney":
+        fb *= (2.0 / (f_pts[2:n_mels + 2] - f_pts[:n_mels]))[None, :]
+    return fb.astype(np.float32)
+
+
+def mel_spectrogram(x: torch.Tensor, sample_rate: int, n_fft: int,
+                    hop_length: int, win_length: tp.Optional[int] = None,
+                    n_mels: int = 80, f_min: float = 0.0,
+                    f_max: tp.Optional[float] = None, power: float = 2.0,
+                    center: bool = True, normalized: Normalized = False
+                    ) -> torch.Tensor:
+    """[..., T] -> [..., n_mels, frames], as torchaudio's MelSpectrogram."""
+    spec = spectrogram(x, n_fft, hop_length, win_length, power=power,
+                       center=center, normalized=normalized)
+    fb = torch.from_numpy(mel_filters(sample_rate, n_fft, n_mels, f_min,
+                                      f_max)).to(spec.device, spec.dtype)
+    return torch.einsum("...bf,bm->...mf", spec, fb)

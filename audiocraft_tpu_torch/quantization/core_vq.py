@@ -1,13 +1,16 @@
 """Residual vector quantization (counterpart of
 `audiocraft_tpu/quantization/core_vq.py`): nearest-code search, residual
 encode and decode, and the training forward (`rvq_forward`) with its EMA
-codebook update (`ema_codebook_update`).
+codebook update (`ema_codebook_update`), which starts a codebook that is
+not `inited` by k-means on its first batch (`kmeans`).
 
 Codebook state lives in buffers named as upstream audiocraft's EMA codebooks
 (`layers.{q}._codebook.embed`, `embed_avg`, `cluster_size`, `inited`); a
-training forward updates them in place, under `torch.no_grad`. The k-means
-initialisation of a codebook that is not `inited` is not ported (ROADMAP,
-slice F: the codec's training needs it); such a codebook raises.
+training forward updates them in place, under `torch.no_grad`. As in the
+JAX package, a level quantizes its batch with the codebook it had before
+the update, so the first training batch of a k-means codebook quantizes
+against zeros; and k-means runs 10 iterations whatever the config's
+`kmeans_iters` says (ROADMAP §3).
 """
 import typing as tp
 
@@ -49,22 +52,55 @@ def sample_vectors(samples: torch.Tensor, num: int,
 
 
 @torch.no_grad()
+def kmeans(samples: torch.Tensor, num_clusters: int, num_iters: int = 10,
+           generator: tp.Optional[torch.Generator] = None,
+           means: tp.Optional[torch.Tensor] = None
+           ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
+    """Plain k-means on samples [N, D] from `means` [C, D] (else
+    `sample_vectors` from `generator`): each iteration assigns every sample
+    to its nearest mean and moves each mean to its cluster's centroid (a
+    mean without samples stays). Returns (means, cluster sizes [C]) of the
+    final assignment."""
+    if means is None:
+        means = sample_vectors(samples, num_clusters, generator)
+    for _ in range(num_iters):
+        onehot = torch.nn.functional.one_hot(
+            quantize_codes(means, samples), num_clusters).to(samples.dtype)
+        bins = onehot.sum(0)
+        new_means = (onehot.t() @ samples) / bins.clamp_min(1.0)[:, None]
+        means = torch.where((bins == 0)[:, None], means, new_means)
+    bins = torch.nn.functional.one_hot(quantize_codes(means, samples),
+                                       num_clusters).to(samples.dtype).sum(0)
+    return means, bins
+
+
+@torch.no_grad()
 def ema_codebook_update(codebook: "EuclideanCodebook", flat: torch.Tensor, *,
                         decay: float, epsilon: float,
                         threshold_ema_dead_code: float,
                         generator: tp.Optional[torch.Generator] = None,
-                        replacement: tp.Optional[torch.Tensor] = None) -> None:
+                        replacement: tp.Optional[torch.Tensor] = None,
+                        init_means: tp.Optional[torch.Tensor] = None) -> None:
     """One training update of `codebook` by the vectors flat [N, D], in
-    place: codes whose `cluster_size` fell below `threshold_ema_dead_code`
-    (0: none) are expired and take rows of the batch (`replacement` [C, D],
-    else `sample_vectors` from `generator`); every other code takes the EMA
-    of its cluster's size (decay) and sum, normalised with Laplace smoothing
-    (epsilon). Assignments use the codebook as it was before the update."""
-    if not bool(codebook.inited.all()):
-        raise NotImplementedError("k-means initialisation of a codebook is "
-                                  "not ported (ROADMAP, slice F)")
+    place. A codebook that is not `inited` first takes k-means of the batch
+    (from `init_means` [C, D], else from `sample_vectors` of `generator`)
+    as its codes, embedding sums and cluster sizes. Then codes whose
+    `cluster_size` fell below `threshold_ema_dead_code` (0: none) are
+    expired and take rows of the batch (`replacement` [C, D], else
+    `sample_vectors` from `generator`); every other code takes the EMA of
+    its cluster's size (decay) and sum, normalised with Laplace smoothing
+    (epsilon). Assignments use the codebook as it was before the EMA
+    update (after the k-means). The count of expired codes is left in
+    `codebook.last_expired`."""
     flat = flat.float()
     size = codebook.embed.shape[0]
+    if not bool(codebook.inited.all()):
+        means, bins = kmeans(flat, size, generator=generator,
+                             means=init_means)
+        codebook.embed.copy_(means)
+        codebook.embed_avg.copy_(means)
+        codebook.cluster_size.copy_(bins)
+        codebook.inited.fill_(1)
     onehot = torch.nn.functional.one_hot(quantize_codes(codebook.embed, flat),
                                          size).float()             # [N, C]
     expired = None
@@ -72,6 +108,10 @@ def ema_codebook_update(codebook: "EuclideanCodebook", flat: torch.Tensor, *,
         expired = codebook.cluster_size < threshold_ema_dead_code
         if replacement is None:
             replacement = sample_vectors(flat, size, generator)
+    # how many codes this update replaced (a 0-d tensor; not state)
+    codebook.last_expired = (expired.sum() if expired is not None
+                             else torch.zeros((), dtype=torch.long,
+                                              device=flat.device))
     cluster_size = (codebook.cluster_size * decay
                     + onehot.sum(0) * (1 - decay))
     embed_avg = codebook.embed_avg * decay + (onehot.t() @ flat) * (1 - decay)
@@ -91,9 +131,15 @@ def ema_codebook_update(codebook: "EuclideanCodebook", flat: torch.Tensor, *,
 
 
 class EuclideanCodebook(nn.Module):
-    def __init__(self, dim: int, codebook_size: int, device=None):
+    """One level's codebook buffers. With `kmeans_init` the codebook starts
+    at zeros and not `inited` (k-means fills it on its first training
+    batch); without, `inited` (the model's `reset_parameters` draws it)."""
+
+    def __init__(self, dim: int, codebook_size: int, device=None,
+                 kmeans_init: bool = False):
         super().__init__()
-        self.register_buffer("inited", torch.ones(1, device=device))
+        self.register_buffer("inited", torch.full(
+            (1,), 0.0 if kmeans_init else 1.0, device=device))
         self.register_buffer("cluster_size",
                              torch.zeros(codebook_size, device=device))
         self.register_buffer("embed", torch.zeros(codebook_size, dim,
@@ -103,19 +149,21 @@ class EuclideanCodebook(nn.Module):
 
 
 class VectorQuantization(nn.Module):
-    def __init__(self, dim: int, codebook_size: int, device=None):
+    def __init__(self, dim: int, codebook_size: int, device=None,
+                 kmeans_init: bool = False):
         super().__init__()
-        self._codebook = EuclideanCodebook(dim, codebook_size, device)
+        self._codebook = EuclideanCodebook(dim, codebook_size, device,
+                                           kmeans_init)
 
 
 class ResidualVectorQuantization(nn.Module):
     """Cascade of `num_quantizers` codebooks over residuals."""
 
     def __init__(self, num_quantizers: int, dim: int, codebook_size: int,
-                 device=None):
+                 device=None, kmeans_init: bool = False):
         super().__init__()
         self.layers = nn.ModuleList([
-            VectorQuantization(dim, codebook_size, device)
+            VectorQuantization(dim, codebook_size, device, kmeans_init)
             for _ in range(num_quantizers)])
 
     def embeds(self, n_q: int) -> tp.List[torch.Tensor]:

@@ -4,32 +4,33 @@ Channels-first like the rest of the port: latents [B, D, T], codes [B, K, T].
 `forward` is the training forward: the residual cascade with its
 commitment penalty, EMA codebook updates in training mode, and quantizer
 dropout (`q_dropout`: in training, a random number of levels in [1, n_q],
-drawn from the caller's generator unless `n_q` is given).
+drawn from the caller's generator unless `n_q` is given). The same
+generator draws k-means' initial means and the dead codes' replacements.
+
+`kmeans_iters` and the orthogonal regularisation settings are accepted and
+not used, as in the JAX package: its k-means always runs 10 iterations, and
+it never applies `orthogonal_reg_weight` (ROADMAP §3; every shipped config
+sets the weight to 0).
 """
-import dataclasses
 import math
 import typing as tp
 
 import torch
-import torch.nn as nn
 
+from .base import BaseQuantizer, QuantizedResult
 from .core_vq import ResidualVectorQuantization
 
-
-@dataclasses.dataclass
-class QuantizedResult:
-    """x [B, D, T] (the quantized latents), codes [B, K, T], the bandwidth
-    in kb/s, and the commitment penalty (mean over the active levels)."""
-    x: torch.Tensor
-    codes: torch.Tensor
-    bandwidth: torch.Tensor
-    penalty: tp.Optional[torch.Tensor] = None
+__all__ = ["QuantizedResult", "ResidualVectorQuantizer"]
 
 
-class ResidualVectorQuantizer(nn.Module):
+class ResidualVectorQuantizer(BaseQuantizer):
     def __init__(self, dimension: int = 256, n_q: int = 8, bins: int = 1024,
                  q_dropout: bool = False, decay: float = 0.99,
-                 threshold_ema_dead_code: float = 2.0, device=None):
+                 threshold_ema_dead_code: float = 2.0, device=None,
+                 kmeans_init: bool = False, kmeans_iters: int = 10,
+                 orthogonal_reg_weight: float = 0.0,
+                 orthogonal_reg_active_codes_only: bool = False,
+                 orthogonal_reg_max_codes: tp.Optional[int] = None):
         super().__init__()
         self.dimension = dimension
         self.n_q = n_q
@@ -37,7 +38,9 @@ class ResidualVectorQuantizer(nn.Module):
         self.q_dropout = q_dropout
         self.decay = decay
         self.threshold_ema_dead_code = threshold_ema_dead_code
-        self.vq = ResidualVectorQuantization(n_q, dimension, bins, device)
+        self.kmeans_init = kmeans_init
+        self.vq = ResidualVectorQuantization(n_q, dimension, bins, device,
+                                             kmeans_init)
 
     @property
     def total_codebooks(self) -> int:

@@ -11,21 +11,23 @@ from ..optim.lr_schedulers import get_lr_scheduler
 ParamGroups = tp.List[tp.Dict[str, tp.Any]]
 
 
-_UNPORTED_SOLVERS = {"compression": "slice F: codec training",
-                     "watermarking": "slice G part 2: AudioSeal training"}
+_UNPORTED_SOLVERS = {"watermarking": "slice G part 2: AudioSeal training"}
 
 
 def get_solver(cfg: dict, device=None):
     """The solver named by `cfg['solver']`: MusicGen, AudioGen, MAGNeT,
-    AudioGen-MAGNeT, Multi-Band Diffusion (`diffusion`) or JASCO."""
+    AudioGen-MAGNeT, EnCodec (`compression`), Multi-Band Diffusion
+    (`diffusion`) or JASCO."""
     from .audiogen import AudioGenSolver
+    from .compression import CompressionSolver
     from .diffusion import DiffusionSolver
     from .jasco import JascoSolver
     from .magnet import AudioMagnetSolver, MagnetSolver
     from .musicgen import MusicGenSolver
     solvers = {"musicgen": MusicGenSolver, "audiogen": AudioGenSolver,
                "magnet": MagnetSolver, "audio_magnet": AudioMagnetSolver,
-               "diffusion": DiffusionSolver, "jasco": JascoSolver}
+               "compression": CompressionSolver, "diffusion": DiffusionSolver,
+               "jasco": JascoSolver}
     name = cfg["solver"]
     if name not in solvers:
         where = _UNPORTED_SOLVERS.get(name)

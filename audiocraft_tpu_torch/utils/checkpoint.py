@@ -109,11 +109,16 @@ def unflatten(flat: tp.Mapping[str, np.ndarray]) -> _Node:
 def load_jax_params(path: tp.Union[Path, str]) -> _Node:
     """The `params` of a JAX training state saved by the JAX package's
     `save_checkpoint` (keys `params/<collection>/...`), as nested dicts of
-    numpy arrays; the step and the optimizer state are left out."""
+    numpy arrays; the step and the optimizer state are left out. A state
+    without `params` (the codec trainer's, whose weights sit under
+    `gen_vars/` and `adv_states/`) comes whole."""
     with np.load(path, allow_pickle=False) as data:
-        return unflatten({key[len("params/"):]: data[key]
-                          for key in data.files
-                          if key.startswith("params/")})
+        flat = {key: data[key] for key in data.files}
+    if not any(key.startswith("params/") for key in flat):
+        return unflatten(flat)
+    return unflatten({key[len("params/"):]: value
+                      for key, value in flat.items()
+                      if key.startswith("params/")})
 
 
 def flush_stale_checkpoints(checkpoint_path: Path, keep_last: int = 0) -> None:

@@ -30,6 +30,14 @@ detector's encoder, `reverse_convolution` and `head` ->
 JASCO (`load_flow_matching`): `temb_dense_{i}` -> `temb.dense.{i}`,
 `skip_proj_{i}` -> `transformer.skip_projections.{i}`, and its
 conditioners (the chords' unused `output_proj` keeps the port's values).
+The discriminators of codec training (`load_adversary`): 2-D kernels
+`[kh, kw, Cin, Cout]` (`kernel_v` / `kernel_g` under weight norm) ->
+`[Cout, Cin, kh, kw]` (`weight_v` / `weight_g`); MS-STFT's flax
+`NormConv2d_{j}` -> `convs.{j}`, its last -> `conv_post`; MPD's
+`disc_p{p}.conv_{i}` and MSD's `disc_{i}.conv_in` / `conv_{i}` /
+`conv_mid` -> `discriminators.{k}.convs.{j}`, with `conv_post` kept.
+A codec's codebooks carry their `inited` flag, so a codec that has not
+trained yet (zero codebooks, not `inited`) loads as such.
 """
 import typing as tp
 
@@ -37,6 +45,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from ..adversarial import (MultiPeriodDiscriminator, MultiScaleDiscriminator,
+                           MultiScaleSTFTDiscriminator)
 from ..models.encodec import InterleaveStereoCompressionModel
 from ..modules.conditioners import (ChromaStemConditioner, LUTConditioner,
                                     StyleConditioner, T5Conditioner)
@@ -328,6 +338,51 @@ def load_encodec(model: nn.Module, variables: Tree) -> None:
     _codebooks(variables["quantizer"].codebooks, "quantizer.vq.layers.",
                len(model.quantizer.vq.layers), out)
     _load(model, out)
+
+
+def _conv2d(p: Tree, prefix: str, out: dict) -> None:
+    # [kh, kw, Cin, Cout] -> [Cout, Cin, kh, kw]
+    for name, target in (("kernel_v", "weight_v"), ("kernel", "weight")):
+        if name in p:
+            out[prefix + target] = np.asarray(p[name]).transpose(3, 2, 0, 1)
+    if "kernel_g" in p:
+        out[prefix + "weight_g"] = np.asarray(p["kernel_g"]).reshape(-1, 1, 1, 1)
+    if "bias" in p:
+        out[prefix + "bias"] = p["bias"]
+
+
+def adversary_state(adversary: nn.Module, params: Tree) -> dict:
+    """JAX MS-STFT, MPD or MSD discriminator params -> the port's keys."""
+    p = _params(params)
+    out: dict = {}
+    for k, disc in enumerate(adversary.discriminators):
+        rp = f"discriminators.{k}."
+        if isinstance(adversary, MultiScaleSTFTDiscriminator):
+            dp = p[f"disc_{k}"]
+            for j in range(len(disc.convs)):
+                _conv2d(dp[f"NormConv2d_{j}"], f"{rp}convs.{j}.conv.", out)
+            _conv2d(dp[f"NormConv2d_{len(disc.convs)}"],
+                    rp + "conv_post.conv.", out)
+        elif isinstance(adversary, MultiPeriodDiscriminator):
+            dp = p[f"disc_p{disc.period}"]
+            for j in range(len(disc.convs)):
+                _conv2d(dp[f"conv_{j}"], f"{rp}convs.{j}.conv.", out)
+            _conv2d(dp["conv_post"], rp + "conv_post.conv.", out)
+        elif isinstance(adversary, MultiScaleDiscriminator):
+            dp = p[f"disc_{k}"]
+            n = len(disc.convs)
+            names = (["conv_in"] + [f"conv_{i}" for i in range(n - 2)]
+                     + ["conv_mid"])
+            for j, name in enumerate(names):
+                _conv(dp[name], f"{rp}convs.{j}.conv.", False, out)
+            _conv(dp["conv_post"], rp + "conv_post.conv.", False, out)
+        else:
+            raise TypeError(f"no map for {type(adversary).__name__}")
+    return out
+
+
+def load_adversary(adversary: nn.Module, params: Tree) -> None:
+    _load(adversary, adversary_state(adversary, params))
 
 
 def _conv_nd(p: Tree, prefix: str, out: dict) -> None:

@@ -157,7 +157,20 @@ Phases, each printing one JSON line:
            16 rows of 10 s, each with its clip as `self_wav` (HTDemucs
            separates the drums) and seeded frame chords, 5 `run_step`s split
            into separation + drum latents, latents, tokenize and the train
-           step, then the loss on 2 rows of 2 s against the CPU.
+           step, then the loss on 2 rows of 2 s against the CPU;
+  codec_train  `CompressionSolver` at `solver/compression/
+           encodec_musicgen_32khz` with ratios 8-5-4-4 (the codec
+           MusicGen-small decodes with; MS-STFT adversary, balancer, f32):
+           1 s clips at the largest batch of 64 / 32 / 16 that fits, 5
+           `run_step`s with k-means on the first (step s, audio-s/s, peak
+           memory, device ms of the generator's forward, the discriminator
+           update, the balanced losses' gradients and the backward with
+           Adam; each loss first to last; codebooks inited and codes
+           expired), then card against CPU on 2 rows from the same state: a
+           step with the discriminator's update (the losses before it, the
+           discriminator within 2 x lr after it) and one without (every
+           loss, every gradient); the saved checkpoint loaded as a
+           `compression_model_checkpoint` (codes and decode equal).
 Then the `{"kernels": [...]}` summary, and last `{"ok": true, "device": ...}`.
 Any failed check raises, so the script exits non-zero without the last line.
 It needs no network and imports nothing of JAX.
@@ -2374,7 +2387,15 @@ MBD_TRAIN_SECONDS = 1        # fitting one card is taken
 MBD_TRAIN_STEPS = 5
 MBD_CHECK_ROWS = 2
 MBD_LOSS_RTOL = 1e-4         # card vs CPU, f32, no TF32
-MBD_GRAD_TOL = 1e-3          # |card - CPU| / |CPU| per parameter (L2)
+# The U-Net's gradients are held card against CPU in f64, on the same
+# noisy input, step, condition and target. In f32 the two devices' sums
+# round apart by about 6e-8 and the deepest layers' gradients (the codec
+# condition's 1x1 conv, the last encoder) amplify that to 4e-4 - 1.1e-3 of
+# their norm from run to run on an H100; in f64 the same amplification
+# leaves about 1e-12, so a disagreement of the ops themselves stands out
+# far above it. The f32 drift is reported beside it.
+MBD_F64_LOSS_RTOL = 1e-10    # card vs CPU, f64
+MBD_GRAD_TOL = 1e-8          # |card - CPU| / |CPU| per parameter (L2), f64
 JASCO_TRAIN_BATCH = 16       # cut from solver/jasco's 128 to fit one card
 JASCO_TRAIN_SECONDS = 10
 JASCO_TRAIN_STEPS = 5
@@ -2573,7 +2594,9 @@ def phase_mbd_train(torch, card, codec_dir):
     _, bilstm_s = _timed(torch, bilstm_pass)
     solver.optimizer.zero_grad(set_to_none=True)
 
-    # card vs CPU on 2 rows: the same weights, statistics and draws
+    # card vs CPU on 2 rows: the same weights, statistics and draws; the
+    # f32 loss through the processor and schedule, then the U-Net's loss
+    # and gradients in f64 on the f32 pass's card inputs
     rows = x[:MBD_CHECK_ROWS]
     g = torch.Generator().manual_seed(6)
     draws = dict(ref_noise=torch.randn(rows.shape, generator=g),
@@ -2581,6 +2604,11 @@ def phase_mbd_train(torch, card, codec_dir):
                                     generator=g),
                  noise=torch.randn(rows.shape, generator=g))
     cond_rows = solver.get_condition(rows)
+    item = solver.schedule.get_training_item(
+        rows, step=draws["step"].to(rows.device),
+        noise=draws["noise"].to(rows.device))
+    solver.optimizer.zero_grad(set_to_none=True)
+    t0 = time.perf_counter()
     results = {}
     for device in ("cuda", "cpu"):
         net = model if device == "cuda" else copy.deepcopy(model).cpu()
@@ -2592,20 +2620,41 @@ def phase_mbd_train(torch, card, codec_dir):
             update_processor=False,
             **{k: v.to(device) for k, v in draws.items()})
         loss.backward()
-        results[device] = (loss.item(), _grads(net))
+        f32 = (loss.item(), _grads(net))
+        net.zero_grad(set_to_none=True)
+        if device == "cuda":
+            net = copy.deepcopy(model)
+        net = net.double().train()
+        f64 = [t.to(device, torch.float64)
+               for t in (item.noisy, item.noise, cond_rows)]
+        loss = (f64[1] - net(f64[0], item.step.to(device), f64[2])
+                ).square().mean()
+        loss.backward()
+        results[device] = (f32, (loss.item(), _grads(net)))
         del net
+    check_s = time.perf_counter() - t0
     solver.optimizer.zero_grad(set_to_none=True)
-    loss_err = abs(results["cuda"][0] - results["cpu"][0])
-    if not loss_err <= MBD_LOSS_RTOL * abs(results["cpu"][0]):
-        raise AssertionError(f"mbd_train: card loss {results['cuda'][0]} vs "
-                             f"CPU {results['cpu'][0]}")
+    (f32_cuda, f64_cuda), (f32_cpu, f64_cpu) = results["cuda"], results["cpu"]
+    loss_err = abs(f32_cuda[0] - f32_cpu[0])
+    if not loss_err <= MBD_LOSS_RTOL * abs(f32_cpu[0]):
+        raise AssertionError(f"mbd_train: card loss {f32_cuda[0]} vs "
+                             f"CPU {f32_cpu[0]}")
+    f64_loss_err = abs(f64_cuda[0] - f64_cpu[0])
+    if not f64_loss_err <= MBD_F64_LOSS_RTOL * abs(f64_cpu[0]):
+        raise AssertionError(f"mbd_train: card f64 loss {f64_cuda[0]} vs "
+                             f"CPU {f64_cpu[0]}")
+
+    def rel_l2(got, want):
+        return float((got.cpu() - want).norm() / want.norm().clamp_min(1e-30))
+
+    f32_err, f32_worst = max((rel_l2(f32_cuda[1][n], want), n)
+                             for n, want in f32_cpu[1].items())
     grad_err, worst = 0.0, ""
-    for name, want in results["cpu"][1].items():
-        err = float((results["cuda"][1][name].cpu() - want).norm()
-                    / want.norm().clamp_min(1e-30))
+    for name, want in f64_cpu[1].items():
+        err = rel_l2(f64_cuda[1][name], want)
         if not err <= MBD_GRAD_TOL:
-            raise AssertionError(f"mbd_train: gradient of {name} differs by "
-                                 f"{err} of its norm card vs CPU")
+            raise AssertionError(f"mbd_train: f64 gradient of {name} differs "
+                                 f"by {err} of its norm card vs CPU")
         grad_err, worst = max((grad_err, worst), (err, name))
     steady = sorted(step_s[1:])[len(step_s[1:]) // 2]
     emit("mbd_train", card=card, config="solver/diffusion/default + "
@@ -2624,13 +2673,17 @@ def phase_mbd_train(torch, card, codec_dir):
          unet_params=sum(p.numel() for p in model.parameters()),
          max_memory_allocated=peak, peak_gb=peak / 1e9,
          resident_bytes_before_phase=resident,
-         card_vs_cpu=dict(rows=MBD_CHECK_ROWS, loss_cuda=results["cuda"][0],
-                          loss_cpu=results["cpu"][0], loss_abs_err=loss_err,
-                          loss_rtol=MBD_LOSS_RTOL,
+         card_vs_cpu=dict(rows=MBD_CHECK_ROWS, seconds=check_s,
+                          loss_cuda=f32_cuda[0], loss_cpu=f32_cpu[0],
+                          loss_abs_err=loss_err, loss_rtol=MBD_LOSS_RTOL,
+                          f32_max_grad_rel_l2_err=f32_err,
+                          f32_worst_parameter=f32_worst,
+                          f64_loss_abs_err=f64_loss_err,
+                          f64_loss_rtol=MBD_F64_LOSS_RTOL,
                           max_grad_rel_l2_err=grad_err,
                           worst_parameter=worst,
                           grad_tol=f"|card - CPU| <= {MBD_GRAD_TOL} x |CPU| "
-                                   f"(L2) per parameter"))
+                                   f"(L2) per parameter, f64"))
     del solver, model, results, item, condition, audio, x
     _release(torch)
 
@@ -2740,6 +2793,220 @@ def phase_jasco_train(torch, card, codec_dir):
     _release(torch)
 
 
+CODEC_TRAIN_BATCHES = (64, 32, 16)  # the config's 64, else the largest
+CODEC_TRAIN_SECONDS = 1            # of 32 and 16 that fits
+CODEC_TRAIN_STEPS = 5
+CODEC_CHECK_ROWS = 2
+CODEC_LOSS_RTOL = 1e-4             # card vs CPU, f32, no TF32
+CODEC_GRAD_TOL = 1e-3              # |card - CPU| / |CPU| per parameter (L2)
+
+
+def _mark_end(torch, obj, name: str, marks: dict, key: str) -> None:
+    """Wrap `obj.name` to record a CUDA event in `marks[key]` when it
+    returns (no synchronisation)."""
+    fn = getattr(obj, name)
+
+    def wrapped(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        marks[key] = event
+        return out
+    setattr(obj, name, wrapped)
+
+
+def phase_codec_train(torch, card):
+    """EnCodec GAN training at the width of the codec MusicGen-small decodes
+    with: `solver/compression/encodec_musicgen_32khz` with
+    `encodec.seanet.ratios=[8,5,4,4]` (32 kHz, 64 filters, dimension 128,
+    2 LSTM layers, 4 x 2048 k-means codebooks, 50 Hz), the config's losses
+    (adv 4, feat 4, l1 0.1, msspec 2; mel and SI-SNR as information), the
+    balancer, the MS-STFT discriminator (5 scales, 32 filters), f32, seeded
+    weights: 1 s clips at the config's batch of 64 (else 32, else 16), 5
+    `run_step`s, k-means on the first and dead-code expiry on every step;
+    the device ms of each step split into the generator's forward, the
+    discriminator update, the balanced losses with their gradients, and
+    the generator's backward with Adam (and the information losses); then
+    two steps on 2 rows card against CPU from the same state (with the
+    discriminator's update, and without), and the saved checkpoint read
+    back as a `compression_model_checkpoint`."""
+    from audiocraft_tpu_torch.config import load_config
+    from audiocraft_tpu_torch.solvers import builders as solver_builders
+    from audiocraft_tpu_torch.solvers import get_solver
+    phase_t0 = time.perf_counter()
+    resident = _release(torch)
+    cfg = load_config("solver/compression/encodec_musicgen_32khz")
+    cfg["encodec"]["seanet"]["ratios"] = [8, 5, 4, 4]
+    folder = _packages_dir() / "codec_train"
+    cfg["folder"] = str(folder)
+    audio = _seeded_music(torch, CODEC_TRAIN_BATCHES[0], CODEC_TRAIN_SECONDS)
+    # the largest batch whose first step fits; a step that runs out of
+    # memory may have moved the codebooks, so each try starts a new solver
+    batch, refused, solver = None, [], None
+    for rows in CODEC_TRAIN_BATCHES:
+        solver, setup_s = _timed(torch, lambda: get_solver(cfg, device="cuda"))
+        x = audio[:rows]
+        try:
+            first, first_s = _timed(torch, lambda: solver.run_step(0, x, {}))
+            batch = rows
+            break
+        except RuntimeError as e:  # torch's or cuDNN's allocation failure
+            if "out of memory" not in str(e) and "ALLOC" not in str(e):
+                raise
+            refused.append(rows)
+            solver = None
+            _release(torch)
+    if batch is None:
+        raise AssertionError("codec_train: no batch of 16 or more fits")
+    codebooks = [layer._codebook for layer in solver.model.quantizer.vq.layers]
+    expired = [[int(c.last_expired) for c in codebooks]]
+    marks: dict = {}
+    _mark_end(torch, solver.model, "forward", marks, "forward")
+    for adversary in solver.adv_losses.values():
+        _mark_end(torch, adversary, "train_adv", marks, "disc")
+    _mark_end(torch, solver.balancer, "backward", marks, "balanced")
+    torch.cuda.reset_peak_memory_stats()
+    step_s, split_ms, history = [first_s], [], [first]
+    for idx in range(1, CODEC_TRAIN_STEPS):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        metrics, seconds = _timed(torch, lambda: solver.run_step(idx, x, {}))
+        end.record()
+        end.synchronize()
+        step_s.append(seconds)
+        history.append(metrics)
+        expired.append([int(c.last_expired) for c in codebooks])
+        split_ms.append(dict(
+            generator_forward=start.elapsed_time(marks["forward"]),
+            discriminator_update=marks["forward"].elapsed_time(marks["disc"]),
+            balanced_losses_and_grads=marks["disc"].elapsed_time(
+                marks["balanced"]),
+            generator_backward_adam_info=marks["balanced"].elapsed_time(end)))
+    peak = torch.cuda.max_memory_allocated()
+    losses = {k: [float(m[k]) for m in history] for k in history[0]}
+    if not all(math.isfinite(v) for vs in losses.values() for v in vs):
+        raise AssertionError(f"codec_train: losses {losses}")
+    inited = sum(int(c.inited.item()) for c in codebooks)
+    if inited != len(codebooks):
+        raise AssertionError(f"codec_train: {inited} of {len(codebooks)} "
+                             f"codebooks inited after k-means")
+
+    # card vs CPU on 2 rows, each side from the same state and draws: a
+    # step with the discriminator's update (the losses before it, and the
+    # discriminator's weights after it within 2 x lr: Adam's normalised
+    # step amplifies f32 rounding of its gradient), then a step without it
+    # (every loss and every gradient)
+    import copy
+    rows = x[:CODEC_CHECK_ROWS]
+    snapshot = copy.deepcopy(solver.state_dict())
+    cpu = get_solver({k: v for k, v in cfg.items() if k != "folder"},
+                     device="cpu")
+    lr = float(cfg["optim"]["lr"])
+    results, disc_err = {}, 0.0
+    for mode, every in (("with_update", 1), ("without_update", math.inf)):
+        for name, s in (("cuda", solver), ("cpu", cpu)):
+            s.load_state_dict(copy.deepcopy(snapshot))
+            s.disc_every = every
+            m = s.run_step(CODEC_TRAIN_STEPS, rows.to(s.device), {})
+            results[mode, name] = (
+                {k: float(v) for k, v in m.items()},
+                {n: p.grad.detach().cpu()
+                 for n, p in s.model.named_parameters()},
+                {k: v.detach().cpu() for k, v in
+                 s.adv_losses["msstftd"].adversary.state_dict().items()})
+            s.disc_every = 1
+    updated = ("bandwidth", "penalty", "d_msstftd", "d_loss", "l1", "msspec",
+               "mel", "sisnr")
+    loss_err, worst_loss = 0.0, ""
+    for mode, keys in (("with_update", updated),
+                       ("without_update", results["without_update", "cpu"][0])):
+        for key in keys:
+            want = results[mode, "cpu"][0][key]
+            err = abs(results[mode, "cuda"][0][key] - want)
+            if not err <= CODEC_LOSS_RTOL * abs(want) + 1e-6:
+                raise AssertionError(
+                    f"codec_train: {mode} card {key} "
+                    f"{results[mode, 'cuda'][0][key]} vs CPU {want}")
+            rel = err / max(abs(want), 1e-30)
+            loss_err, worst_loss = max((loss_err, worst_loss),
+                                       (rel, f"{mode} {key}"))
+    for name, want in results["with_update", "cpu"][2].items():
+        err = float((results["with_update", "cuda"][2][name] - want).abs().max())
+        if not err <= 2 * lr:
+            raise AssertionError(f"codec_train: discriminator {name} moved "
+                                 f"{err} apart card vs CPU (> 2 x lr)")
+        disc_err = max(disc_err, err)
+    after_update = {k: abs(results["with_update", "cuda"][0][k] - v)
+                    / max(abs(v), 1e-30)
+                    for k, v in results["with_update", "cpu"][0].items()
+                    if k not in updated}
+    grad_err, worst = 0.0, ""
+    for name, want in results["without_update", "cpu"][1].items():
+        err = float((results["without_update", "cuda"][1][name] - want).norm()
+                    / want.norm().clamp_min(1e-30))
+        if not err <= CODEC_GRAD_TOL:
+            raise AssertionError(f"codec_train: gradient of {name} differs "
+                                 f"by {err} of its norm card vs CPU")
+        grad_err, worst = max((grad_err, worst), (err, name))
+    del cpu, snapshot
+
+    # the checkpoint, read back as a solver's frozen codec
+    save_s = _timed(torch, solver.save_checkpoints)[1]
+    ckpt_bytes = solver.checkpoint_path().stat().st_size
+    codec, load_s = _timed(torch, lambda: solver_builders
+                           .compression_model_from_checkpoint(str(folder),
+                                                              "cuda"))
+    solver.model.eval()
+    codes, scale = solver.model.encode(rows, device="cuda")
+    got_codes, got_scale = codec.encode(rows, device="cuda")
+    if not torch.equal(codes, got_codes) or (scale, got_scale) != (None, None):
+        raise AssertionError("codec_train: the loaded codec's codes differ")
+    wav_err = float((codec.decode(codes, device="cuda")
+                     - solver.model.decode(codes, device="cuda")).abs().max())
+    if wav_err != 0.0:
+        raise AssertionError(f"codec_train: the loaded codec decodes "
+                             f"{wav_err} away from the trained one")
+    steady = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    emit("codec_train", card=card, config="solver/compression/"
+         "encodec_musicgen_32khz + encodec.seanet.ratios=[8,5,4,4] (32 kHz, "
+         "64 filters, dimension 128, LSTM 2, 4 x 2048 k-means codebooks, "
+         "50 Hz; adv 4, feat 4, l1 0.1, msspec 2, mel and sisnr as "
+         "information; balancer on; MS-STFT 5 scales x 32 filters; f32, "
+         "Adam(0.5, 0.9) 3e-4; seeded random weights)",
+         batch=batch, batches_refused_out_of_memory=refused,
+         seconds_per_item=CODEC_TRAIN_SECONDS, setup_s=setup_s,
+         step_s=step_s, steady_step_s=steady,
+         audio_s_per_s=batch * CODEC_TRAIN_SECONDS / steady,
+         split_ms_steps_2_to_5=split_ms,
+         split_ms_median={k: sorted(d[k] for d in split_ms)[len(split_ms) // 2]
+                          for k in split_ms[0]},
+         losses_first_to_last={k: [v[0], v[-1]] for k, v in losses.items()},
+         codebooks_inited=f"{inited} of {len(codebooks)}",
+         codes_expired_per_step=expired,
+         generator_params=sum(p.numel() for p in solver.model.parameters()),
+         discriminator_params=sum(
+             p.numel() for a in solver.adv_losses.values()
+             for p in a.adversary.parameters()),
+         max_memory_allocated=peak, peak_gb=peak / 1e9,
+         resident_bytes_before_phase=resident,
+         card_vs_cpu=dict(rows=CODEC_CHECK_ROWS,
+                          max_loss_rel_err=loss_err, worst_loss=worst_loss,
+                          loss_rtol=CODEC_LOSS_RTOL,
+                          discriminator_max_abs_err_after_update=disc_err,
+                          discriminator_tol="2 x lr",
+                          rel_err_of_losses_after_the_update=after_update,
+                          max_grad_rel_l2_err=grad_err,
+                          worst_parameter=worst,
+                          grad_tol=f"|card - CPU| <= {CODEC_GRAD_TOL} x |CPU| "
+                                   f"(L2) per parameter"),
+         checkpoint_bytes=ckpt_bytes, checkpoint_save_s=save_s,
+         checkpoint_load_s=load_s, loaded_codes_equal=True,
+         loaded_decode_max_abs_err=wav_err,
+         phase_s=time.perf_counter() - phase_t0)
+    del solver, codec, audio, x, rows, results
+    _release(torch)
+
+
 def main() -> int:
     root = Path(__file__).resolve().parent
     if not (root / "audiocraft_tpu_torch" / "csrc").is_dir():
@@ -2782,6 +3049,7 @@ def main() -> int:
     loaders_launches, codec_dir = phase_loaders(torch, card)
     phase_mbd_train(torch, card, codec_dir)
     phase_jasco_train(torch, card, codec_dir)
+    phase_codec_train(torch, card)
     shutil.rmtree(codec_dir.parent)
     launches += (melody_launches + audiogen_launches + style_launches
                  + loaders_launches)

@@ -23,7 +23,13 @@ the card against the CPU, CE 1e-5 and gradients atol 1e-5 / rtol 1e-4;
 Multi-Band Diffusion and JASCO solver steps on the card against the CPU
 with the same draws, loss rtol 1e-4 and each gradient within 1e-4 of its
 largest entry (f32, TF32 off), the band processor's statistics within
-1e-5 of each one's largest entry (a band's mean is near 0)."""
+1e-5 of each one's largest entry (a band's mean is near 0); the codec
+trainer's discriminators on the card against the CPU, atol 1e-4 x max(1,
+max |CPU|), and one `CompressionSolver` step (k-means on its first batch,
+no discriminator update), every metric rtol 1e-4 (atol 1e-6), each
+gradient's L2 error within 1e-3 of its L2 norm, the codebooks atol 1e-4;
+one discriminator update, its loss rtol 1e-5 and its weights within 2 x lr
+(Adam's first step is about lr x sign(g))."""
 import pytest
 import torch
 
@@ -1104,3 +1110,94 @@ def test_jasco_solver_step_on_card_matches_cpu():
     for name, grad in out["cpu"][2].items():
         tol = 1e-4 * max(1e-30, float(grad.abs().max()))
         assert float((out["cuda"][2][name] - grad).abs().max()) <= tol, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["msstftd", "mpd", "msd"])
+def test_codec_discriminators_on_card_match_cpu(name):
+    """The MS-STFT (cuFFT), multi-period and multi-scale discriminators at
+    small widths: every logit and feature map, card against CPU."""
+    _f32_card()
+    from audiocraft_tpu_torch import adversarial
+    cls, kw = {"msstftd": (adversarial.MultiScaleSTFTDiscriminator,
+                           dict(filters=4, n_ffts=(256, 128),
+                                hop_lengths=(64, 32), win_lengths=(256, 128))),
+               "mpd": (adversarial.MultiPeriodDiscriminator,
+                       dict(filters=2, periods=(2, 3))),
+               "msd": (adversarial.MultiScaleDiscriminator,
+                       dict(filters=4))}[name]
+    torch.manual_seed(0)
+    cpu = cls(**kw)
+    gpu = cls(**kw).to("cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    x = 0.3 * torch.randn(2, 1, 4001, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        want, got = cpu(x), gpu(x.to("cuda"))
+    for w, g in zip(want[0], got[0]):
+        _close(g, w)
+    for wmaps, gmaps in zip(want[1], got[1]):
+        for w, g in zip(wmaps, gmaps):
+            _close(g, w)
+
+
+@pytest.mark.gpu
+def test_compression_solver_step_on_card_matches_cpu():
+    """One EnCodec GAN step of `CompressionSolver` (a small weight-normed
+    codec with an LSTM, k-means codebooks on its first batch, MS-STFT
+    adversary, balancer) with the same weights, batch and draws (the
+    solver's CPU generator) on the card and on the CPU, the discriminator's
+    update left out: every metric, every generator gradient and the
+    codebooks after k-means and the EMA step. Then one discriminator update
+    on both from the same weights: its loss, and its weights within 2 x lr
+    (Adam's first step is about lr x sign(g))."""
+    import copy
+    import math
+    _f32_card()
+    from audiocraft_tpu_torch.solvers import get_solver
+    cfg = {"solver": "compression", "seed": 0, "sample_rate": 16000,
+           "compression_model": "encodec", "encodec": {
+               "sample_rate": 16000, "channels": 1,
+               "seanet": {"dimension": 32, "n_filters": 4,
+                          "n_residual_layers": 1, "ratios": [10, 8, 8],
+                          "lstm": 1, "norm": "weight_norm"},
+               "rvq": {"n_q": 4, "bins": 8}},
+           "msstftd": {"filters": 2, "n_ffts": [128, 64],
+                       "hop_lengths": [32, 16], "win_lengths": [128, 64]},
+           "mel": {"n_fft": 256, "hop_length": 64, "win_length": 256,
+                   "n_mels": 16},
+           "msspec": {"range_start": 6, "range_end": 8, "n_mels": 8,
+                      "normalized": True, "alphas": False},
+           "sisnr": {"segment": 0.05}}
+    g = torch.Generator().manual_seed(3)
+    x = 0.2 * torch.randn(2, 1, 3200, generator=g)
+    fake = x + 0.05 * torch.randn(x.shape, generator=g)
+    out = {}
+    for device in ("cpu", "cuda"):
+        solver = get_solver(cfg, device=device)
+        if device == "cuda":  # the CPU's weights (inits draw per device)
+            solver.model.load_state_dict(weights[0])
+            solver.adv_losses["msstftd"].adversary.load_state_dict(weights[1])
+        weights = copy.deepcopy((
+            solver.model.state_dict(),
+            solver.adv_losses["msstftd"].adversary.state_dict()))
+        solver.disc_every = math.inf
+        metrics = solver.run_step(0, x, {})
+        adv = solver.adv_losses["msstftd"]
+        d_loss = adv.train_adv(fake.to(device), x.to(device))
+        out[device] = (
+            {k: float(v) for k, v in metrics.items()},
+            {n: p.grad.cpu() for n, p in solver.model.named_parameters()},
+            {k: v.cpu() for k, v in solver.model.quantizer.state_dict().items()},
+            float(d_loss),
+            {k: v.cpu() for k, v in adv.adversary.state_dict().items()})
+    assert out["cpu"][0]["d_loss"] == 0.0
+    for key, value in out["cpu"][0].items():
+        assert abs(out["cuda"][0][key] - value) <= 1e-4 * abs(value) + 1e-6, key
+    for name, grad in out["cpu"][1].items():
+        err = float((out["cuda"][1][name] - grad).norm())
+        assert err <= 1e-3 * float(grad.norm()), name
+    for name, value in out["cpu"][2].items():
+        assert float((out["cuda"][2][name] - value).abs().max()) <= 1e-4, name
+    assert abs(out["cuda"][3] - out["cpu"][3]) <= 1e-5 * abs(out["cpu"][3])
+    for name, value in out["cpu"][4].items():
+        assert float((out["cuda"][4][name] - value).abs().max()) <= 6e-4, name

@@ -13,8 +13,8 @@ debug codec:
   (the JAX layer at p 1), and a seeded generator replays its choices;
 - a config with `transformer_lm` builds its model, whose drum conditioner
   takes each row's `self_wav`;
-- the registry: `diffusion` and `jasco` build, `compression` and
-  `watermarking` raise.
+- the registry: `compression`, `diffusion` and `jasco` build,
+  `watermarking` raises.
 
 Tolerances: latents atol 1e-5; the loss and the bucket losses rtol 1e-5;
 each gradient within 1e-4 of its largest entry (f32 attention and layer
@@ -39,8 +39,8 @@ from audiocraft_tpu_torch.data import AudioMeta, JascoInfo
 from audiocraft_tpu_torch.modules.conditioners import (SymbolicCondition,
                                                        WavCondition)
 from audiocraft_tpu_torch.modules.unet_transformer import UnetTransformer
-from audiocraft_tpu_torch.solvers import (DiffusionSolver, JascoSolver,
-                                          get_solver)
+from audiocraft_tpu_torch.solvers import (CompressionSolver, DiffusionSolver,
+                                          JascoSolver, get_solver)
 from audiocraft_tpu_torch.solvers import jasco as tjasco
 from audiocraft_tpu_torch.utils import jax_weights
 from tests.test_torch_jasco import (DEBUG_SPECS, SMALL_CFG, _jax_flow_model,
@@ -266,7 +266,8 @@ def test_config_model_trains_on_drums_and_chords():
 
 
 @pytest.mark.parametrize("name, cls", [("diffusion", DiffusionSolver),
-                                       ("jasco", JascoSolver)])
+                                       ("jasco", JascoSolver),
+                                       ("compression", CompressionSolver)])
 def test_get_solver_builds(name, cls):
     cfg = {"solver": name, "seed": 0, "sample_rate": 32000}
     if name == "diffusion":
@@ -274,13 +275,12 @@ def test_get_solver_builds(name, cls):
     solver = get_solver(cfg, device="cpu")
     assert type(solver) is cls and solver.generate() == {}
     solver.dataloaders["generate"] = [None]
-    if name == "jasco":
+    if name in ("jasco", "compression"):
         with pytest.raises(NotImplementedError, match="slice H"):
             solver.generate()
 
 
-@pytest.mark.parametrize("name, where", [("compression", "slice F"),
-                                         ("watermarking", "slice G")])
+@pytest.mark.parametrize("name, where", [("watermarking", "slice G")])
 def test_unported_solvers_raise(name, where):
     with pytest.raises(NotImplementedError, match=where):
         get_solver({"solver": name}, device="cpu")

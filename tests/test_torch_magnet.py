@@ -29,6 +29,7 @@ from audiocraft_tpu_torch.modules.conditioners import (ConditionFuser,
                                                        ConditioningAttributes)
 from audiocraft_tpu_torch.modules.patterns import ParallelPatternProvider
 from audiocraft_tpu_torch.utils import jax_weights
+from tests.test_torch_mbd import _one_torch_thread  # noqa: F401
 
 TEXTS = ["electro dance with a fast beat", "calm piano"]
 STEPS = (3, 2, 2, 2)

@@ -42,6 +42,7 @@ from audiocraft_tpu_torch.modules.conditioners import (
     WavCondition)
 from audiocraft_tpu_torch.ops import stft
 from audiocraft_tpu_torch.utils import jax_weights
+from tests.test_torch_mbd import _one_torch_thread  # noqa: F401
 
 TINY = dict(sources=("drums", "bass", "other", "vocals"), audio_channels=2,
             channels=8, growth=2, depth=2, nfft=256, bottom_channels=16,

@@ -89,13 +89,16 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     scripts = sorted(str(p) for p in (ROOT / "scripts").glob("torch_*.py"))
     assert any(p.endswith("torch_int4_decode.py") for p in scripts)
     assert any(p.endswith("torch_demucs_precision.py") for p in scripts)
-    # the melody, AudioGen and training slices' modules are among those
-    # imported
+    # the melody, AudioGen, training and codec-training slices' modules
+    # are among those imported
     assert {f"audiocraft_tpu_torch.{m}" for m in (
         "ops.stft", "modules.chroma", "modules.demucs", "models.audiogen",
         "solvers.audiogen", "solvers.base", "solvers.magnet", "optim.dadam",
         "optim.ema", "utils.checkpoint", "utils.writers", "utils.profiler",
-        "utils.deadlock", "environment")} <= set(modules)
+        "utils.deadlock", "environment", "losses.balancer",
+        "adversarial.losses", "adversarial.discriminators.msstftd",
+        "quantization.base", "metrics.rvm", "solvers.compression")
+    } <= set(modules)
     script = (
         "import sys, importlib, importlib.util\n"
         "for name in ('jax', 'jaxlib', 'flax', 'audiocraft_tpu'):\n"

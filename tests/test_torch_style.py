@@ -35,6 +35,7 @@ from audiocraft_tpu_torch.modules import conditioners, mert
 from audiocraft_tpu_torch.modules.conditioners import (
     ConditionFuser, StyleConditioner, WavCondition, bind_feat_extractor)
 from audiocraft_tpu_torch.utils import jax_weights
+from tests.test_torch_mbd import _one_torch_thread  # noqa: F401
 
 TEXTS = ["happy rock with loud drums", "jazz"]
 WAV_TOL = dict(atol=1e-4, rtol=1e-3)

@@ -416,7 +416,7 @@ def test_lm_options_config_trains(option):
 
 
 @pytest.mark.parametrize("change, match", [  # ids as before kv_repeat left
-    pytest.param({"solver": "compression"}, "not ported",
+    pytest.param({"solver": "watermarking"}, "not ported",
                  id="change0-not ported")])
 def test_unported_options_raise(change, match):
     cfg = config.load_config("solver/musicgen/debug")
