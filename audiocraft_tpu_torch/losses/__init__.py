@@ -1,7 +1,7 @@
-"""Losses of codec training (counterpart of `audiocraft_tpu/losses/`): the
-gradient-norm balancer, SI-SNR, STFT and mel-spectrogram losses. The
-loudness and watermark losses of AudioSeal training are not ported
-(ROADMAP, slice G part 2)."""
+"""Losses of codec and watermark training (counterpart of
+`audiocraft_tpu/losses/`): the gradient-norm balancer, SI-SNR, STFT and
+mel-spectrogram losses, the loudness ratios (`loudnessloss`) and the
+watermark detection and decoding losses (`wmloss`)."""
 # flake8: noqa
 from .balancer import Balancer
 from .sisnr import SISNR

@@ -11,7 +11,8 @@ import typing as tp
 import torch
 
 from ..config import load_config
-from ..modules.conditioners import (BaseConditioner, ChromaStemConditioner,
+from ..modules.conditioners import (BaseConditioner, CLAPEmbeddingConditioner,
+                                    ChromaStemConditioner,
                                     ConditionFuser, LUTConditioner,
                                     StyleConditioner, T5Conditioner,
                                     bind_feat_extractor)
@@ -388,9 +389,10 @@ def get_condition_fuser(cfg: dict) -> ConditionFuser:
 def get_conditioners(output_dim: int, cfg: dict, device=None,
                      dtype=None) -> tp.Dict[str, BaseConditioner]:
     """The conditioners of `cfg['conditioners']`: T5, lookup table, the
-    melody's chroma (`chroma_stem`), the style bottleneck (`style`), or
-    JASCO's chords (`chords_emb`), drum latents (`drum_latents`) and
-    melody salience (`melody`), which take their own `out_dim`."""
+    melody's chroma (`chroma_stem`), the style bottleneck (`style`), the
+    CLAP joint embedding (`clap`), or JASCO's chords (`chords_emb`), drum
+    latents (`drum_latents`) and melody salience (`melody`), which take
+    their own `out_dim`."""
     out: tp.Dict[str, BaseConditioner] = {}
     for name, cond_cfg in (cfg.get("conditioners", {}) or {}).items():
         if name == "args":
@@ -426,9 +428,15 @@ def get_conditioners(output_dim: int, cfg: dict, device=None,
             out[name] = DrumsConditioner(
                 output_dim=args["out_dim"], device=device, dtype=dtype,
                 **{k: v for k, v in args.items() if k in _DRUMS_KEYS})
+        elif kind == "clap":
+            # the JAX builder drops these: no embedding cache, the attribute
+            # is the condition's name, and the RVQ has no k-means
+            for key in ("cache_path", "attribute", "kmeans_iters"):
+                args.pop(key, None)
+            out[name] = CLAPEmbeddingConditioner(
+                output_dim=output_dim, device=device, dtype=dtype, **args)
         else:
-            raise NotImplementedError(f"conditioner {kind!r} is not ported "
-                                      f"(ROADMAP, slice G)")
+            raise ValueError(f"Unrecognized conditioning model: {kind}")
     return out
 
 

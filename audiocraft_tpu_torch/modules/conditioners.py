@@ -39,6 +39,19 @@ class WavCondition(tp.NamedTuple):
     seek_time: tp.List[tp.Optional[float]] = []
 
 
+class JointEmbedCondition(tp.NamedTuple):
+    """A joint text-audio condition (CLAP): wav [B, C, T] (f32, any device;
+    embedded on the host side of the conditioner), a text per row, the
+    valid lengths [B], and per row the sample rate, source path and seek
+    time."""
+    wav: torch.Tensor
+    text: tp.List[tp.Optional[str]]
+    length: torch.Tensor
+    sample_rate: tp.List[int]
+    path: tp.List[tp.Optional[str]] = []
+    seek_time: tp.List[tp.Optional[float]] = []
+
+
 class SymbolicCondition(tp.NamedTuple):
     """A symbolic condition (JASCO): per-frame chord indices [T], or a
     melody salience matrix [n_classes, T]."""
@@ -49,10 +62,12 @@ class SymbolicCondition(tp.NamedTuple):
 @dataclasses.dataclass
 class ConditioningAttributes:
     """Per-sample conditions: texts, waveforms (`WavCondition`, or None
-    where a dataset has no waveform for the attribute) and symbolic
-    conditions."""
+    where a dataset has no waveform for the attribute), joint text-audio
+    conditions and symbolic conditions."""
     text: tp.Dict[str, tp.Optional[str]] = dataclasses.field(default_factory=dict)
     wav: tp.Dict[str, tp.Optional[WavCondition]] = dataclasses.field(
+        default_factory=dict)
+    joint_embed: tp.Dict[str, JointEmbedCondition] = dataclasses.field(
         default_factory=dict)
     symbolic: tp.Dict[str, SymbolicCondition] = dataclasses.field(
         default_factory=dict)
@@ -65,6 +80,18 @@ def nullify_wav(cond: WavCondition) -> WavCondition:
                         length=torch.zeros(B, dtype=torch.long),
                         sample_rate=list(cond.sample_rate), path=[None] * B,
                         seek_time=[None] * B)
+
+
+def nullify_joint_embed(embed: JointEmbedCondition) -> JointEmbedCondition:
+    """The null joint condition: one zero sample per row, no text, length
+    0, seek time 0."""
+    wav = torch.as_tensor(embed.wav)
+    B = wav.shape[0]
+    return JointEmbedCondition(
+        wav=torch.zeros_like(wav[..., :1]), text=[None] * len(embed.text),
+        length=torch.zeros(B, dtype=torch.long),
+        sample_rate=list(embed.sample_rate), path=[None] * B,
+        seek_time=[0] * B)
 
 
 def nullify_chords(sym_cond: SymbolicCondition,
@@ -601,18 +628,178 @@ def bind_feat_extractor(conditioner: FeatureExtractor, model) -> None:
     conditioner.__dict__["feat_extractor"] = model
 
 
+class JointEmbeddingConditioner(BaseConditioner):
+    """A joint text-audio embedding as one condition step: the host side
+    (`tokenize`) embeds the text or the waveform into the joint space
+    (`_get_embed`, the subclass's); the device side optionally quantizes
+    the embedding through an RVQ bottleneck of `n_q` x `bins` (no k-means;
+    its codebooks `quantizer.vq.layers.{q}` start kaiming-uniform) and
+    projects it to `output_dim`. A row with a zero validity gives zeros and
+    a zero mask."""
+
+    def __init__(self, dim: int, output_dim: int, quantize: bool = False,
+                 n_q: int = 12, bins: int = 1024, device=None, dtype=None):
+        from ..quantization import ResidualVectorQuantizer
+        super().__init__(dim, output_dim, device, dtype)
+        self.dim = dim
+        self.quantize = quantize
+        self.quantizer = None
+        if quantize:
+            self.quantizer = ResidualVectorQuantizer(dim, n_q=n_q, bins=bins,
+                                                     kmeans_init=False,
+                                                     device=device)
+            with torch.no_grad():
+                bound = (6.0 / dim) ** 0.5
+                for layer in self.quantizer.vq.layers:
+                    layer._codebook.embed.uniform_(-bound, bound)
+                    layer._codebook.embed_avg.copy_(layer._codebook.embed)
+
+    def _get_embed(self, x: JointEmbedCondition
+                   ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
+        """(embed [B, dim], valid [B, 1] f32); the subclass's."""
+        raise NotImplementedError
+
+    def tokenize(self, x: JointEmbedCondition) -> dict:
+        device = self.output_proj.weight.device
+        embed, valid = self._get_embed(x)
+        assert embed.dim() == 2, embed.shape
+        return {"embed": embed.to(device, torch.float32),
+                "valid": torch.as_tensor(valid).to(device, torch.float32
+                                                   ).reshape(-1, 1)}
+
+    def forward(self, tokenized: dict) -> ConditionType:
+        embed = tokenized["embed"]                              # [B, dim]
+        if self.quantizer is not None:
+            codes = self.quantizer.encode(embed[:, :, None])
+            embed = self.quantizer.decode(codes)[:, :, 0]
+        out = self.output_proj(embed[:, None, :].to(self.output_proj.weight.dtype))
+        valid = tokenized["valid"].to(out.dtype)                 # [B, 1]
+        return out * valid[..., None], valid.expand(out.shape[:2])
+
+
+# CLAP embedders by (checkpoint, device): the towers are heavy and shared
+# by every conditioner that names the same checkpoint
+_CLAP_EMBEDDERS: tp.Dict[tp.Tuple[str, str], tp.Any] = {}
+
+
+class CLAPEmbeddingConditioner(JointEmbeddingConditioner):
+    """The CLAP joint-embedding conditioner over `modules.clap`. At eval
+    (and in training with probability `text_p`) it embeds the text; in
+    training otherwise the audio, in windows of `max_audio_length` seconds
+    every `audio_stride` seconds, the windows' embeddings averaged. A
+    null row (no text at eval, or a waveform of one sample or rate 0) gets
+    a zero validity. With `normalize` the embedding is L2-normalised again.
+
+    Training mode here is the host side's (`set_joint_embed_train`, whose
+    numpy generator draws the text-or-audio choice), not the module's: the
+    JAX package keeps it so, and no solver sets it, so LM training embeds
+    the text. The towers sit outside the module tree (not the
+    conditioner's weights): the checkpoint of `checkpoint` (a path or
+    `//reference/...`), else the one `find_clap_checkpoint` finds, loaded
+    on the conditioner's device on the first embed. `model_arch`,
+    `sample_rate` and `batch_size` are accepted as the configs give them
+    and not used, as in the JAX package: the widths come from the
+    checkpoint, and audio is taken to CLAP's 48 kHz from its own rate."""
+
+    def __init__(self, output_dim: int, checkpoint: str = "",
+                 model_arch: str = "HTSAT-base", enable_fusion: bool = False,
+                 sample_rate: int = 48000, max_audio_length: int = 10,
+                 audio_stride: int = 1, dim: int = 512, normalize: bool = True,
+                 text_p: float = 0.0, batch_size: tp.Optional[int] = None,
+                 quantize: bool = False, n_q: int = 12, bins: int = 1024,
+                 device=None, dtype=None):
+        assert not enable_fusion, "fusion CLAP variants are not supported"
+        super().__init__(dim, output_dim, quantize, n_q, bins, device, dtype)
+        self.checkpoint = checkpoint
+        self.max_audio_length = max_audio_length
+        self.audio_stride = audio_stride
+        self.normalize = normalize
+        self.text_p = text_p
+        self.embed_training = False
+        self.host_rng = np.random.RandomState(0)
+
+    def _embedder(self):
+        from pathlib import Path
+
+        from ..environment import resolve_reference_path
+        from .clap import CLAPEmbedder, find_clap_checkpoint
+        path = str(resolve_reference_path(self.checkpoint)) \
+            if self.checkpoint else ""
+        resolved = Path(path) if path and Path(path).exists() \
+            else find_clap_checkpoint()
+        if resolved is None:
+            raise RuntimeError(
+                f"CLAPEmbeddingConditioner: no CLAP checkpoint at "
+                f"{self.checkpoint!r} and none found via CLAP_CHECKPOINT / "
+                "AUDIOCRAFT_CACHE_DIR (put a laion-CLAP or Hugging Face "
+                "ClapModel state dict there).")
+        device = self.output_proj.weight.device
+        key = (str(resolved), str(device))
+        if key not in _CLAP_EMBEDDERS:
+            _CLAP_EMBEDDERS[key] = CLAPEmbedder.from_checkpoint(resolved,
+                                                                device)
+        return _CLAP_EMBEDDERS[key]
+
+    def _get_embed(self, x: JointEmbedCondition
+                   ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
+        emb = self._embedder()
+        use_text = (not self.embed_training
+                    or float(self.host_rng.uniform()) < self.text_p)
+        texts = [t if t is not None else "" for t in x.text]
+        B = len(texts)
+        valid = torch.ones(B, 1)
+        if use_text:
+            embed = emb.embed_text(texts)
+            for i, t in enumerate(texts):
+                if t == "":
+                    valid[i] = 0.0
+        else:
+            wav = torch.as_tensor(x.wav, dtype=torch.float32)   # [B, C, T]
+            rates = [int(r) for r in np.asarray(x.sample_rate).reshape(-1)]
+            outs: tp.List[tp.Optional[torch.Tensor]] = []
+            for i in range(B):
+                sr, w = rates[i], wav[i]
+                if w.shape[-1] <= 1 or sr <= 0:   # the null condition
+                    valid[i] = 0.0
+                    outs.append(None)
+                    continue
+                win = int(self.max_audio_length * sr)
+                stride = max(int(self.audio_stride * sr), 1)
+                T = w.shape[-1]
+                chunks = w[None] if T <= win else torch.stack(
+                    [w[:, s:s + win] for s in range(0, T - win + 1, stride)])
+                outs.append(emb.embed_audio(chunks, sr).mean(dim=0))
+            dim = next((o.shape[-1] for o in outs if o is not None),
+                       self.dim or 512)
+            embed = torch.stack([o if o is not None else torch.zeros(
+                dim, device=emb.device) for o in outs])
+        if self.normalize:
+            embed = embed / embed.norm(dim=-1, keepdim=True).clamp_min(1e-8)
+        return embed, valid
+
+
+def set_joint_embed_train(conditioner: JointEmbeddingConditioner,
+                          training: bool, seed: int = 0) -> None:
+    """The host side's training mode of a joint conditioner, and its numpy
+    generator of the text-or-audio draws, reseeded with `seed`."""
+    conditioner.embed_training = bool(training)
+    conditioner.host_rng = np.random.RandomState(seed)
+
+
 def dropout_condition(sample: ConditioningAttributes, condition_type: str,
                       condition: str) -> ConditioningAttributes:
     """Null one attribute of `sample` in place: a text becomes None, a
-    waveform its null condition (a missing waveform stays None), chords
-    the null chord and a melody zeros."""
-    if condition_type not in ("text", "wav", "symbolic"):
+    waveform or joint condition its null condition (a missing waveform
+    stays None), chords the null chord and a melody zeros."""
+    if condition_type not in ("text", "wav", "joint_embed", "symbolic"):
         raise ValueError(f"unexpected condition type: {condition_type}")
     attributes = getattr(sample, condition_type)
     if condition not in attributes:
         raise ValueError(f"unexpected condition {condition}.{condition_type}")
     if condition_type == "text":
         attributes[condition] = None
+    elif condition_type == "joint_embed":
+        attributes[condition] = nullify_joint_embed(attributes[condition])
     elif condition_type == "symbolic":
         sym = attributes[condition]
         attributes[condition] = (nullify_chords(sym)
@@ -651,7 +838,8 @@ class AttributeDropout:
 
 class ClassifierFreeGuidanceDropout:
     """All-or-nothing dropout of the conditions of `cond_types`; p=1 gives
-    the null conditions."""
+    the null conditions. Joint conditions are not among the default types,
+    as in the JAX package: the null rows of CFG keep them."""
 
     def __init__(self, p: float, seed: int = 1234):
         self.p = p
@@ -703,6 +891,11 @@ class ConditioningProvider(nn.Module):
         return [k for k, v in self.conditioners.items()
                 if isinstance(v, WaveformConditioner)]
 
+    @property
+    def joint_embed_conditions(self) -> tp.List[str]:
+        return [k for k, v in self.conditioners.items()
+                if isinstance(v, JointEmbeddingConditioner)]
+
     def tokenize(self, inputs: tp.List[ConditioningAttributes]
                  ) -> tp.Dict[str, tp.Any]:
         assert all(isinstance(x, ConditioningAttributes) for x in inputs)
@@ -714,6 +907,37 @@ class ConditioningProvider(nn.Module):
                for name, batch in text.items()}
         for name, batch in self._collate_wavs(inputs).items():
             out[name] = self.conditioners[name].tokenize(batch)
+        for name, batch in self._collate_joint_embeds(inputs).items():
+            out[name] = self.conditioners[name].tokenize(batch)
+        return out
+
+    def _collate_joint_embeds(self, samples: tp.List[ConditioningAttributes]
+                              ) -> tp.Dict[str, JointEmbedCondition]:
+        """Per joint attribute, on the CPU: every sample's wav mixed to mono
+        and zero-padded to the longest ([B, 1, T]), with its texts, lengths,
+        rates, paths and seek times; a sample without the attribute gives
+        the null condition (one zero sample, no text, rate 0)."""
+        out: tp.Dict[str, JointEmbedCondition] = {}
+        null = JointEmbedCondition(
+            wav=torch.zeros(1, 1, 1), text=[None], length=torch.zeros(1),
+            sample_rate=[0], path=[None], seek_time=[None])
+        for name in self.joint_embed_conditions:
+            wavs, texts, lengths, rates, paths, seeks = [], [], [], [], [], []
+            for sample in samples:
+                cond = sample.joint_embed.get(name, null)
+                wav = torch.as_tensor(cond.wav, dtype=torch.float32).cpu()
+                wavs.append(wav.mean(dim=1).reshape(-1))
+                texts.extend(cond.text)
+                lengths.append(torch.as_tensor(cond.length).reshape(-1).cpu())
+                rates.extend(cond.sample_rate)
+                paths.extend(cond.path)
+                seeks.extend(cond.seek_time)
+            max_len = max(w.shape[-1] for w in wavs)
+            stacked = torch.stack([torch.nn.functional.pad(
+                w, (0, max_len - w.shape[-1])) for w in wavs])
+            out[name] = JointEmbedCondition(stacked[:, None], texts,
+                                            torch.cat(lengths), rates, paths,
+                                            seeks)
         return out
 
     def _collate_wavs(self, samples: tp.List[ConditioningAttributes]

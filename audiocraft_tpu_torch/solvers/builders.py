@@ -11,28 +11,24 @@ from ..optim.lr_schedulers import get_lr_scheduler
 ParamGroups = tp.List[tp.Dict[str, tp.Any]]
 
 
-_UNPORTED_SOLVERS = {"watermarking": "slice G part 2: AudioSeal training"}
-
-
 def get_solver(cfg: dict, device=None):
     """The solver named by `cfg['solver']`: MusicGen, AudioGen, MAGNeT,
     AudioGen-MAGNeT, EnCodec (`compression`), Multi-Band Diffusion
-    (`diffusion`) or JASCO."""
+    (`diffusion`), JASCO or AudioSeal (`watermarking`)."""
     from .audiogen import AudioGenSolver
     from .compression import CompressionSolver
     from .diffusion import DiffusionSolver
     from .jasco import JascoSolver
     from .magnet import AudioMagnetSolver, MagnetSolver
     from .musicgen import MusicGenSolver
+    from .watermark import WatermarkSolver
     solvers = {"musicgen": MusicGenSolver, "audiogen": AudioGenSolver,
                "magnet": MagnetSolver, "audio_magnet": AudioMagnetSolver,
                "compression": CompressionSolver, "diffusion": DiffusionSolver,
-               "jasco": JascoSolver}
+               "jasco": JascoSolver, "watermarking": WatermarkSolver}
     name = cfg["solver"]
     if name not in solvers:
-        where = _UNPORTED_SOLVERS.get(name)
-        raise NotImplementedError(f"solver {name!r} is not ported (ROADMAP"
-                                  + (f", {where})" if where else ")"))
+        raise NotImplementedError(f"solver {name!r} is not ported")
     return solvers[name](cfg, device=device)
 
 

@@ -37,7 +37,13 @@ The discriminators of codec training (`load_adversary`): 2-D kernels
 `disc_p{p}.conv_{i}` and MSD's `disc_{i}.conv_in` / `conv_{i}` /
 `conv_mid` -> `discriminators.{k}.convs.{j}`, with `conv_post` kept.
 A codec's codebooks carry their `inited` flag, so a codec that has not
-trained yet (zero codebooks, not `inited`) loads as such.
+trained yet (zero codebooks, not `inited`) loads as such. CLAP
+(`load_clap`): the JAX tree of `modules.clap.load_clap_params` -> the
+Hugging Face `ClapModel` names; a joint-embedding conditioner
+(`load_joint_conditioner`, and inside `load_lm`): `output_proj` and the
+`quantizer` collection's `joint_rvq` -> `quantizer.vq.layers.{q}`. DAC
+(`load_dac`): `conv_in` / `block_{i}` / `conv_out` -> the dac package's
+`encoder.block.*` and `decoder.model.*`, Snake's `alpha` [C] -> [1, C, 1].
 """
 import typing as tp
 
@@ -48,7 +54,8 @@ import torch.nn as nn
 from ..adversarial import (MultiPeriodDiscriminator, MultiScaleDiscriminator,
                            MultiScaleSTFTDiscriminator)
 from ..models.encodec import InterleaveStereoCompressionModel
-from ..modules.conditioners import (ChromaStemConditioner, LUTConditioner,
+from ..modules.conditioners import (ChromaStemConditioner,
+                                    JointEmbeddingConditioner, LUTConditioner,
                                     StyleConditioner, T5Conditioner)
 from ..modules.conv import StreamableConv1d, StreamableConvTranspose1d
 from ..modules.lstm import StreamableLSTM
@@ -258,6 +265,12 @@ def lm_state(lm: nn.Module, params: Tree) -> dict:
             out.update(style_state(
                 cond, cp, collections.get("batch_stats", {}).get(key),
                 collections.get("quantizer", {}).get(key), prefix))
+        elif isinstance(cond, JointEmbeddingConditioner):
+            if cond.quantizer is not None:
+                books = collections["quantizer"][f"conditioners_{name}"]
+                _codebooks(books["joint_rvq"].codebooks,
+                           prefix + "quantizer.vq.layers.",
+                           len(cond.quantizer.vq.layers), out)
         elif not isinstance(cond, ChromaStemConditioner):  # output_proj only
             raise TypeError(f"no weight rule for {type(cond).__name__}")
     return out
@@ -579,3 +592,133 @@ def flow_matching_state(model: nn.Module, params: Tree) -> dict:
 def load_flow_matching(model: nn.Module, params: Tree) -> None:
     """JAX `FlowMatchingModel` params -> a port `FlowMatchingModel`."""
     _load(model, flow_matching_state(model, params))
+
+
+def load_joint_conditioner(cond: JointEmbeddingConditioner,
+                           variables: Tree) -> None:
+    """A JAX `JointEmbeddingConditioner`'s variables ({'params':
+    {'output_proj'}, 'quantizer': {'joint_rvq': RVQ state}}) -> the port's
+    (`output_proj`, `quantizer.vq.layers.{q}`)."""
+    out: dict = {}
+    _dense(_params(variables)["output_proj"], "output_proj.", out)
+    if cond.quantizer is not None:
+        _codebooks(variables["quantizer"]["joint_rvq"].codebooks,
+                   "quantizer.vq.layers.", len(cond.quantizer.vq.layers), out)
+    _load(cond, out)
+
+
+def clap_state(params: Tree) -> dict:
+    """The JAX CLAP params (`modules.clap.load_clap_params`) -> the port's
+    (Hugging Face `ClapModel`) names: Dense kernels transposed, the patch
+    embedding's HWIO kernel back to [C, 1, k, k], `stages.{i}.blocks.{j}`
+    -> `layers.{i}.blocks.{j}` (`ln1` / `ln2` -> `layernorm_before` /
+    `_after`, `proj` -> `attention.output.dense`, `fc1` / `fc2` ->
+    `intermediate.dense` / `output.dense`), `text_layers.{i}` ->
+    `encoder.layer.{i}`."""
+    out: dict = {}
+    ap = "audio_model.audio_encoder."
+    bn = params["batch_norm"]
+    out[ap + "batch_norm.weight"] = bn["scale"]
+    out[ap + "batch_norm.bias"] = bn["bias"]
+    out[ap + "batch_norm.running_mean"] = bn["mean"]
+    out[ap + "batch_norm.running_var"] = bn["var"]
+    out[ap + "batch_norm.num_batches_tracked"] = np.zeros((), np.int64)
+    out[ap + "patch_embed.proj.weight"] = np.asarray(
+        params["patch_embed"]["kernel"]).transpose(3, 2, 0, 1)
+    out[ap + "patch_embed.proj.bias"] = params["patch_embed"]["bias"]
+    _norm(params["patch_norm"], ap + "patch_embed.norm.", out)
+    for i, stage in enumerate(params["stages"]):
+        sp = f"{ap}layers.{i}."
+        for j, blk in enumerate(stage["blocks"]):
+            bp = f"{sp}blocks.{j}."
+            _norm(blk["ln1"], bp + "layernorm_before.", out)
+            for ours, theirs in (("q", "query"), ("k", "key"), ("v", "value")):
+                _dense(blk[ours], f"{bp}attention.self.{theirs}.", out)
+            out[bp + "attention.self.relative_position_bias_table"] = \
+                blk["rel_bias_table"]
+            _dense(blk["proj"], bp + "attention.output.dense.", out)
+            _norm(blk["ln2"], bp + "layernorm_after.", out)
+            _dense(blk["fc1"], bp + "intermediate.dense.", out)
+            _dense(blk["fc2"], bp + "output.dense.", out)
+        if stage.get("downsample") is not None:
+            _norm(stage["downsample"]["norm"], sp + "downsample.norm.", out)
+            out[sp + "downsample.reduction.weight"] = np.asarray(
+                stage["downsample"]["reduction"]).T
+    _norm(params["norm"], ap + "norm.", out)
+    tp_ = "text_model."
+    emb = params["embeddings"]
+    out[tp_ + "embeddings.word_embeddings.weight"] = emb["word"]
+    out[tp_ + "embeddings.position_embeddings.weight"] = emb["position"]
+    out[tp_ + "embeddings.token_type_embeddings.weight"] = emb["token_type"]
+    _norm(emb["norm"], tp_ + "embeddings.LayerNorm.", out)
+    for i, layer in enumerate(params["text_layers"]):
+        lp = f"{tp_}encoder.layer.{i}."
+        for ours, theirs in (("q", "query"), ("k", "key"), ("v", "value")):
+            _dense(layer[ours], f"{lp}attention.self.{theirs}.", out)
+        _dense(layer["attn_out"], lp + "attention.output.dense.", out)
+        _norm(layer["attn_norm"], lp + "attention.output.LayerNorm.", out)
+        _dense(layer["fc1"], lp + "intermediate.dense.", out)
+        _dense(layer["fc2"], lp + "output.dense.", out)
+        _norm(layer["out_norm"], lp + "output.LayerNorm.", out)
+    _dense(params["pooler"], tp_ + "pooler.dense.", out)
+    for tower in ("text_projection", "audio_projection"):
+        for k in ("linear1", "linear2"):
+            _dense(params[tower][k], f"{tower}.{k}.", out)
+    return out
+
+
+def load_clap(model: nn.Module, params: Tree) -> None:
+    """The JAX CLAP params -> a port `modules.clap.ClapModel`."""
+    _load(model, clap_state(params))
+
+
+def _snake_alpha(p: Tree, prefix: str, out: dict) -> None:
+    out[prefix + "alpha"] = np.asarray(p["alpha"]).reshape(1, -1, 1)
+
+
+def _dac_res_unit(p: Tree, prefix: str, out: dict) -> None:
+    _snake_alpha(p["snake1"], prefix + "block.0.", out)
+    _conv(p["conv1"], prefix + "block.1.", False, out)
+    _snake_alpha(p["snake2"], prefix + "block.2.", out)
+    _conv(p["conv2"], prefix + "block.3.", False, out)
+
+
+def dac_state(params: Tree, n_enc_blocks: int, n_dec_blocks: int,
+              n_codebooks: int) -> dict:
+    """JAX `DACModel` params -> the dac package's names: `conv_in`,
+    `block_{i}` (`res_{j}`, `snake`, `conv` / `convtr`), `snake`, `conv_out`
+    -> `encoder.block.*` / `decoder.model.*` in order, `in_projs_{i}` /
+    `out_projs_{i}` / `codebooks[i]` -> `quantizer.quantizers.{i}`."""
+    p = _params(params)
+    out: dict = {}
+    enc, dec, q = p["encoder"], p["decoder"], p["quantizer"]
+    _conv(enc["conv_in"], "encoder.block.0.", False, out)
+    for i in range(n_enc_blocks):
+        bp, blk = f"encoder.block.{i + 1}.", enc[f"block_{i}"]
+        for j in range(3):
+            _dac_res_unit(blk[f"res_{j}"], f"{bp}block.{j}.", out)
+        _snake_alpha(blk["snake"], f"{bp}block.3.", out)
+        _conv(blk["conv"], f"{bp}block.4.", False, out)
+    _snake_alpha(enc["snake"], f"encoder.block.{n_enc_blocks + 1}.", out)
+    _conv(enc["conv_out"], f"encoder.block.{n_enc_blocks + 2}.", False, out)
+    _conv(dec["conv_in"], "decoder.model.0.", False, out)
+    for i in range(n_dec_blocks):
+        bp, blk = f"decoder.model.{i + 1}.", dec[f"block_{i}"]
+        _snake_alpha(blk["snake"], f"{bp}block.0.", out)
+        _conv(blk["convtr"], f"{bp}block.1.", True, out)
+        for j in range(3):
+            _dac_res_unit(blk[f"res_{j}"], f"{bp}block.{j + 2}.", out)
+    _snake_alpha(dec["snake"], f"decoder.model.{n_dec_blocks + 1}.", out)
+    _conv(dec["conv_out"], f"decoder.model.{n_dec_blocks + 2}.", False, out)
+    for i in range(n_codebooks):
+        qp = f"quantizer.quantizers.{i}."
+        _conv(q[f"in_projs_{i}"], qp + "in_proj.", False, out)
+        _conv(q[f"out_projs_{i}"], qp + "out_proj.", False, out)
+        out[qp + "codebook.weight"] = np.asarray(q["codebooks"])[i]
+    return out
+
+
+def load_dac(model: nn.Module, params: Tree) -> None:
+    """JAX `DACModel` params -> a port `DACModel`."""
+    _load(model, dac_state(params, len(model.encoder_rates),
+                           len(model.decoder_rates), model.n_codebooks))

@@ -39,6 +39,23 @@ def randn(shape: tp.Sequence[int], generator: tp.Optional[torch.Generator],
                        dtype=torch.float32)
 
 
+def find_local_checkpoint(env_var: str, names: tp.Sequence[str]):
+    """A local checkpoint: the path in `$<env_var>` when it exists, else the
+    first of `names` under `$AUDIOCRAFT_CACHE_DIR`; None without either."""
+    import os
+    from pathlib import Path
+    cand = os.environ.get(env_var)
+    if cand and Path(cand).exists():
+        return Path(cand)
+    cache = os.environ.get("AUDIOCRAFT_CACHE_DIR")
+    if cache:
+        for name in names:
+            path = Path(cache) / name
+            if path.exists():
+                return path
+    return None
+
+
 def hash_trick(word: str, vocab_size: int) -> int:
     """Hash a word into a fixed vocab (sha256, as the JAX package)."""
     digest = int(hashlib.sha256(word.encode("utf-8")).hexdigest(), 16)

@@ -170,7 +170,35 @@ Phases, each printing one JSON line:
            step with the discriminator's update (the losses before it, the
            discriminator within 2 x lr after it) and one without (every
            loss, every gradient); the saved checkpoint loaded as a
-           `compression_model_checkpoint` (codes and decode equal).
+           `compression_model_checkpoint` (codes and decode equal);
+  watermark_train  `WatermarkSolver` at `solver/watermark/default`'s widths
+           (16 bits, SEANet 128 / 32 filters, ratios 8-5-4-2; l1, msspec, TF
+           loudness ratio over 4 bands, detection, decoding; balancer; f32)
+           with `dataset.segment_duration=1.0` (the composed config's null
+           raises in both packages): 1 s rows at the largest batch of 128 /
+           64 / 32 that fits, 5 steps whose draws cover the pad, mix and none
+           masks and the four default effects (step s, audio-s/s, peak
+           memory, device ms of the generator forward, the balanced losses
+           with their gradient, the detection and decoding losses' forward
+           and backward, and Adam; each loss first to last), then card
+           against CPU on 2 rows (every loss, every gradient), each of the 12
+           non-codec effects of `watermark/robustness.yaml`, the loudness
+           biquad on the TF-loudness rows in f64 against its recurrence, and
+           one `evaluate` pass;
+  clap     MusicGen-small with `conditioner=clapemb2music` (HTSAT-base and
+           RoBERTa-base towers with 512-wide projections from a seeded
+           checkpoint the phase writes in the Hugging Face layout, a
+           synthetic 50265-entry byte-level vocabulary, RVQ 12 x 1024; LM
+           bf16): 2 texts x 10 s as joint conditions through the decode graph
+           (the request split into text tower, conditioner and generate) and
+           through `MusicGen.generate` (its rows null), K1's launches; the
+           audio tower's ms per 10 s window of a 30 s clip; the embeddings
+           card against CPU; greedy tokens over 1 s card against CPU in f32;
+  dac      DAC 44.1 kHz at the dac package's default geometry (seeded, f32)
+           saved as a dac `weights.pth` and read through
+           `DAC.get_pretrained`: encode and decode 2 x 10 s (ms, peak
+           memory), then codes (but near-ties of the cosine lookup, recorded)
+           and decode card against CPU on 2 x 1 s.
 Then the `{"kernels": [...]}` summary, and last `{"ok": true, "device": ...}`.
 Any failed check raises, so the script exits non-zero without the last line.
 It needs no network and imports nothing of JAX.
@@ -3007,6 +3035,546 @@ def phase_codec_train(torch, card):
     _release(torch)
 
 
+WATERMARK_TRAIN_BATCHES = (128, 64, 32)  # the config's 128, else 64 / 32
+WATERMARK_TRAIN_SECONDS = 1              # dataset.segment_duration=1.0
+WATERMARK_CHECK_ROWS = 2
+WATERMARK_LOSS_RTOL = 1e-4               # card vs CPU, f32, no TF32
+WATERMARK_GRAD_TOL = 1e-3                # |card - CPU| / |CPU| (L2)
+# the 5 steps' draws: pad, mix and no mask, and the four default effects
+WATERMARK_DRAWS = (("pad", "identity"), ("mix", "random_noise"),
+                   ("none", "boost_audio"), ("pad", "duck_audio"),
+                   ("none", "random_noise"))
+# the effects' own draws in the card-vs-CPU check: speed 0.8 (a resample
+# to 20 kHz: at a rate drawn at random its kernel bank has rate / gcd
+# phases, as in the JAX package), echo 0.3 s at 0.4, smooth over 6
+EFFECT_DRAWS = {"speed": [0.8], "echo": [0.3, 0.4], "smooth": [6.5]}
+
+
+def _watermark_draws(torch, solver, x_cpu, mode, effect):
+    """(message, mask) of a step: the message from the solver's generator,
+    the mask of `mode` from `modules.watermark` on the same generator."""
+    from audiocraft_tpu_torch.modules.watermark import mix, pad
+    from audiocraft_tpu_torch.solvers.watermark import random_message
+    g = solver._rng
+    message = random_message(g, solver.nbits, x_cpu.shape[0])
+    if mode == "pad":
+        mask = pad(x_cpu, central=False, generator=g)[1][:, 1:2]
+    elif mode == "mix":
+        mask = mix(x_cpu, x_cpu, 0.5, generator=g)[1][:, 1:2]
+    else:
+        mask = torch.ones_like(x_cpu[:, :1])
+    return message, mask
+
+
+def _sequential_biquad(torch, x, b0, b1, b2, a0, a1, a2):
+    """The direct-form-I recurrence, one step per sample."""
+    y = torch.zeros_like(x)
+    for t in range(x.shape[-1]):
+        v = b0 * x[..., t]
+        if t > 0:
+            v = v + b1 * x[..., t - 1] - a1 * y[..., t - 1]
+        if t > 1:
+            v = v + b2 * x[..., t - 2] - a2 * y[..., t - 2]
+        y[..., t] = v / a0
+    return y
+
+
+def phase_watermark_train(torch, card):
+    """AudioSeal training at `solver/watermark/default`'s widths (16 bits,
+    SEANet 128 / 32 filters, ratios 8-5-4-2, 2 LSTM layers, detector output
+    32; l1 0.1, msspec 2, TF loudness ratio 10 over 4 bands, detection 1,
+    decoding 1; balancer; Adam 5e-5; f32) with `dataset.segment_duration=
+    1.0` (the composed config's null raises in both packages): 1 s rows at
+    the config's batch of 128 (else 64, 32), 5 steps whose draws cover the
+    pad, mix and none masks and the four default effects; the device ms of
+    each step split into the generator's forward, the balanced perceptual
+    losses with their gradient, the detection and decoding losses' forward
+    and backward, and Adam; then card against CPU on 2 rows from the same
+    state and draws, each of the 12 non-codec effects of
+    `watermark/robustness.yaml` card against CPU, the loudness biquad on
+    the TF-loudness shapes against its sequential version in f64, and one
+    `evaluate` pass."""
+    import copy
+    from audiocraft_tpu_torch.config import load_config
+    from audiocraft_tpu_torch.losses import loudnessloss
+    from audiocraft_tpu_torch.solvers import get_solver
+    from audiocraft_tpu_torch.utils import audio_effects
+    from audiocraft_tpu_torch.utils.timing import time_ms
+    phase_t0 = time.perf_counter()
+    resident = _release(torch)
+    cfg = load_config("solver/watermark/default")
+    cfg["dataset"]["segment_duration"] = float(WATERMARK_TRAIN_SECONDS)
+    audio = _seeded_music(torch, WATERMARK_TRAIN_BATCHES[0],
+                          WATERMARK_TRAIN_SECONDS, AUDIOSEAL_RATE)
+    batch, refused, solver = None, [], None
+    for rows in WATERMARK_TRAIN_BATCHES:
+        solver, setup_s = _timed(torch, lambda: get_solver(cfg, device="cuda"))
+        x = audio[:rows]
+        x_cpu = x.cpu()
+        message, mask = _watermark_draws(torch, solver, x_cpu,
+                                         *WATERMARK_DRAWS[0])
+        try:
+            first, first_s = _timed(torch, lambda: solver.train_step(
+                x, message, mask, WATERMARK_DRAWS[0][1]))
+            batch = rows
+            break
+        except RuntimeError as e:  # torch's or cuDNN's allocation failure
+            if "out of memory" not in str(e) and "ALLOC" not in str(e):
+                raise
+            refused.append(rows)
+            solver = None
+            _release(torch)
+    if batch is None:
+        raise AssertionError("watermark_train: no batch of 32 or more fits")
+    marks: dict = {}
+    _mark_end(torch, solver.generator, "get_watermark", marks, "forward")
+    _mark_end(torch, solver.balancer, "backward", marks, "balanced")
+    _mark_end(torch, solver, "_watermark_backward", marks, "wm")
+    torch.cuda.reset_peak_memory_stats()
+    step_s, split_ms, history = [first_s], [], [first]
+    for idx, (mode, effect) in enumerate(WATERMARK_DRAWS[1:], start=1):
+        message, mask = _watermark_draws(torch, solver, x_cpu, mode, effect)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        metrics, seconds = _timed(torch, lambda: solver.train_step(
+            x, message, mask, effect))
+        end.record()
+        end.synchronize()
+        step_s.append(seconds)
+        history.append(metrics)
+        split_ms.append(dict(
+            generator_forward=start.elapsed_time(marks["forward"]),
+            balanced_losses_and_grads=marks["forward"].elapsed_time(
+                marks["balanced"]),
+            detection_decoding_fwd_bwd=marks["balanced"].elapsed_time(
+                marks["wm"]),
+            adam=marks["wm"].elapsed_time(end)))
+    peak = torch.cuda.max_memory_allocated()
+    losses = {k: [float(m[k]) for m in history] for k in history[0]}
+    if not all(math.isfinite(v) for vs in losses.values() for v in vs):
+        raise AssertionError(f"watermark_train: losses {losses}")
+
+    # card vs CPU on 2 rows from the same state and draws (random noise:
+    # the effect draws from the solver's CPU generator on both)
+    rows = x[:WATERMARK_CHECK_ROWS]
+    snapshot = copy.deepcopy(solver.state_dict())
+    cpu = get_solver(cfg, device="cpu")
+    results = {}
+    for name, s in (("cuda", solver), ("cpu", cpu)):
+        s.load_state_dict(copy.deepcopy(snapshot))
+        message, mask = _watermark_draws(torch, s, rows.cpu(), "pad",
+                                         "random_noise")
+        m = s.train_step(rows.to(s.device), message, mask, "random_noise")
+        results[name] = ({k: float(v) for k, v in m.items()}, {
+            f"{prefix}.{n}": p.grad.detach().cpu()
+            for prefix, model in (("generator", s.generator),
+                                  ("detector", s.detector))
+            for n, p in model.named_parameters()})
+    loss_err, worst_loss = 0.0, ""
+    for key, want in results["cpu"][0].items():
+        err = abs(results["cuda"][0][key] - want)
+        if not err <= WATERMARK_LOSS_RTOL * abs(want) + 1e-6:
+            raise AssertionError(f"watermark_train: card {key} "
+                                 f"{results['cuda'][0][key]} vs CPU {want}")
+        loss_err, worst_loss = max((loss_err, worst_loss),
+                                   (err / max(abs(want), 1e-30), key))
+    grad_err, worst = 0.0, ""
+    floor = 1e-6 * max(float(g.norm()) for g in results["cpu"][1].values())
+    for name, want in results["cpu"][1].items():
+        err = float((results["cuda"][1][name] - want).norm())
+        if not err <= WATERMARK_GRAD_TOL * float(want.norm()) + floor:
+            raise AssertionError(f"watermark_train: gradient of {name} "
+                                 f"differs by {err} card vs CPU")
+        grad_err, worst = max((grad_err, worst),
+                              (err / max(float(want.norm()), 1e-30), name))
+    del cpu, snapshot
+
+    # each non-codec attack of watermark/robustness.yaml, card vs CPU
+    robust = load_config("solver/watermark/robustness")
+    effects = {k: v for k, v in audio_effects.get_audio_effects(robust).items()
+               if k not in audio_effects.CODEC_EFFECTS}
+    uniform = audio_effects.uniform
+    effect_err = {}
+    try:
+        for name, effect in effects.items():
+            outs = {}
+            for device in ("cuda", "cpu"):
+                draws = list(EFFECT_DRAWS.get(name, []))
+                audio_effects.uniform = \
+                    lambda a, b, generator=None: draws.pop(0)
+                g = torch.Generator().manual_seed(9)
+                outs[device] = effect(rows.to(device), generator=g)
+            effect_err[name] = _card_vs_cpu(f"watermark_train effect {name}",
+                                            outs["cuda"], outs["cpu"], 1e-5)
+    finally:
+        audio_effects.uniform = uniform
+
+    # the loudness biquads on the TF-loudness rows (B x 4 bands x 4 frames
+    # of 0.5 s), chunked in f32 and f64 against the recurrence in f64
+    n_rows = batch * 4 * 4
+    frames = 0.3 * torch.randn(n_rows, 1, AUDIOSEAL_RATE // 2, device="cuda",
+                               generator=torch.Generator("cuda").manual_seed(8))
+    hp = loudnessloss.highpass_biquad
+    seq_s = time.perf_counter()
+    w0 = 2 * math.pi * 38.0 / AUDIOSEAL_RATE
+    alpha = math.sin(w0) / 2 / 0.5
+    coeffs = ((1 + math.cos(w0)) / 2, -1 - math.cos(w0),
+              (1 + math.cos(w0)) / 2, 1 + alpha, -2 * math.cos(w0), 1 - alpha)
+    want = _sequential_biquad(torch, frames.double(), *coeffs)
+    torch.cuda.synchronize()
+    seq_s = time.perf_counter() - seq_s
+    scale = float(want.abs().max())
+    biquad_f64_err = float((hp(frames.double(), AUDIOSEAL_RATE, 38.0, 0.5)
+                            - want).abs().max()) / scale
+    biquad_f32_err = float((hp(frames, AUDIOSEAL_RATE, 38.0, 0.5).double()
+                            - want).abs().max()) / scale
+    if not (biquad_f64_err <= 1e-10 and biquad_f32_err <= 1e-5):
+        raise AssertionError(f"watermark_train: the chunked biquad is "
+                             f"{biquad_f64_err} (f64) / {biquad_f32_err} (f32) "
+                             f"off the recurrence")
+    biquad_ms = time_ms(lambda: hp(frames, AUDIOSEAL_RATE, 38.0, 0.5), n=10)
+
+    solver.dataloaders["evaluate"] = [x]
+    evaluate = solver.evaluate()
+    if not all(math.isfinite(v) for v in evaluate.values()):
+        raise AssertionError(f"watermark_train: evaluate {evaluate}")
+    steady = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    emit("watermark_train", card=card, config="solver/watermark/default + "
+         "dataset.segment_duration=1.0 (16 bits, SEANet 128 / 32 filters, "
+         "ratios 8-5-4-2, LSTM 2, detector output 32; l1 0.1, msspec 2, TF "
+         "loudness ratio 10 over 4 bands, detection 1, decoding 1; balancer; "
+         "Adam 5e-5; f32; seeded random weights)",
+         batch=batch, batches_refused_out_of_memory=refused,
+         seconds_per_item=WATERMARK_TRAIN_SECONDS, setup_s=setup_s,
+         draws=[f"{m}+{e}" for m, e in WATERMARK_DRAWS],
+         step_s=step_s, steady_step_s=steady,
+         audio_s_per_s=batch * WATERMARK_TRAIN_SECONDS / steady,
+         split_ms_steps_2_to_5=split_ms,
+         split_ms_median={k: sorted(d[k] for d in split_ms)[len(split_ms) // 2]
+                          for k in split_ms[0]},
+         losses_first_to_last={k: [v[0], v[-1]] for k, v in losses.items()},
+         generator_params=sum(p.numel() for p in solver.generator.parameters()),
+         detector_params=sum(p.numel() for p in solver.detector.parameters()),
+         max_memory_allocated=peak, peak_gb=peak / 1e9,
+         resident_bytes_before_phase=resident,
+         card_vs_cpu=dict(rows=WATERMARK_CHECK_ROWS, draws="pad+random_noise",
+                          max_loss_rel_err=loss_err, worst_loss=worst_loss,
+                          loss_rtol=WATERMARK_LOSS_RTOL,
+                          max_grad_rel_l2_err=grad_err, worst_parameter=worst,
+                          grad_tol=f"|card - CPU| <= {WATERMARK_GRAD_TOL} x "
+                                   f"|CPU| (L2) + 1e-6 x the largest"),
+         effects_card_vs_cpu_max_abs_err=effect_err,
+         effects_rel_tol="1e-5 x max(1, max |CPU|)",
+         effect_draws=EFFECT_DRAWS,
+         biquad=dict(rows=n_rows, samples=AUDIOSEAL_RATE // 2,
+                     f64_rel_err=biquad_f64_err, f32_rel_err=biquad_f32_err,
+                     f32_ms=biquad_ms, sequential_f64_s=seq_s),
+         evaluate=evaluate, phase_s=time.perf_counter() - phase_t0)
+    del solver, audio, x, rows, results, frames, want
+    _release(torch)
+
+
+CLAP_SECONDS = 10           # of music per text
+CLAP_AUDIO_SECONDS = 30     # the clip whose 10 s windows the audio tower sees
+CLAP_GREEDY_SECONDS = 1
+CLAP_EMBED_RTOL = 1e-4      # card vs CPU, relative to max |CPU|
+
+
+def _synthetic_roberta_files(root: Path) -> None:
+    """A byte-level BPE vocabulary of RoBERTa-base's size (50265 entries:
+    the specials, the 256 byte characters, then merges of two byte
+    characters in a fixed order) with its merges."""
+    from audiocraft_tpu_torch.modules.clap import _bytes_to_unicode
+    chars = sorted(set(_bytes_to_unicode().values()))
+    specials = ["<s>", "<pad>", "</s>", "<unk>", "<mask>"]
+    merges = [(a, b) for a in chars for b in chars][:50265 - len(specials)
+                                                   - len(chars)]
+    vocab = specials + chars + [a + b for a, b in merges]
+    (root / "vocab.json").write_text(json.dumps(
+        {t: i for i, t in enumerate(vocab)}))
+    (root / "merges.txt").write_text(
+        "#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in merges))
+
+
+def phase_clap(torch, card):
+    """MusicGen-small conditioned by CLAP (`solver/musicgen/default` with
+    `conditioner=clapemb2music`: the HTSAT-base audio and RoBERTa-base text
+    towers with 512-wide projections, read from a seeded checkpoint the
+    phase writes in the Hugging Face layout through the port's safetensors
+    writer, with a synthetic byte-level vocabulary of 50265 entries; RVQ of
+    12 x 1024; the LM at full width, bf16): 2 texts x 10 s through the
+    decode graph with the texts as joint conditions, and through
+    `MusicGen.generate` (every row the null condition, as in the JAX
+    package); the request split into the text tower, the conditioner and
+    the generate; the audio tower's ms per 10 s window of a 30 s clip (21
+    windows at a 1 s stride); the text and audio embeddings on the card
+    against the CPU; greedy tokens over 1 s on the card against the CPU in
+    f32. Returns K1's launches."""
+    from audiocraft_tpu_torch.config import load_config
+    from audiocraft_tpu_torch.models import MusicGen, builders
+    from audiocraft_tpu_torch.models.lm import GenParams
+    from audiocraft_tpu_torch.modules import clap, conditioners
+    from audiocraft_tpu_torch.modules.conditioners import (
+        ConditioningAttributes, JointEmbedCondition, set_joint_embed_train)
+    from audiocraft_tpu_torch.ops.decode_attention import decode_attention
+    from audiocraft_tpu_torch.utils import safetensors
+    from audiocraft_tpu_torch.utils.timing import time_ms
+    phase_t0 = time.perf_counter()
+    _release(torch)
+    root = _packages_dir() / "clap"
+    root.mkdir(exist_ok=True)
+    with torch.random.fork_rng(devices=[torch.device("cuda")]):
+        torch.manual_seed(11)
+        tower = clap.ClapModel(clap.CLAPConfig(), device="cuda")
+    safetensors.save_file(tower.state_dict(), root / "clap.safetensors")
+    del tower
+    _synthetic_roberta_files(root)
+    cfg = load_config("solver/musicgen/default")
+    clap_cfg = load_config("conditioner/clapemb2music")
+    for key in ("conditioners", "fuser", "classifier_free_guidance",
+                "attribute_dropout"):
+        cfg[key] = clap_cfg[key]
+    cfg["conditioners"]["description"]["clap"]["checkpoint"] = str(
+        root / "clap.safetensors")
+    lm = builders.get_lm_model(cfg, device="cuda", seed=7,
+                               dtype=torch.bfloat16)
+    lm.reset_parameters(7)
+    codec = builders.get_encodec_32khz(device="cuda", dtype=torch.bfloat16,
+                                       seed=1)
+    cond = lm.condition_provider.conditioners["description"]
+    embedder, load_s = _timed(torch, cond._embedder)
+    frames = CLAP_SECONDS * TOKENS_PER_SECOND
+
+    def joint_attrs(texts, device="cuda"):
+        attrs = [ConditioningAttributes(text={"description": t})
+                 for t in texts]
+        for a, t in zip(attrs, texts):
+            a.joint_embed["description"] = JointEmbedCondition(
+                torch.zeros(1, 1, 1), [t], torch.tensor([1]), [48000],
+                [None], [None])
+        return attrs
+
+    times = {"text_tower": [], "tokenize": [], "conditions": []}
+    embed_text = embedder.embed_text
+    embedder.embed_text = _sync_timed(torch, embed_text, times["text_tower"])
+    tokenize = lm.condition_provider.tokenize
+    lm.condition_provider.tokenize = _sync_timed(torch, tokenize,
+                                                 times["tokenize"])
+    compute = lm.compute_conditions
+    lm.compute_conditions = _sync_timed(torch, compute, times["conditions"])
+    decode_attention.launches = 0
+    try:
+        request = []
+        for _ in range(2):
+            for v in times.values():
+                v.clear()
+            t = time.perf_counter()
+            tokens = lm.generate(conditions=joint_attrs(TEXTS),
+                                 max_gen_len=frames, gen=GenParams(
+                                     top_k=250, cfg_coef=3.0),
+                                 generator=torch.Generator("cuda").manual_seed(2),
+                                 device="cuda")
+            wav, decode_s = _timed(torch, lambda: codec.decode(tokens,
+                                                               device="cuda"))
+            torch.cuda.synchronize()
+            total = time.perf_counter() - t
+            request.append(dict(
+                request_s=total, text_tower_s=sum(times["text_tower"]),
+                conditioner_s=sum(times["tokenize"]) + sum(times["conditions"])
+                - sum(times["text_tower"]),
+                generate_s=total - decode_s - sum(times["tokenize"])
+                - sum(times["conditions"]),
+                codec_decode_s=decode_s))
+        null_valid = lm.condition_provider.tokenize(
+            [ConditioningAttributes(text={"description": t})
+             for t in TEXTS])["description"]["valid"]
+        mg = MusicGen("musicgen-small clapemb (random weights)", codec, lm,
+                      device="cuda")
+        mg.set_generation_params(duration=CLAP_SECONDS)
+        (mg_wav, mg_tokens), mg_s = _timed(torch, lambda: mg.generate(
+            TEXTS, return_tokens=True))
+    finally:
+        embedder.embed_text = embed_text
+        lm.condition_provider.tokenize = tokenize
+        lm.compute_conditions = compute
+    launches = decode_attention.launches
+    expected = 3 * _k1_launches(lm, frames)
+    _check_generation(torch, "clap", wav, tokens, (2, 1, frames * 640), 4,
+                      frames, launches, expected)
+    _check_generation(torch, "clap MusicGen.generate", mg_wav, mg_tokens,
+                      (2, 1, frames * 640), 4, frames, launches, expected)
+    if float(null_valid.abs().max()) != 0.0:
+        raise AssertionError("clap: MusicGen.generate's rows are not null")
+    del mg, codec, lm
+
+    # the audio tower on a 30 s clip in 10 s windows every second
+    clip = _seeded_music(torch, 1, CLAP_AUDIO_SECONDS, 48000)[0].cpu()
+    windows = torch.stack([clip[:, s:s + 10 * 48000] for s in range(
+        0, (CLAP_AUDIO_SECONDS - 10) * 48000 + 1, 48000)])
+    mel_s = time.perf_counter()
+    mel = torch.from_numpy(embedder.mels(windows, 48000)).cuda()
+    mel_s = time.perf_counter() - mel_s
+    tower_ms = time_ms(lambda: embedder.model.get_audio_features(mel), n=5)
+    set_joint_embed_train(cond, True, seed=0)
+    audio_embed, audio_s = _timed(torch, lambda: cond._get_embed(
+        JointEmbedCondition(clip[None], [None], torch.tensor([clip.shape[-1]]),
+                            [48000], [None], [None])))
+    cpu_embedder = clap.CLAPEmbedder.from_checkpoint(root / "clap.safetensors",
+                                                     "cpu")
+    text_err = _card_vs_cpu("clap text embedding",
+                            embedder.embed_text(TEXTS),
+                            cpu_embedder.embed_text(TEXTS), CLAP_EMBED_RTOL)
+    audio_err = _card_vs_cpu("clap audio embedding",
+                             embedder.embed_audio(windows[:2], 48000),
+                             cpu_embedder.embed_audio(windows[:2], 48000),
+                             CLAP_EMBED_RTOL)
+
+    # greedy tokens over 1 s in f32, card against CPU from the same weights
+    greedy = {}
+    for device in ("cpu", "cuda"):
+        lm32 = builders.get_lm_model(cfg, device=device, seed=7)
+        if device == "cpu":
+            lm32.reset_parameters(7)
+            weights = lm32.state_dict()
+        else:
+            lm32.load_state_dict(weights)
+        greedy[device] = lm32.generate(
+            conditions=joint_attrs(TEXTS), max_gen_len=CLAP_GREEDY_SECONDS
+            * TOKENS_PER_SECOND, gen=GenParams(use_sampling=False,
+                                               cfg_coef=3.0),
+            device=device).cpu()
+        del lm32
+    if not torch.equal(greedy["cuda"], greedy["cpu"]):
+        raise AssertionError("clap: greedy tokens of the card and the CPU "
+                             "differ")
+    emit("clap", card=card, lm="solver/musicgen/default + conditioner="
+         "clapemb2music (MusicGen-small LM: d 1024, 24 layers, 4 x 2048 "
+         "codes; CLAP HTSAT-base + RoBERTa-base, projections 512, RVQ 12 x "
+         "1024; seeded random weights, bf16; the towers f32)",
+         checkpoint_bytes=(root / "clap.safetensors").stat().st_size,
+         vocab_entries=50265, embedder_load_s=load_s, texts=len(TEXTS),
+         audio_s_per_text=CLAP_SECONDS, requests=request,
+         musicgen_generate_s=mg_s,
+         musicgen_generate_condition="null (valid 0 on every row)",
+         k1_launches=launches, k1_launches_expected=expected,
+         audio_tower=dict(clip_s=CLAP_AUDIO_SECONDS, windows=len(windows),
+                          host_mel_s=mel_s, device_ms=tower_ms,
+                          ms_per_window=tower_ms / len(windows),
+                          conditioner_audio_embed_s=audio_s),
+         card_vs_cpu=dict(text_embedding_max_abs_err=text_err,
+                          audio_embedding_max_abs_err=audio_err,
+                          rel_tol=CLAP_EMBED_RTOL,
+                          greedy_tokens_equal=True,
+                          greedy_seconds=CLAP_GREEDY_SECONDS),
+         phase_s=time.perf_counter() - phase_t0)
+    (root / "clap.safetensors").unlink()
+    del embedder, cpu_embedder, cond, audio_embed
+    conditioners._CLAP_EMBEDDERS.clear()
+    _release(torch)
+    return launches
+
+
+DAC_SECONDS = 10
+DAC_CHECK_SECONDS = 1       # of the 2 rows held card against CPU
+DAC_WAV_RTOL = 1e-4         # relative to max(1, max |CPU|)
+DAC_TIE = 1e-5              # a cosine margin below this is a near-tie
+
+
+def _dac_codes_and_margins(torch, model, x):
+    """The codes of `model.encode(x)` and, per code, the margin of its
+    cosine over the runner-up's."""
+    import torch.nn.functional as F
+    z = model.encoder(F.pad(x, (0, (-x.shape[-1]) % model.hop_length)))
+    codes, margins = [], []
+    for q in model.quantizer.quantizers:
+        e = F.normalize(q.in_proj(z).transpose(1, 2), dim=-1, eps=1e-12)
+        c = F.normalize(q.codebook.weight, dim=-1, eps=1e-12)
+        top = (e @ c.T).topk(2, dim=-1)
+        idx = top.indices[..., 0]
+        z = z - q.decode(idx)
+        codes.append(idx)
+        margins.append(top.values[..., 0] - top.values[..., 1])
+    return torch.stack(codes, 1), torch.stack(margins, 1)
+
+
+def phase_dac(torch, card):
+    """DAC 44.1 kHz at the dac package's default geometry (encoder 64,
+    strides 2-4-8-8, latent 1024, decoder 1536 with rates 8-8-4-2, 9 x 1024
+    codebooks of dim 8; seeded random weights, f32) saved as a dac
+    `weights.pth` and read back through `DAC.get_pretrained`: encode and
+    decode 2 x 10 s (ms, peak memory), then card against CPU on 2 x 1 s:
+    codes equal but for near-ties of the cosine lookup (recorded), and the
+    decode of the same codes."""
+    from audiocraft_tpu_torch.models import dac
+    from audiocraft_tpu_torch.utils.timing import time_ms
+    phase_t0 = time.perf_counter()
+    resident = _release(torch)
+    root = _packages_dir() / "dac"
+    root.mkdir(exist_ok=True)
+    kwargs = dict(encoder_dim=64, encoder_rates=[2, 4, 8, 8],
+                  decoder_dim=1536, decoder_rates=[8, 8, 4, 2], n_codebooks=9,
+                  codebook_size=1024, codebook_dim=8, sample_rate=44100)
+    with torch.random.fork_rng(devices=[torch.device("cuda")]):
+        torch.manual_seed(12)
+        model = dac.DACModel(device="cuda", **kwargs)
+    torch.save({"state_dict": model.state_dict(),
+                "metadata": {"kwargs": kwargs}}, root / "weights.pth")
+    del model
+    codec, load_s = _timed(torch, lambda: dac.DAC.get_pretrained(
+        root / "weights.pth", device="cuda"))
+    x = _seeded_music(torch, 2, DAC_SECONDS, 44100)
+    torch.cuda.reset_peak_memory_stats()
+    (codes, _), encode_s = _timed(torch, lambda: codec.encode(x))
+    wav, decode_s = _timed(torch, lambda: codec.decode(codes))
+    peak = torch.cuda.max_memory_allocated()
+    if tuple(codes.shape) != (2, 9, math.ceil(x.shape[-1] / 512)) or \
+            tuple(wav.shape) != (2, 1, codes.shape[-1] * 512):
+        raise AssertionError(f"dac: codes {tuple(codes.shape)}, audio "
+                             f"{tuple(wav.shape)}")
+    if not bool(torch.isfinite(wav).all()):
+        raise AssertionError("dac: non-finite audio")
+    encode_ms = time_ms(lambda: codec.encode(x), n=5)
+    decode_ms = time_ms(lambda: codec.decode(codes), n=5)
+    cpu = dac.DAC.get_pretrained(root / "weights.pth", device="cpu")
+    rows = x[:, :, :DAC_CHECK_SECONDS * 44100]
+    with torch.no_grad():
+        got, _ = _dac_codes_and_margins(torch, codec.model, rows)
+        want, margins = _dac_codes_and_margins(torch, cpu.model, rows.cpu())
+    if not torch.equal(got, codec.encode(rows)[0]):
+        raise AssertionError("dac: the margins' codes differ from encode's")
+    differ = (got.cpu() != want)
+    # a difference at one level changes every later level of that frame:
+    # only the first differing level of a frame must be a near-tie
+    first = differ & (differ.cumsum(dim=1) == 1)
+    ties = margins[first]
+    if ties.numel() and float(ties.max()) >= DAC_TIE:
+        raise AssertionError(f"dac: codes differ card vs CPU at a cosine "
+                             f"margin of {float(ties.max())}")
+    wav_err = _card_vs_cpu("dac decode", codec.decode(want),
+                           cpu.decode(want), DAC_WAV_RTOL)
+    emit("dac", card=card, model="DAC 44.1 kHz, the dac package's default "
+         "geometry (encoder 64, strides 2-4-8-8, latent 1024, decoder 1536, "
+         "rates 8-8-4-2, 9 x 1024 codebooks of dim 8; seeded random "
+         "weights, f32)", params=sum(p.numel() for p in codec.parameters()),
+         weights_bytes=(root / "weights.pth").stat().st_size,
+         load_s=load_s, rows=2, audio_s_per_row=DAC_SECONDS,
+         first_call_s=dict(encode=encode_s, decode=decode_s),
+         encode_ms=encode_ms, decode_ms=decode_ms,
+         max_memory_allocated=peak, peak_gb=peak / 1e9,
+         resident_bytes_before_phase=resident,
+         card_vs_cpu=dict(seconds=DAC_CHECK_SECONDS,
+                          codes_differing=int(differ.sum()),
+                          frames_with_a_near_tie=int(first.sum()),
+                          near_tie_margins=ties.tolist(),
+                          near_tie_below=DAC_TIE,
+                          decode_max_abs_err=wav_err,
+                          decode_rel_tol=DAC_WAV_RTOL),
+         phase_s=time.perf_counter() - phase_t0)
+    (root / "weights.pth").unlink()
+    del codec, cpu, x, wav, codes
+    _release(torch)
+
+
 def main() -> int:
     root = Path(__file__).resolve().parent
     if not (root / "audiocraft_tpu_torch" / "csrc").is_dir():
@@ -3050,9 +3618,12 @@ def main() -> int:
     phase_mbd_train(torch, card, codec_dir)
     phase_jasco_train(torch, card, codec_dir)
     phase_codec_train(torch, card)
+    phase_watermark_train(torch, card)
+    clap_launches = phase_clap(torch, card)
+    phase_dac(torch, card)
     shutil.rmtree(codec_dir.parent)
     launches += (melody_launches + audiogen_launches + style_launches
-                 + loaders_launches)
+                 + loaders_launches + clap_launches)
     timings += melody_timings + audiogen_timings + style_timings
 
     main_t = timings[0]

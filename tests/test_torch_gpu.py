@@ -29,7 +29,12 @@ max |CPU|), and one `CompressionSolver` step (k-means on its first batch,
 no discriminator update), every metric rtol 1e-4 (atol 1e-6), each
 gradient's L2 error within 1e-3 of its L2 norm, the codebooks atol 1e-4;
 one discriminator update, its loss rtol 1e-5 and its weights within 2 x lr
-(Adam's first step is about lr x sign(g))."""
+(Adam's first step is about lr x sign(g)); the loudness loss's biquad in
+f32 within 1e-5 of its peak, and in f64 against the sequential filter
+within 1e-10; the TF loudness ratio and its gradient rtol 1e-4; two
+`WatermarkSolver` steps, metrics rtol 1e-4 and gradients within 1e-3 of
+their L2 norm; the CLAP towers atol 1e-5; DAC's codes equal and its decode
+as MBD's."""
 import pytest
 import torch
 
@@ -1201,3 +1206,160 @@ def test_compression_solver_step_on_card_matches_cpu():
     assert abs(out["cuda"][3] - out["cpu"][3]) <= 1e-5 * abs(out["cpu"][3])
     for name, value in out["cpu"][4].items():
         assert float((out["cuda"][4][name] - value).abs().max()) <= 6e-4, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["treble", "highpass"])
+def test_biquad_on_card_matches_cpu(name):
+    """The chunked biquad of the loudness loss on the TF-loudness shapes
+    (rows of 8000 samples at 16 kHz): f32 on the card against the CPU
+    within 1e-5 of the peak, and f64 on the card against the sequential
+    filter (a loop over samples on the CPU) within 1e-10."""
+    import math
+    _f32_card()
+    from audiocraft_tpu_torch.losses import loudnessloss
+    if name == "treble":
+        w0, Q, A = 2 * math.pi * 1500 / 16000, 1 / math.sqrt(2), 10 ** 0.1
+        alpha = math.sin(w0) / 2 / Q
+        t1, t2, t3 = 2 * math.sqrt(A) * alpha, (A - 1) * math.cos(w0), \
+            (A + 1) * math.cos(w0)
+        coeffs = (A * ((A + 1) + t2 + t1), -2 * A * ((A - 1) + t3),
+                  A * ((A + 1) + t2 - t1), (A + 1) - t2 + t1,
+                  2 * ((A - 1) - t3), (A + 1) - t2 - t1)
+    else:
+        w0 = 2 * math.pi * 38 / 16000
+        alpha = math.sin(w0) / 2 / 0.5
+        coeffs = ((1 + math.cos(w0)) / 2, -1 - math.cos(w0),
+                  (1 + math.cos(w0)) / 2, 1 + alpha, -2 * math.cos(w0),
+                  1 - alpha)
+    x = 0.3 * torch.randn(64, 1, 8000, generator=torch.Generator().manual_seed(0))
+    got = loudnessloss.biquad(x.cuda(), *coeffs)
+    want = loudnessloss.biquad(x, *coeffs)
+    assert float((got.cpu() - want).abs().max()) <= 1e-5 * float(
+        want.abs().max())
+    b0, b1, b2, a0, a1, a2 = coeffs
+    xs = x.double()[:4]
+    ys = torch.zeros_like(xs)
+    for t in range(xs.shape[-1]):
+        y = b0 * xs[..., t]
+        if t > 0:
+            y = y + b1 * xs[..., t - 1] - a1 * ys[..., t - 1]
+        if t > 1:
+            y = y + b2 * xs[..., t - 2] - a2 * ys[..., t - 2]
+        ys[..., t] = y / a0
+    got64 = loudnessloss.biquad(xs.cuda(), *coeffs).cpu()
+    assert float((got64 - ys).abs().max()) <= 1e-10 * float(ys.abs().max())
+
+
+@pytest.mark.gpu
+def test_loudness_ratio_on_card_matches_cpu():
+    """The TF loudness ratio (4 bands, 0.5 s frames) of 8 rows of 1 s and
+    its gradient on the card against the CPU, rtol 1e-4 (max-abs scaled)."""
+    _f32_card()
+    from audiocraft_tpu_torch.losses.loudnessloss import TFLoudnessRatio
+    g = torch.Generator().manual_seed(1)
+    ref = 0.3 * torch.randn(8, 1, 16000, generator=g)
+    out = ref + 0.01 * torch.randn(ref.shape, generator=g)
+    loss = TFLoudnessRatio(16000, segment=0.5, n_bands=4)
+    res = {}
+    for device in ("cpu", "cuda"):
+        o = out.to(device, copy=True).requires_grad_(True)
+        value = loss(o, ref.to(device))
+        value.backward()
+        res[device] = (float(value.detach()), o.grad.cpu())
+    assert abs(res["cuda"][0] - res["cpu"][0]) <= 1e-4 * abs(res["cpu"][0])
+    assert float((res["cuda"][1] - res["cpu"][1]).abs().max()) <= 1e-4 * float(
+        res["cpu"][1].abs().max())
+
+
+@pytest.mark.gpu
+def test_watermark_solver_step_on_card_matches_cpu():
+    """Two `WatermarkSolver` steps (4 bits, SEANet 16 / 2 filters, ratios
+    8-4, 0.2 s at 16 kHz) from the same weights with the same draws (the
+    solver's CPU generator: message, mode, mask, effect and the effect's
+    noise) on the card and on the CPU: every metric rtol 1e-4 (atol 1e-6),
+    each gradient's L2 error within 1e-3 of its L2 norm (plus 1e-6 of the
+    largest), the parameters after Adam within 2 x lr."""
+    _f32_card()
+    from audiocraft_tpu_torch.solvers import get_solver
+    cfg = {"solver": "watermarking", "seed": 0, "sample_rate": 16000,
+           "audioseal": {"nbits": 4, "dimension": 16, "n_filters": 2,
+                         "ratios": [8, 4]},
+           "dataset": {"segment_duration": 0.2},
+           "msspec": {"range_start": 6, "range_end": 8, "n_mels": 8},
+           "tf_loudnessratio": {"segment": 0.1, "n_bands": 2}}
+    x = 0.2 * torch.randn(2, 1, 3200, generator=torch.Generator().manual_seed(2))
+    out = {}
+    for device in ("cpu", "cuda"):
+        solver = get_solver(cfg, device=device)
+        steps = [solver.run_step(i, x, {}) for i in range(2)]
+        models = (solver.generator, solver.detector)
+        out[device] = (
+            [{k: float(v) for k, v in m.items()} for m in steps],
+            {f"{i}.{n}": p.grad.cpu() for i, m in enumerate(models)
+             for n, p in m.named_parameters()},
+            {f"{i}.{n}": p.detach().cpu() for i, m in enumerate(models)
+             for n, p in m.named_parameters()})
+    for got, want in zip(out["cuda"][0], out["cpu"][0]):
+        for key, value in want.items():
+            assert abs(got[key] - value) <= 1e-4 * abs(value) + 1e-6, key
+    floor = 1e-6 * max(float(g.norm()) for g in out["cpu"][1].values())
+    for name, grad in out["cpu"][1].items():
+        err = float((out["cuda"][1][name] - grad).norm())
+        assert err <= 1e-3 * float(grad.norm()) + floor, name
+    for name, value in out["cpu"][2].items():
+        assert float((out["cuda"][2][name] - value).abs().max()) <= 1e-4, name
+
+
+@pytest.mark.gpu
+def test_clap_towers_on_card_match_cpu():
+    """A small seeded CLAP (16 mel bins, window 4, two stages; text 2
+    layers of 32) on the card against the CPU: audio and text embeddings
+    atol 1e-5 (unit-norm outputs)."""
+    _f32_card()
+    from audiocraft_tpu_torch.modules import clap
+    cfg = clap.CLAPConfig(
+        num_mel_bins=16, spec_size=64, patch_embeds_hidden_size=16,
+        window_size=4, depths=[2, 2], num_heads=[2, 2], vocab_size=100,
+        text_hidden_size=32, text_num_layers=2, text_num_heads=2,
+        text_intermediate_size=64, max_position_embeddings=80,
+        projection_dim=20)
+    torch.manual_seed(0)
+    cpu = clap.ClapModel(cfg).eval()
+    card = clap.ClapModel(cfg, device="cuda").eval()
+    card.load_state_dict(cpu.state_dict())
+    g = torch.Generator().manual_seed(3)
+    mel = 20 * torch.randn(3, 200, 16, generator=g) - 30
+    ids = torch.randint(2, 100, (3, 12), generator=g)
+    mask = torch.ones(3, 12, dtype=torch.long)
+    ids[1, 8:], mask[1, 8:] = 1, 0
+    with torch.no_grad():
+        for got, want in ((card.get_audio_features(mel.cuda()),
+                           cpu.get_audio_features(mel)),
+                          (card.get_text_features(ids.cuda(), mask.cuda()),
+                           cpu.get_text_features(ids, mask))):
+            assert float((got.cpu() - want).abs().max()) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_dac_on_card_matches_cpu():
+    """A small seeded DAC (encoder 8, strides 2-4-8, decoder 64, 4
+    codebooks of 64 x 8) on the card against the CPU: codes equal and the
+    decode atol 1e-4 x max(1, max |CPU|)."""
+    _f32_card()
+    from audiocraft_tpu_torch.models import dac
+    torch.manual_seed(0)
+    model = dac.DACModel(encoder_dim=8, encoder_rates=(2, 4, 8),
+                         decoder_dim=64, decoder_rates=(8, 4, 2),
+                         n_codebooks=4, codebook_size=64, codebook_dim=8)
+    cpu = dac.DAC(model, device="cpu")
+    card = dac.DAC(dac.DACModel(encoder_dim=8, encoder_rates=(2, 4, 8),
+                                decoder_dim=64, decoder_rates=(8, 4, 2),
+                                n_codebooks=4, codebook_size=64,
+                                codebook_dim=8), device="cuda")
+    card.model.load_state_dict(cpu.model.state_dict())
+    x = 0.3 * torch.randn(2, 1, 4410, generator=torch.Generator().manual_seed(4))
+    codes, _ = cpu.encode(x)
+    got_codes, _ = card.encode(x)
+    assert torch.equal(got_codes.cpu(), codes)
+    _close(card.decode(codes), cpu.decode(codes))

@@ -80,8 +80,9 @@ def test_entry_points_without_device_raise_when_no_card(entry, monkeypatch):
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Every module of the port, chip_smoke.py and the port's scripts
-    (`scripts/torch_*.py`) import with `jax` and `audiocraft_tpu` blocked,
-    and no source names them in an import."""
+    (`scripts/torch_*.py`) import with `jax`, `audiocraft_tpu` and
+    `transformers` (absent on the card's machine) blocked, and no source
+    names them in an import."""
     modules = sorted(
         ".".join(p.relative_to(ROOT).with_suffix("").parts)
         for p in PORT.rglob("*.py") if p.name != "__init__.py") + [
@@ -89,19 +90,22 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     scripts = sorted(str(p) for p in (ROOT / "scripts").glob("torch_*.py"))
     assert any(p.endswith("torch_int4_decode.py") for p in scripts)
     assert any(p.endswith("torch_demucs_precision.py") for p in scripts)
-    # the melody, AudioGen, training and codec-training slices' modules
-    # are among those imported
+    # the melody, AudioGen, training, codec-training and AudioSeal, CLAP
+    # and DAC slices' modules are among those imported
     assert {f"audiocraft_tpu_torch.{m}" for m in (
         "ops.stft", "modules.chroma", "modules.demucs", "models.audiogen",
         "solvers.audiogen", "solvers.base", "solvers.magnet", "optim.dadam",
         "optim.ema", "utils.checkpoint", "utils.writers", "utils.profiler",
         "utils.deadlock", "environment", "losses.balancer",
         "adversarial.losses", "adversarial.discriminators.msstftd",
-        "quantization.base", "metrics.rvm", "solvers.compression")
+        "quantization.base", "metrics.rvm", "solvers.compression",
+        "losses.wmloss", "losses.loudnessloss", "utils.audio_effects",
+        "solvers.watermark", "modules.clap", "models.dac", "metrics.miou")
     } <= set(modules)
     script = (
         "import sys, importlib, importlib.util\n"
-        "for name in ('jax', 'jaxlib', 'flax', 'audiocraft_tpu'):\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'audiocraft_tpu',\n"
+        "             'transformers'):\n"
         "    sys.modules[name] = None\n"
         f"for m in {modules!r}:\n"
         "    importlib.import_module(m)\n"
@@ -113,8 +117,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert "IMPORTS_OK" in proc.stdout, proc.stderr[-3000:]
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|audiocraft_tpu)\b"
-                         r"(?!_torch)", re.M)
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|audiocraft_tpu"
+                         r"|transformers)\b(?!_torch)", re.M)
     for path in (list(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
                  + [Path(p) for p in scripts]):
         assert not pattern.search(path.read_text()), path
