@@ -1,6 +1,8 @@
 """Configs: YAML files under `configs/` composed through their `defaults`
-lists, with `key.subkey=value` overrides (the port's own copy of
-`audiocraft_tpu/config.py`'s loader; it reads the same files)."""
+lists, with `key.subkey=value` overrides, and experiments named by the
+signature of their overrides (the port's own copy of
+`audiocraft_tpu/config.py`; it reads the same files)."""
+import hashlib
 import json
 import typing as tp
 from pathlib import Path
@@ -70,3 +72,38 @@ def apply_overrides(cfg: dict, overrides: tp.Sequence[str]) -> dict:
         node[leaf] = value
         dnode[leaf] = value
     return delta
+
+
+# keys that leave the experiment the same (devices, loggers, workers)
+EXCLUDE_FROM_SIG = ("device", "wandb", "tensorboard", "logging", "slurm",
+                    "dora", "num_workers")
+
+
+def signature(delta: dict, length: int = 8) -> str:
+    """The experiment's signature: the SHA-1 of its override delta (top-level
+    keys of `EXCLUDE_FROM_SIG` left out) as sorted compact JSON, cut to
+    `length` hex digits; the same delta has the JAX package's signature."""
+    kept = {k: v for k, v in delta.items() if k not in EXCLUDE_FROM_SIG}
+    blob = json.dumps(kept, sort_keys=True, separators=(",", ":"))
+    return hashlib.sha1(blob.encode()).hexdigest()[:length]
+
+
+class XP:
+    """An experiment: its composed config, the override delta, the
+    signature of the delta and its folder `<dora dir>/xps/<sig>`."""
+
+    def __init__(self, cfg: dict, delta: dict,
+                 root: tp.Optional[Path] = None):
+        from .environment import AudioCraftEnvironment
+        self.cfg = cfg
+        self.delta = delta
+        self.sig = signature(delta)
+        self.folder = (Path(root or AudioCraftEnvironment.get_dora_dir())
+                       / "xps" / self.sig)
+
+    @classmethod
+    def from_solver(cls, solver_name: str, overrides: tp.Sequence[str] = ()):
+        cfg = load_config(f"solver/{solver_name}")
+        delta = apply_overrides(cfg, overrides)
+        delta["solver"] = solver_name
+        return cls(cfg, delta)

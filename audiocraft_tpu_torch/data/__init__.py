@@ -1,6 +1,10 @@
-"""Segment metadata that a training batch carries beside its audio. The
-datasets and loaders themselves are not ported yet (ROADMAP, slice H)."""
-from .audio_dataset import AudioMeta, SegmentInfo
-from .info_audio_dataset import AudioInfo
-from .jasco_dataset import JascoInfo
-from .music_dataset import MusicInfo
+"""The host-side data plane: audio files, manifests, datasets and their
+loader (counterpart of `audiocraft_tpu/data`)."""
+# flake8: noqa
+from . import (audio, audio_dataset, audio_utils, info_audio_dataset,
+               jasco_dataset, loader, music_dataset, sound_dataset, zip)
+from .audio_dataset import AudioDataset, AudioMeta, SegmentInfo
+from .info_audio_dataset import AudioInfo, InfoAudioDataset
+from .jasco_dataset import JascoDataset, JascoInfo
+from .music_dataset import MusicDataset, MusicInfo
+from .sound_dataset import SoundDataset, SoundInfo

@@ -91,14 +91,11 @@ def get_compression_model(cfg: dict, device=None) -> EncodecModel:
     seanet = dict(enc.get("seanet", {}) or {})
     overrides = {part: dict(seanet.pop(part, {}) or {})
                  for part in ("encoder", "decoder")}
-    activation = seanet.pop("activation", "ELU")
-    if str(activation).lower() != "elu":
-        raise NotImplementedError(f"SEANet activation {activation!r} is not "
-                                  f"ported")
-    seanet["elu_alpha"] = dict(seanet.pop("activation_params", None)
-                               or {}).get("alpha", 1.0)
-    if seanet.pop("norm_params", None):
-        raise NotImplementedError("SEANet norm_params are not ported")
+    # the norm's parameters are read only by a time_group_norm, which the
+    # port's convolutions refuse; with weight_norm they are unused, as in
+    # the JAX package
+    for part in (seanet, *overrides.values()):
+        part.pop("norm_params", None)
     for key in ("ratios", "kernel_sizes", "dilations"):
         if key in seanet:
             seanet[key] = tuple(seanet[key])
@@ -378,9 +375,6 @@ _DROPPED_LM_KEYS = ("layer_scan", "dtype", "lr", "weight_decay", "emb_lr",
 
 def get_condition_fuser(cfg: dict) -> ConditionFuser:
     fuser_cfg = dict(cfg.get("fuser", {}) or {})
-    if fuser_cfg.pop("cross_attention_pos_emb", False):
-        raise NotImplementedError("fuser.cross_attention_pos_emb is not ported")
-    fuser_cfg.pop("cross_attention_pos_emb_scale", None)
     return ConditionFuser({k: fuser_cfg.pop(k)
                            for k in ConditionFuser.FUSING_METHODS
                            if k in fuser_cfg}, **fuser_cfg)
@@ -464,8 +458,9 @@ def get_lm_model(cfg: dict, device=None, seed: int = 0,
                  dtype=None) -> LMModel:
     """The LM of a solver config (`transformer_lm`, `codebooks_pattern`,
     `conditioners`, `fuser`, `classifier_free_guidance`), with seeded random
-    weights: upstream's 'gaussian' init with 'current' depthwise scaling
-    when `weight_init` asks for it, else torch's default init. Parameters are
+    weights: upstream's init of `weight_init` ('gaussian' or 'uniform')
+    with the `depthwise_init` scaling ('current', 'global' or none) and
+    `zero_bias_init`, else torch's default init. Parameters are
     f32 unless `dtype` (serving) names another; `transformer_lm.dtype` names
     the compute dtype, which the solver applies with autocast.
     `lm_model: transformer_lm_magnet` builds a `MagnetLMModel`: its
@@ -479,11 +474,6 @@ def get_lm_model(cfg: dict, device=None, seed: int = 0,
     weight_init = kwargs.pop("weight_init", None)
     depthwise_init = kwargs.pop("depthwise_init", None)
     zero_bias_init = kwargs.pop("zero_bias_init", False)
-    if weight_init not in (None, "gaussian") or (
-            weight_init and (depthwise_init != "current" or not zero_bias_init)):
-        raise NotImplementedError(
-            f"weight_init={weight_init!r}, depthwise_init={depthwise_init!r}, "
-            f"zero_bias_init={zero_bias_init!r} is not ported")
     lm_model = cfg.get("lm_model", "transformer_lm")
     if lm_model == "transformer_lm_magnet":
         lm_class: tp.Any = MagnetLMModel
@@ -507,8 +497,8 @@ def get_lm_model(cfg: dict, device=None, seed: int = 0,
         lm = lm_class(get_codebooks_pattern_provider(n_q, pattern_cfg),
                       conditioners, fuser, cfg_coef=cfg_coef, device=device,
                       dtype=dtype, **kwargs)
-    if weight_init == "gaussian":
-        lm.reset_parameters(seed)
+    if weight_init is not None:
+        lm.reset_parameters(seed, weight_init, depthwise_init, zero_bias_init)
     return lm.eval()
 
 

@@ -149,37 +149,55 @@ class LMModel(nn.Module):
         return self.card
 
     @torch.no_grad()
-    def reset_parameters(self, seed: int) -> None:
-        """Seeded random weights after upstream's 'gaussian' LM init with
-        depthwise scaling: every matrix (embeddings included) ~
-        N(0, 1/fan_in) truncated at 3 std; inside layer i (1-based) the std
-        is further divided by sqrt(2 i); biases zero; norms one/zero;
-        layer scales keep their init. Conditioners keep their own init.
-        On the meta device (shapes only) there is nothing to draw."""
+    def reset_parameters(self, seed: int, weight_init: str = "gaussian",
+                         depthwise_init: tp.Optional[str] = "current",
+                         zero_bias_init: bool = True) -> None:
+        """Seeded random weights after upstream's LM init: every matrix
+        (embeddings included) with std 1/sqrt(fan_in), drawn from a normal
+        truncated at 3 std ('gaussian') or from U(-sqrt(3) std, sqrt(3) std)
+        ('uniform'); inside layer i (1-based) the std is further divided by
+        sqrt(2 i) ('current') or by sqrt(2 L), L the layer count ('global'),
+        and not at all without `depthwise_init`. Biases are zeroed with
+        `zero_bias_init` and keep their init otherwise; norms one/zero;
+        layer scales keep their init. Conditioners keep their own init. On
+        the meta device (shapes only) there is nothing to draw."""
+        if weight_init not in ("gaussian", "uniform"):
+            raise ValueError(f"unsupported weight_init {weight_init!r}")
+        if depthwise_init not in (None, "current", "global"):
+            raise ValueError(f"unsupported depthwise_init {depthwise_init!r}")
         if self.emb[0].weight.device.type == "meta":
             return
         g = torch.Generator(self.emb[0].weight.device).manual_seed(seed)
 
-        def trunc_normal_(t: torch.Tensor, std: float):
-            t.normal_(0.0, std, generator=g).clamp_(-3 * std, 3 * std)
+        def init_(t: torch.Tensor, std: float):
+            if weight_init == "gaussian":
+                t.normal_(0.0, std, generator=g).clamp_(-3 * std, 3 * std)
+            else:
+                bound = math.sqrt(3) * std
+                t.uniform_(-bound, bound, generator=g)
+
+        def bias_(t: tp.Optional[torch.Tensor]):
+            if t is not None and zero_bias_init:
+                t.zero_()
 
         for emb in self.emb:
-            trunc_normal_(emb.weight, 1 / math.sqrt(self.dim))
+            init_(emb.weight, 1 / math.sqrt(self.dim))
         for lin in self.linears:
-            trunc_normal_(lin.weight, 1 / math.sqrt(self.dim))
-            if lin.bias is not None:
-                lin.bias.zero_()
+            init_(lin.weight, 1 / math.sqrt(self.dim))
+            bias_(lin.bias)
+        n_layers = len(self.transformer.layers)
         for i, layer in enumerate(self.transformer.layers):
-            depth_scale = math.sqrt(2 * (i + 1))
+            depth = {"current": i + 1, "global": n_layers}.get(depthwise_init)
+            depth_scale = math.sqrt(2 * depth) if depth else 1.0
             for name, p in layer.named_parameters():
                 if "norm" in name:
                     p.fill_(1.0) if name.endswith("weight") else p.zero_()
                 elif name.endswith("bias"):
-                    p.zero_()
+                    bias_(p)
                 elif name.startswith("layer_scale"):
                     continue
                 else:  # [out, in] matrices
-                    trunc_normal_(p, 1 / math.sqrt(p.shape[1]) / depth_scale)
+                    init_(p, 1 / math.sqrt(p.shape[1]) / depth_scale)
         if self.out_norm is not None:
             self.out_norm.reset_parameters()
 

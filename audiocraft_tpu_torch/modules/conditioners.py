@@ -8,8 +8,8 @@ time). `ConditioningProvider.forward` returns `(embedding [B, T, D], mask
 [B, T])` per attribute, text attributes first, then waveforms. The T5
 conditioner tokenizes with the hash-trick whitespace tokenizer, as the JAX
 package does when no sentencepiece vocabulary is on disk. The melody
-conditioner's embedding cache (`cache_path`) is not ported (ROADMAP, slice
-H).
+conditioner keeps its chroma per file in an embedding cache when given a
+`cache_path` (`utils/cache.py`).
 """
 import dataclasses
 import math
@@ -17,6 +17,7 @@ import re
 import typing as tp
 from collections import defaultdict
 from copy import deepcopy
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -25,6 +26,7 @@ import torch.nn as nn
 from ..utils.utils import hash_trick, length_to_mask
 from .chroma import ChromaExtractor
 from .t5 import T5Encoder, T5EncoderConfig
+from .transformer import create_sin_embedding
 
 ConditionType = tp.Tuple[torch.Tensor, torch.Tensor]
 
@@ -278,9 +280,6 @@ class ChromaStemConditioner(StemSeparated, WaveformConditioner):
         if dim is not None and dim != n_chroma:
             raise ValueError(f"the chroma conditioner's input is its "
                              f"{n_chroma} classes, got dim={dim}")
-        if cache_path is not None:
-            raise NotImplementedError("the chroma embedding cache (cache_path) "
-                                      "is not ported (ROADMAP, slice H)")
         if eval_wavs is not None:
             raise NotImplementedError("eval_wavs is not ported")
         super().__init__(n_chroma, output_dim, device, dtype)
@@ -291,6 +290,8 @@ class ChromaStemConditioner(StemSeparated, WaveformConditioner):
         self.match_len_on_eval = match_len_on_eval
         self.chroma = ChromaExtractor(sample_rate, n_chroma, radix2_exp,
                                       argmax=True, device=device)
+        self.cache_path = cache_path
+        self._cache = None
         self.set_separator(None)
 
     @property
@@ -303,13 +304,84 @@ class ChromaStemConditioner(StemSeparated, WaveformConditioner):
         return 1 + int(self.sample_rate * self.duration) // self.winhop
 
     def tokenize(self, x: WavCondition):
-        """With a separator, the chroma of each live row's melodic stems
-        ({'chroma': [B, frames, n_chroma], 'length': [B]}); else `x`."""
-        if x.wav.shape[-1] > 1:
-            separator = self._separator()
-            if separator is not None:
-                return self._tokenize_separated(x, separator)
+        """With a `cache_path` and rows that name their file, each such
+        row's chroma from the embedding cache (the whole file's chroma,
+        computed once, cut at the row's seek time) and the others' computed
+        now; else, with a separator, the chroma of each live row's melodic
+        stems. Both give {'chroma': [B, frames, n_chroma], 'length': [B]};
+        otherwise `x` itself."""
+        if x.wav.shape[-1] <= 1:
+            return x
+        if self.cache_path is not None and any(p is not None for p in x.path):
+            return self._tokenize_cached(x)
+        separator = self._separator()
+        if separator is not None:
+            return self._tokenize_separated(x, separator)
         return x
+
+    def _mono_chroma(self, wav: torch.Tensor, sr: int) -> torch.Tensor:
+        """Chroma [B, frames, n_chroma] of wav [B, C, T] at `sr`: melodic
+        stems when there is a separator, mixed to mono at the model's
+        rate."""
+        from ..data.audio_utils import convert_audio
+        from .demucs import separate_melody
+        device = self.output_proj.weight.device
+        wav = wav.float().to(device)
+        separator = self._separator()
+        if separator is not None:
+            wav = separate_melody(separator, wav, sr)
+        return self.chroma(convert_audio(wav, sr, self.sample_rate, 1))
+
+    def _embed_cache(self):
+        """The per-file chroma cache under `<cache_path>/wav`."""
+        if self._cache is None:
+            from ..data.audio import audio_read
+            from ..utils.cache import EmbeddingCache
+
+            def compute_full(path, x, idx):
+                wav, sr = audio_read(str(path))
+                return self._mono_chroma(torch.from_numpy(wav)[None],
+                                         sr)[0].cpu().numpy()
+
+            def extract(full, x, idx):
+                sr = x.sample_rate[idx] or self.sample_rate
+                seek = (x.seek_time[idx] if idx < len(x.seek_time)
+                        and x.seek_time[idx] else 0.0)
+                start = int(seek * self.sample_rate) // self.winhop
+                n_frames = 1 + int(x.wav.shape[-1] * self.sample_rate
+                                   / sr) // self.winhop
+                part = full[start:start + n_frames]
+                return np.pad(part, ((0, n_frames - part.shape[0]), (0, 0)))
+
+            self._cache = EmbeddingCache(Path(self.cache_path) / "wav",
+                                         compute_full, extract)
+        return self._cache
+
+    def _tokenize_cached(self, x: WavCondition) -> dict:
+        cache = self._embed_cache()
+        n_frames = 1 + int(x.wav.shape[-1] * self.sample_rate
+                           / (x.sample_rate[0] or self.sample_rate)
+                           ) // self.winhop
+        rows = []
+        for i, path in enumerate(x.path):
+            if path is not None:
+                seek = (x.seek_time[i] if i < len(x.seek_time)
+                        and x.seek_time[i] else 0.0)
+                row = WavCondition(x.wav[i:i + 1], x.length[i:i + 1],
+                                   [x.sample_rate[i]], [path], [seek])
+                rows.append(cache.get_embed_from_cache([path], row)[0])
+            elif int(x.length[i]) <= 1:
+                rows.append(np.zeros((n_frames, self.n_chroma), np.float32))
+            else:
+                sr = (x.sample_rate[i] if i < len(x.sample_rate)
+                      and x.sample_rate[i] else self.sample_rate)
+                chroma = self._mono_chroma(x.wav[i:i + 1], sr)[0, :n_frames]
+                rows.append(np.pad(chroma.cpu().numpy(),
+                                   ((0, n_frames - chroma.shape[0]), (0, 0))))
+        device = self.output_proj.weight.device
+        return {"chroma": torch.from_numpy(np.stack(rows).astype(np.float32)
+                                           ).to(device),
+                "length": x.length}
 
     def _tokenize_separated(self, x: WavCondition, separator) -> dict:
         """Rows sharing a sample rate go through the separator together;
@@ -719,8 +791,6 @@ class CLAPEmbeddingConditioner(JointEmbeddingConditioner):
         self.host_rng = np.random.RandomState(0)
 
     def _embedder(self):
-        from pathlib import Path
-
         from ..environment import resolve_reference_path
         from .clap import CLAPEmbedder, find_clap_checkpoint
         path = str(resolve_reference_path(self.checkpoint)) \
@@ -977,14 +1047,20 @@ class ConditionFuser:
     `input_interpolate` after a nearest resample of its time axis), put
     before it (`prepend`, at the first step only, in the order of the
     conditions), concatenated into the cross-attention source (`cross`) or
-    dropped (`ignore`)."""
+    dropped (`ignore`). With `cross_attention_pos_emb`, a sinusoidal
+    embedding of the source's positions, times
+    `cross_attention_pos_emb_scale`, is added to the cross source."""
     FUSING_METHODS = ["sum", "prepend", "cross", "ignore", "input_interpolate"]
 
-    def __init__(self, fuse2cond: tp.Dict[str, tp.List[str]]):
+    def __init__(self, fuse2cond: tp.Dict[str, tp.List[str]],
+                 cross_attention_pos_emb: bool = False,
+                 cross_attention_pos_emb_scale: float = 1.0):
         assert all(k in self.FUSING_METHODS for k in fuse2cond), \
             f"Got invalid fuse method, allowed methods: {self.FUSING_METHODS}"
         self.fuse2cond = {k: list(v) for k, v in fuse2cond.items()}
         self.cond2fuse = {c: m for m, conds in fuse2cond.items() for c in conds}
+        self.cross_attention_pos_emb = cross_attention_pos_emb
+        self.cross_attention_pos_emb_scale = cross_attention_pos_emb_scale
 
     @property
     def has_prepend(self) -> bool:
@@ -1008,7 +1084,16 @@ class ConditionFuser:
         self._check(conditions)
         conds = [cond for name, (cond, _) in conditions.items()
                  if self.cond2fuse[name] == "cross"]
-        return torch.cat(conds, dim=1) if conds else None
+        if not conds:
+            return None
+        cross = torch.cat(conds, dim=1)
+        if self.cross_attention_pos_emb:
+            positions = torch.arange(cross.shape[1], device=cross.device)
+            pos_emb = create_sin_embedding(positions.view(1, -1, 1),
+                                           cross.shape[-1])
+            cross = (cross + self.cross_attention_pos_emb_scale
+                     * pos_emb.to(cross.dtype))
+        return cross
 
     def __call__(self, input: torch.Tensor,
                  conditions: tp.Dict[str, ConditionType],

@@ -11,12 +11,11 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from .activations import Activation
 from .conv import StreamableConv1d, StreamableConvTranspose1d
 from .lstm import StreamableLSTM
 
-
-def _act(alpha: float) -> nn.Module:
-    return nn.ELU(alpha=alpha)
+_ActParams = tp.Optional[tp.Mapping[str, tp.Any]]
 
 
 class SEANetResnetBlock(nn.Module):
@@ -24,7 +23,8 @@ class SEANetResnetBlock(nn.Module):
     shortcut."""
 
     def __init__(self, dim: int, kernel_sizes: tp.Sequence[int] = (3, 1),
-                 dilations: tp.Sequence[int] = (1, 1), elu_alpha: float = 1.0,
+                 dilations: tp.Sequence[int] = (1, 1), activation: str = "elu",
+                 activation_params: _ActParams = None,
                  norm: str = "none", causal: bool = False,
                  pad_mode: str = "reflect", compress: int = 2,
                  true_skip: bool = True, device=None, dtype=None):
@@ -38,7 +38,7 @@ class SEANetResnetBlock(nn.Module):
         for i, (kernel_size, dilation) in enumerate(zip(kernel_sizes, dilations)):
             in_chs = dim if i == 0 else hidden
             out_chs = dim if i == n - 1 else hidden
-            block += [_act(elu_alpha),
+            block += [Activation(activation, activation_params),
                       StreamableConv1d(in_chs, out_chs, kernel_size=kernel_size,
                                        dilation=dilation, **common)]
         self.block = nn.Sequential(*block)
@@ -65,7 +65,9 @@ class _SEANet(nn.Module):
     def _resblock(self, dim, j, block_norm, **kw):
         return SEANetResnetBlock(
             dim, kernel_sizes=(kw["residual_kernel_size"], 1),
-            dilations=(kw["dilation_base"] ** j, 1), elu_alpha=kw["elu_alpha"],
+            dilations=(kw["dilation_base"] ** j, 1),
+            activation=kw["activation"],
+            activation_params=kw["activation_params"],
             norm=block_norm, causal=kw["causal"], pad_mode=kw["pad_mode"],
             compress=kw["compress"], true_skip=kw["true_skip"],
             device=kw["device"], dtype=kw["dtype"])
@@ -80,7 +82,8 @@ class SEANetEncoder(_SEANet):
 
     def __init__(self, channels: int = 1, dimension: int = 128,
                  n_filters: int = 32, n_residual_layers: int = 3,
-                 ratios: tp.Sequence[int] = (8, 5, 4, 2), elu_alpha: float = 1.0,
+                 ratios: tp.Sequence[int] = (8, 5, 4, 2), activation: str = "elu",
+                 activation_params: _ActParams = None,
                  norm: str = "none", kernel_size: int = 7,
                  last_kernel_size: int = 7, residual_kernel_size: int = 3,
                  dilation_base: int = 2, causal: bool = False,
@@ -90,7 +93,8 @@ class SEANetEncoder(_SEANet):
         super().__init__(channels, dimension, n_filters, ratios,
                          disable_norm_outer_blocks)
         kw = dict(residual_kernel_size=residual_kernel_size,
-                  dilation_base=dilation_base, elu_alpha=elu_alpha,
+                  dilation_base=dilation_base, activation=activation,
+                  activation_params=activation_params,
                   causal=causal, pad_mode=pad_mode, compress=compress,
                   true_skip=true_skip, device=device, dtype=dtype)
         conv = dict(causal=causal, pad_mode=pad_mode, device=device, dtype=dtype)
@@ -104,7 +108,7 @@ class SEANetEncoder(_SEANet):
             for j in range(n_residual_layers):
                 layers.append(self._resblock(mult * n_filters, j, block_norm,
                                              **kw))
-            layers += [_act(elu_alpha),
+            layers += [Activation(activation, activation_params),
                        StreamableConv1d(mult * n_filters, mult * n_filters * 2,
                                         kernel_size=ratio * 2, stride=ratio,
                                         norm=block_norm, **conv)]
@@ -112,7 +116,7 @@ class SEANetEncoder(_SEANet):
         if lstm:
             layers.append(StreamableLSTM(mult * n_filters, num_layers=lstm,
                                          device=device, dtype=dtype))
-        layers += [_act(elu_alpha),
+        layers += [Activation(activation, activation_params),
                    StreamableConv1d(mult * n_filters, dimension,
                                     last_kernel_size,
                                     norm="none" if dnob == self.n_blocks
@@ -125,7 +129,8 @@ class SEANetDecoder(_SEANet):
 
     def __init__(self, channels: int = 1, dimension: int = 128,
                  n_filters: int = 32, n_residual_layers: int = 3,
-                 ratios: tp.Sequence[int] = (8, 5, 4, 2), elu_alpha: float = 1.0,
+                 ratios: tp.Sequence[int] = (8, 5, 4, 2), activation: str = "elu",
+                 activation_params: _ActParams = None,
                  norm: str = "none", kernel_size: int = 7,
                  last_kernel_size: int = 7, residual_kernel_size: int = 3,
                  dilation_base: int = 2, causal: bool = False,
@@ -136,7 +141,8 @@ class SEANetDecoder(_SEANet):
         super().__init__(channels, dimension, n_filters, ratios,
                          disable_norm_outer_blocks)
         kw = dict(residual_kernel_size=residual_kernel_size,
-                  dilation_base=dilation_base, elu_alpha=elu_alpha,
+                  dilation_base=dilation_base, activation=activation,
+                  activation_params=activation_params,
                   causal=causal, pad_mode=pad_mode, compress=compress,
                   true_skip=true_skip, device=device, dtype=dtype)
         dnob = disable_norm_outer_blocks
@@ -150,7 +156,7 @@ class SEANetDecoder(_SEANet):
                                          device=device, dtype=dtype))
         for i, ratio in enumerate(self.ratios):
             block_norm = "none" if dnob >= self.n_blocks - (i + 1) else norm
-            layers += [_act(elu_alpha),
+            layers += [Activation(activation, activation_params),
                        StreamableConvTranspose1d(
                            mult * n_filters, mult * n_filters // 2,
                            kernel_size=ratio * 2, stride=ratio, norm=block_norm,
@@ -160,7 +166,7 @@ class SEANetDecoder(_SEANet):
                 layers.append(self._resblock(mult * n_filters // 2, j,
                                              block_norm, **kw))
             mult //= 2
-        layers += [_act(elu_alpha),
+        layers += [Activation(activation, activation_params),
                    StreamableConv1d(n_filters, channels, last_kernel_size,
                                     norm="none" if dnob >= 1 else norm,
                                     causal=causal, pad_mode=pad_mode,

@@ -1,6 +1,7 @@
-"""Solver registry and optimizer factory (counterpart of
-`audiocraft_tpu/solvers/builders.py:29-125`)."""
+"""Solver registry, optimizer factory and the loaders of a config's
+datasource (counterpart of `audiocraft_tpu/solvers/builders.py`)."""
 import typing as tp
+from enum import Enum
 
 import torch
 import torch.nn as nn
@@ -166,3 +167,61 @@ def get_optimizer(params: tp.Union[ParamGroups, tp.Iterable[torch.Tensor]],
                  for g in optimizer.param_groups]
     return ClippedOptimizer(optimizer, schedules,
                             float(cfg.get("max_norm", 0.0) or 0.0))
+
+
+class DatasetType(Enum):
+    AUDIO = "audio"
+    MUSIC = "music"
+    SOUND = "sound"
+
+
+def get_audio_datasets(cfg: dict, dataset_type: DatasetType = DatasetType.AUDIO,
+                       device=None) -> tp.Dict[str, "DataLoader"]:
+    """A loader per split of `cfg['datasource']` (train, valid, evaluate,
+    generate; a manifest file or a folder with `data.jsonl`), over the
+    dataset of `dataset_type` at the config's `sample_rate` and `channels`.
+
+    As in the JAX package, a split's dataset takes only `segment_duration`,
+    `min_segment_ratio` (default 0.5), `num_samples` (the split's own, else
+    10000), `shuffle` (the split's, default True for train only) and
+    `return_info` True from `cfg['dataset']`; its other keys (the sampling
+    switches, `shuffle_seed`, the music and sound options) are not passed.
+    The loader takes the split's `batch_size` (default 1) and
+    `num_workers` (default 2) as worker processes, in index order, and pins
+    its batches when `device` is a card."""
+    from ..data.loader import DataLoader
+    from ..data.info_audio_dataset import InfoAudioDataset
+    from ..data.music_dataset import MusicDataset
+    from ..data.sound_dataset import SoundDataset
+    dataset_class = {DatasetType.MUSIC: MusicDataset,
+                     DatasetType.SOUND: SoundDataset,
+                     DatasetType.AUDIO: InfoAudioDataset}[dataset_type]
+    sources = dict(cfg.get("datasource", {}) or {})
+    dataset_cfg = dict(cfg.get("dataset", {}) or {})
+    sample_rate, channels = cfg["sample_rate"], cfg["channels"]
+    assert sources.pop("max_sample_rate", sample_rate) >= sample_rate
+    assert sources.pop("max_channels", channels) >= channels
+    splits = ("train", "valid", "evaluate", "generate")
+    pin = device is not None and torch.device(device).type == "cuda"
+    loaders = {}
+    for split in splits:
+        path = sources.get(split)
+        if path is None:
+            continue
+        own = dataset_cfg.get(split)
+        own = own if isinstance(own, dict) else {}
+        split_cfg = {k: v for k, v in {**dataset_cfg, **own}.items()
+                     if k not in splits}
+        num_samples = own.get("num_samples")
+        dataset = dataset_class.from_meta(
+            path, segment_duration=split_cfg.get("segment_duration"),
+            num_samples=10000 if num_samples is None else num_samples,
+            sample_rate=sample_rate, channels=channels,
+            shuffle=split_cfg.get("shuffle", split == "train"),
+            return_info=True,
+            min_segment_ratio=split_cfg.get("min_segment_ratio", 0.5))
+        loaders[split] = DataLoader(
+            dataset, batch_size=split_cfg.get("batch_size", 1), shuffle=False,
+            num_workers=split_cfg.get("num_workers", 2),
+            seed=cfg.get("seed", 2036), pin_memory=pin)
+    return loaders

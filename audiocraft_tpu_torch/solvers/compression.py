@@ -26,6 +26,7 @@ Adam, the balancer's state, the step and the generator's state.
 """
 import logging
 import typing as tp
+from types import SimpleNamespace
 
 import torch
 
@@ -38,7 +39,8 @@ from ..losses import (SISNR, Balancer, MelSpectrogramL1Loss, MRSTFTLoss,
 from ..metrics import RelativeVolumeMel
 from ..models import builders as model_builders
 from ..utils import jax_weights
-from ..utils.utils import resolve_device
+from ..utils.samples.manager import SampleManager
+from ..utils.utils import resolve_device, to_device
 from . import builders
 from .base import SolverRunMixin
 
@@ -125,17 +127,16 @@ class CompressionSolver(SolverRunMixin):
     information), the balancer of `balancer`, the adversaries of
     `adversarial`; Adam(0.5, 0.9) at `optim.lr`, clipped at
     `optim.max_norm`. Runs on CUDA unless `device` names another. Batches
-    are `(wav, ...)` or `wav` [B, C, T], placed in `self.dataloaders` (the
-    datasets are ROADMAP slice H)."""
+    are `(wav, ...)` or `wav` [B, C, T], placed in `self.dataloaders` or
+    built from `datasource`."""
 
     def __init__(self, cfg: dict, device=None):
         self.cfg = cfg
         self.device = resolve_device(device)
-        if cfg.get("datasource"):
-            raise NotImplementedError("datasets and loaders are not ported "
-                                      "(ROADMAP, slice H); fill "
-                                      "solver.dataloaders instead")
-        self.dataloaders: tp.Dict[str, tp.Iterable] = {}
+        self.dataloaders: tp.Dict[str, tp.Iterable] = (
+            builders.get_audio_datasets(cfg, builders.DatasetType.AUDIO,
+                                        self.device)
+            if cfg.get("datasource") else {})
         self.epoch = 1
         seed = cfg.get("seed", 2036)
         self.sample_rate: int = cfg.get("sample_rate", 32000)
@@ -288,18 +289,38 @@ class CompressionSolver(SolverRunMixin):
             logger.warning("ViSQOL is an external binary; skipping")
         return {k: v / max(count, 1) for k, v in totals.items()}
 
+    @torch.no_grad()
     def generate(self) -> dict:
-        """{} without a 'generate' (or 'evaluate', or 'valid') loader, as in
-        the JAX package; with one it raises: the sample manager that stores
-        the reconstructions is not ported."""
+        """The codec's reconstructions of one batch of the 'generate' loader
+        (else 'evaluate', else 'valid'; {} without one), stored by the
+        sample manager with the batch as their references, each reference
+        named by its sample's id."""
         loader = (self.dataloaders.get("generate")
                   or self.dataloaders.get("evaluate")
                   or self.dataloaders.get("valid"))
         if loader is None:
             return {}
-        raise NotImplementedError("the generate stage needs the sample "
-                                  "manager, which is not ported (ROADMAP, "
-                                  "slice H: utils/samples/)")
+        manager = SampleManager(SimpleNamespace(folder=self._folder,
+                                                cfg=self.cfg),
+                                map_reference_to_sample_id=True)
+        n = 0
+        self.model.eval()
+        try:
+            for batch in loader:
+                wav = batch[0] if isinstance(batch, (tuple, list)) else batch
+                x = to_device(torch.as_tensor(wav, dtype=torch.float32),
+                              self.device)
+                codes, scale = self.model.encode(x, device=self.device)
+                y = self.model.decode(codes, scale,
+                                      device=self.device)[..., :x.shape[-1]]
+                manager.add_samples(y, self.epoch, ground_truth_wavs=x)
+                n += y.shape[0]
+                break  # one batch of reconstructions per generate stage
+        finally:
+            self.model.train()
+        logger.info("Stored %d codec reconstructions under %s", n,
+                    manager.base_folder)
+        return {"generated_samples": n}
 
     @staticmethod
     def model_from_checkpoint(checkpoint_path, device=None):

@@ -130,18 +130,17 @@ class DiffusionSolver(SolverRunMixin):
     `compression_model_checkpoint` (a package path, or the 32 kHz debug
     codec for 'debug' or None); Adam at `optim.lr` (2e-4). Runs on CUDA
     unless `device` names another. Batches are `(wav, ...)` or `wav`,
-    [B, C, T] at `sample_rate`, placed in `self.dataloaders` (the datasets
-    are ROADMAP slice H). `run_step` fills `loss` and `loss_{stage}` per
+    [B, C, T] at `sample_rate`, placed in `self.dataloaders` or built from
+    `datasource`. `run_step` fills `loss` and `loss_{stage}` per
     bucket of steps (`metrics.num_stage`)."""
 
     def __init__(self, cfg: dict, device=None):
         self.cfg = cfg
         self.device = resolve_device(device)
-        if cfg.get("datasource"):
-            raise NotImplementedError("datasets and loaders are not ported "
-                                      "(ROADMAP, slice H); fill "
-                                      "solver.dataloaders instead")
-        self.dataloaders: tp.Dict[str, tp.Iterable] = {}
+        self.dataloaders: tp.Dict[str, tp.Iterable] = (
+            builders.get_audio_datasets(cfg, builders.DatasetType.AUDIO,
+                                        self.device)
+            if cfg.get("datasource") else {})
         self.epoch = 1
         seed = cfg.get("seed", 2036)
         self.sample_rate: int = cfg.get("sample_rate", 24000)

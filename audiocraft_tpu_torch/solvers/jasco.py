@@ -17,21 +17,27 @@ from `compression_model_checkpoint` (ROADMAP §3). A stage other than
 'train' gives the loss without an update, where the JAX solver's 'valid'
 stage trains.
 """
+import logging
 import typing as tp
+from types import SimpleNamespace
 
 import numpy as np
 import torch
 
 from ..models import builders as model_builders
 from ..models.flow_matching import FlowMatchingModel
+from ..models.jasco import JASCO
 from ..modules.conditioners import ConditioningAttributes, SymbolicCondition
 from ..modules.jasco_conditioners import (DrumsConditioner,
                                           JascoConditioningProvider,
                                           bind_drums_codec)
 from ..utils import jax_weights
+from ..utils.samples.manager import SampleManager
 from ..utils.utils import randn, resolve_device
 from . import builders
 from .base import SolverRunMixin
+
+logger = logging.getLogger(__name__)
 
 EVAL_BUCKETS = {0.1: "t_low", 0.5: "t_mid", 0.9: "t_high"}
 SIGMA_MIN = 1e-4
@@ -67,7 +73,7 @@ class JascoSolver(SolverRunMixin):
     the 32 kHz debug codec for 'debug' or None), bound to a drum
     conditioner; AdamW at `optim.lr` (1e-4). Runs on CUDA unless `device`
     names another. Batches are `(wav, infos)` or `wav`, [B, C, T] at the
-    codec's rate, in `self.dataloaders` (the datasets are ROADMAP slice H);
+    codec's rate, in `self.dataloaders` (or built from `datasource`);
     an info's `self_wav` is the drum conditioner's waveform, and its
     `chords` and `melody` (`data.JascoInfo`) the symbolic conditions, null
     (index 0, zeros) where a batch has none, as in the JAX solver."""
@@ -75,11 +81,10 @@ class JascoSolver(SolverRunMixin):
     def __init__(self, cfg: dict, device=None):
         self.cfg = cfg
         self.device = resolve_device(device)
-        if cfg.get("datasource"):
-            raise NotImplementedError("datasets and loaders are not ported "
-                                      "(ROADMAP, slice H); fill "
-                                      "solver.dataloaders instead")
-        self.dataloaders: tp.Dict[str, tp.Iterable] = {}
+        self.dataloaders: tp.Dict[str, tp.Iterable] = (
+            builders.get_audio_datasets(cfg, builders.DatasetType.MUSIC,
+                                        self.device)
+            if cfg.get("datasource") else {})
         self.epoch = 1
         seed = cfg.get("seed", 2036)
         if cfg.get("transformer_lm"):
@@ -173,18 +178,43 @@ class JascoSolver(SolverRunMixin):
         metrics["loss"] = float(np.mean(list(metrics.values())))
         return metrics
 
+    @torch.no_grad()
     def generate(self) -> dict:
-        """{} without a 'generate' (or 'evaluate', or 'valid') loader; with
-        one it raises: the sample manager that stores the samples is not
-        ported."""
+        """Samples for the descriptions of one batch of the 'generate'
+        loader (else 'evaluate', else 'valid'; {} without one), generated
+        by the model over the codec (`models.jasco.JASCO`) and stored by
+        the sample manager with the batch as their references."""
         loader = (self.dataloaders.get("generate")
                   or self.dataloaders.get("evaluate")
                   or self.dataloaders.get("valid"))
         if loader is None:
             return {}
-        raise NotImplementedError("the generate stage needs the sample "
-                                  "manager, which is not ported (ROADMAP, "
-                                  "slice H: utils/samples/)")
+        manager = SampleManager(SimpleNamespace(folder=self._folder,
+                                                cfg=self.cfg))
+        segment = float((self.cfg.get("dataset", {}) or {}).get(
+            "segment_duration") or 10.0)
+        jasco = JASCO("solver-gen", self.compression_model, self.model,
+                      max_duration=segment, device=self.device)
+        n = 0
+        try:
+            for batch in loader:
+                wav, infos = (batch if isinstance(batch, (tuple, list))
+                              else (batch, None))
+                descriptions = ([getattr(i, "description", None) or ""
+                                 for i in infos] if infos is not None
+                                else [""] * len(wav))
+                gen = jasco.generate(descriptions)
+                manager.add_samples(gen, self.epoch,
+                                    conditioning=[{"description": d}
+                                                  for d in descriptions],
+                                    ground_truth_wavs=wav)
+                n += gen.shape[0]
+                break
+        finally:
+            self.model.train()
+        logger.info("Generated %d JASCO samples under %s", n,
+                    manager.base_folder)
+        return {"generated_samples": n}
 
     # ------------------------------------------------------------ checkpoints
     def state_dict(self) -> dict:

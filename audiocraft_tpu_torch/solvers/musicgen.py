@@ -16,7 +16,10 @@ it trains on the validation data; here a stage other than 'train' only
 evaluates.
 """
 import contextlib
+import logging
 import typing as tp
+from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -28,9 +31,13 @@ from ..modules.conditioners import (AttributeDropout,
                                     ClassifierFreeGuidanceDropout,
                                     ConditioningAttributes)
 from ..utils import jax_weights
-from ..utils.utils import resolve_device
+from ..utils.cache import CachedBatchLoader, CachedBatchWriter
+from ..utils.samples.manager import SampleManager
+from ..utils.utils import resolve_device, to_device
 from . import builders
 from .base import SolverRunMixin
+
+logger = logging.getLogger(__name__)
 
 GENERATIVE_METRICS = ("fad", "kld", "text_consistency", "chroma_cosine")
 
@@ -162,9 +169,10 @@ class MusicGenSolver(SolverRunMixin):
     or None; `builders.compression_model_from_checkpoint`), the LM (`get_lm_model`
     when the config has `transformer_lm`, else the debug LM), condition
     dropouts, and the optimizer. Runs on CUDA unless `device` names another.
-    Loaders are iterables of batches placed in `self.dataloaders` (the
-    datasets are ROADMAP slice H); a batch is `(wav, infos)` or a
-    precomputed dict with 'codes' and 'tokenized'. `run()` trains epochs
+    Loaders are built from `datasource` (`builders.get_audio_datasets`) or
+    are iterables of batches placed in `self.dataloaders`; a batch is
+    `(wav, infos)` or a precomputed dict with 'codes' and 'tokenized' (the
+    batch cache of `cache.path` yields these). `run()` trains epochs
     with checkpoints (`solvers/base.py`); the checkpoint holds the LM, the
     optimizer and its schedule, the step, and the states of the solver's
     generators, so a resumed run takes the same steps as one that was not
@@ -174,14 +182,10 @@ class MusicGenSolver(SolverRunMixin):
     def __init__(self, cfg: dict, device=None):
         self.cfg = cfg
         self.device = resolve_device(device)
-        if cfg.get("datasource"):
-            raise NotImplementedError("datasets and loaders are not ported "
-                                      "(ROADMAP, slice H); fill "
-                                      "solver.dataloaders instead")
-        if (cfg.get("cache", {}) or {}).get("path"):
-            raise NotImplementedError("the cached-batch writer and loader are "
-                                      "not ported (ROADMAP, slice H)")
-        self.dataloaders: tp.Dict[str, tp.Iterable] = {}
+        dataset_type = builders.DatasetType(self.DATASET_TYPE)
+        self.dataloaders: tp.Dict[str, tp.Iterable] = (
+            builders.get_audio_datasets(cfg, dataset_type, self.device)
+            if cfg.get("datasource") else {})
         seed = cfg.get("seed", 2036)
 
         self.compression_model = builders.compression_model_from_checkpoint(
@@ -214,6 +218,25 @@ class MusicGenSolver(SolverRunMixin):
         self._rng = torch.Generator().manual_seed(seed)
         self.epoch = 1
 
+        # the batch cache: `cache.write` stores each train batch's codes,
+        # tokenized conditions and padding mask; `cache.path` alone replays
+        # them in place of the train loader, without the codec's encode
+        self.cached_batch_writer: tp.Optional[CachedBatchWriter] = None
+        self.cached_batch_loader: tp.Optional[CachedBatchLoader] = None
+        cache_cfg = cfg.get("cache", {}) or {}
+        if cache_cfg.get("path"):
+            if cache_cfg.get("write"):
+                self.cached_batch_writer = CachedBatchWriter(
+                    Path(cache_cfg["path"]))
+            else:
+                self.cached_batch_loader = CachedBatchLoader(
+                    Path(cache_cfg["path"]),
+                    (cfg.get("dataset", {}) or {}).get("batch_size", 1),
+                    num_workers=cache_cfg.get("num_workers", 4))
+                self.dataloaders["original_train"] = \
+                    self.dataloaders.get("train")
+                self.dataloaders["train"] = self.cached_batch_loader
+
     _debug_lm = staticmethod(model_builders.get_debug_lm_model)
 
     def _next_dropout_seed(self) -> int:
@@ -223,8 +246,8 @@ class MusicGenSolver(SolverRunMixin):
         """(wav [B, C, T], infos) -> (codes [B, K, T'] with padding as the
         special token, tokenized conditions, padding mask [B, T'])."""
         wav, infos = batch
-        codes, scale = self.compression_model.encode(torch.as_tensor(wav),
-                                                     device=self.device)
+        codes, scale = self.compression_model.encode(
+            to_device(torch.as_tensor(wav), self.device), device=self.device)
         assert scale is None, "Scaled compression model not supported with LM."
         attributes = [info.to_condition_attributes() for info in infos]
         if training:
@@ -236,7 +259,8 @@ class MusicGenSolver(SolverRunMixin):
         valid_frames = np.ceil(lengths / (infos[0].sample_rate / frame_rate))
         T = codes.shape[-1]
         padding_mask = (torch.arange(T, device=self.device)[None, :]
-                        < torch.as_tensor(valid_frames, device=self.device)[:, None])
+                        < to_device(torch.from_numpy(valid_frames),
+                                    self.device)[:, None])
         codes = mask_padding(codes, padding_mask, self.model.special_token_id)
         return codes, tokenized, padding_mask
 
@@ -252,12 +276,20 @@ class MusicGenSolver(SolverRunMixin):
                     batch["tokenized"],
                     None if padding is None
                     else torch.as_tensor(padding).to(self.device))
-        return self._prepare_tokens_and_attributes(batch, training)
+        codes, tokenized, padding = self._prepare_tokens_and_attributes(
+            batch, training)
+        if training and self.cached_batch_writer is not None:
+            self.cached_batch_writer.save({"codes": codes,
+                                           "tokenized": tokenized,
+                                           "padding_mask": padding})
+        return codes, tokenized, padding
 
     def run_step(self, idx: int, batch, metrics: dict) -> dict:
         """A train step in the 'train' stage; in another stage (valid) the
         CE without an update."""
         training = self.current_stage == "train"
+        if training and idx == 0 and self.cached_batch_writer is not None:
+            self.cached_batch_writer.start_epoch(self.epoch)
         codes, tokenized, _ = self._batch_codes(batch, training)
         if not training:
             metrics.update(eval_step(self.model, codes, tokenized,
@@ -304,18 +336,82 @@ class MusicGenSolver(SolverRunMixin):
                 f"slice H: metrics/)")
         return {}
 
+    def _gen_model(self):
+        """The generation API over the solver's LM and codec, with the
+        `generate.lm` settings: `gen_duration` (default the segment, at
+        most 10 s), sampling, top-k/p, temperature, CFG coefficient."""
+        from ..models.lm_magnet import MagnetLMModel
+        from ..models.magnet import MAGNeT
+        from ..models.musicgen import MusicGen
+        segment = float((self.cfg.get("dataset", {}) or {}).get(
+            "segment_duration") or 10.0)
+        gen_cfg = dict(((self.cfg.get("generate", {}) or {}).get("lm", {})
+                        or {}))
+        duration = float(gen_cfg.get("gen_duration") or min(segment, 10.0))
+        sampling = {k: v for k, v in gen_cfg.items()
+                    if k in ("use_sampling", "top_k", "top_p", "temperature")}
+        if isinstance(self.model, MagnetLMModel):
+            # MAGNeT's masked decoding (the JAX solver decodes its MAGNeT LM
+            # autoregressively through the MusicGen wrapper; ROADMAP §3)
+            model = MAGNeT("solver-gen", self.compression_model, self.model,
+                           max_duration=segment, device=self.device)
+            model.set_generation_params(duration=duration, **sampling)
+            return model
+        model = MusicGen("solver-gen", self.compression_model, self.model,
+                         max_duration=segment, device=self.device)
+        model.set_generation_params(
+            duration=duration, extend_stride=min(18, segment / 2),
+            cfg_coef=gen_cfg.get("cfg_coef", 3.0), **sampling)
+        return model
+
     def generate(self) -> dict:
-        """{} without a 'generate' (or 'evaluate', or 'valid') loader, as in
-        the JAX package; with one it raises: the sample manager that stores
-        the samples is not ported."""
+        """Samples for the descriptions of the 'generate' loader (else
+        'evaluate', else 'valid'; {} without one), stored by the sample
+        manager under the experiment's folder with the batch as their
+        references: unprompted (`generate.lm.unprompted_samples`, default
+        on) and continuing the batch's first `prompt_duration` seconds
+        (`prompted_samples`), until `generate.lm.num_samples` (default one
+        batch). The first four unprompted samples also go to the
+        writers."""
         loader = (self.dataloaders.get("generate")
                   or self.dataloaders.get("evaluate")
                   or self.dataloaders.get("valid"))
         if loader is None:
             return {}
-        raise NotImplementedError("the generate stage needs the sample "
-                                  "manager, which is not ported (ROADMAP, "
-                                  "slice H: utils/samples/)")
+        manager = SampleManager(SimpleNamespace(folder=self._folder,
+                                                cfg=self.cfg))
+        gen_cfg = ((self.cfg.get("generate", {}) or {}).get("lm", {}) or {})
+        model = self._gen_model()
+        sample_rate = self.compression_model.sample_rate
+        if hasattr(loader, "set_epoch"):
+            loader.set_epoch(self.epoch)
+        done = 0
+        for wav, infos in loader:
+            descriptions = [getattr(i, "description", None) or ""
+                            for i in infos]
+            conditions = [{"description": d} for d in descriptions]
+            if gen_cfg.get("unprompted_samples", True):
+                gen = model.generate(descriptions)
+                manager.add_samples(gen, self.epoch, conditioning=conditions,
+                                    ground_truth_wavs=wav)
+                for i, sample in enumerate(gen[:4]):
+                    self.writers.write_audio(f"generate/sample_{done + i}",
+                                             sample, sample_rate, self.epoch)
+            if gen_cfg.get("prompted_samples", False):
+                prompt_duration = float(gen_cfg.get("prompt_duration")
+                                        or model.duration / 4)
+                prompt = torch.as_tensor(wav)[..., :int(prompt_duration
+                                                        * sample_rate)]
+                gen = model.generate_continuation(prompt, sample_rate,
+                                                  descriptions)
+                manager.add_samples(gen, self.epoch, conditioning=conditions,
+                                    prompt_wavs=prompt)
+            done += len(infos)
+            if done >= int(gen_cfg.get("num_samples", len(infos))):
+                break
+        logger.info("Generated %d samples under %s", done,
+                    manager.base_folder)
+        return {"generated_samples": done}
 
     # ------------------------------------------------------------ checkpoints
     def _rng_states(self) -> dict:

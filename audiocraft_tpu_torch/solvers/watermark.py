@@ -33,8 +33,8 @@ per compiled step (ROADMAP §3).
 
 An effect that changes the length (`speed`) raises: the detector's output
 no longer matches the mask, and the JAX step fails there too. The mp3 and
-aac attacks are not ported (ROADMAP, slice H): a config that gives either
-a weight above 0 raises at construction. `dataset.segment_duration` null
+aac attacks go through the libav binding: where it cannot be built, a
+config that gives either a weight above 0 raises at construction. `dataset.segment_duration` null
 (the composed `solver/watermark/default`) raises `TypeError`, as in the
 JAX package.
 """
@@ -44,6 +44,7 @@ import typing as tp
 import numpy as np
 import torch
 
+from ..data import _native
 from ..losses import SISNR, Balancer, MultiScaleMelSpectrogramLoss
 from ..losses.loudnessloss import TFLoudnessRatio
 from ..losses.wmloss import WMDetectionLoss, WMMbLoss
@@ -86,16 +87,15 @@ class WatermarkSolver(SolverRunMixin):
     seeded torch init of the generator and detector from `seed`, on CUDA
     unless `device` names another. Batches are `(wav, ...)` or `wav`
     [B, 1, T] of `segment_duration` seconds, placed in `self.dataloaders`
-    (the datasets are ROADMAP slice H)."""
+    (or built from `datasource`)."""
 
     def __init__(self, cfg: dict, device=None):
         self.cfg = cfg
         self.device = resolve_device(device)
-        if cfg.get("datasource"):
-            raise NotImplementedError("datasets and loaders are not ported "
-                                      "(ROADMAP, slice H); fill "
-                                      "solver.dataloaders instead")
-        self.dataloaders: tp.Dict[str, tp.Iterable] = {}
+        self.dataloaders: tp.Dict[str, tp.Iterable] = (
+            builders.get_audio_datasets(cfg, builders.DatasetType.AUDIO,
+                                        self.device)
+            if cfg.get("datasource") else {})
         self.epoch = 1
         self.sample_rate: int = cfg.get("sample_rate", 16000)
         if "aug_weights" in cfg and "audio_effects" in cfg:
@@ -111,10 +111,10 @@ class WatermarkSolver(SolverRunMixin):
             self.aug_weights["identity"] = 1.0
         codec = [k for k in audio_effects.CODEC_EFFECTS
                  if k in self.augmentations and self.aug_weights.get(k, 1.0) > 0]
-        if codec:
-            raise NotImplementedError(
+        if codec and not _native.av_available():
+            raise RuntimeError(
                 f"the {' and '.join(codec)} attacks need the libav binding, "
-                f"which is not ported (ROADMAP, slice H): give them weight 0")
+                f"which cannot be built here: give them weight 0")
         seed = cfg.get("seed", 2036)
         wm_cfg = dict(cfg.get("audioseal", {}) or {})
         self.nbits = wm_cfg.pop("nbits", 16)

@@ -11,7 +11,8 @@ on the CPU draws, and a test can replace them. The JAX package draws
 with `random.getrandbits`, inside its traced step, so each draw is made
 once per compiled step and then repeated (ROADMAP §3); the port draws
 anew at every call. The mp3 and aac attacks go through the libav binding
-of the data slice and are not ported (ROADMAP, slice H): they raise.
+(`data/_native.py`) and raise where it cannot be built; the JAX package
+falls back to the identity there.
 """
 import typing as tp
 from functools import partial
@@ -200,15 +201,19 @@ class AudioEffects:
     @staticmethod
     def mp3_compression(tensor, sample_rate: int = 16000,
                         bitrate: str = "128k", mask=None, generator=None):
-        raise NotImplementedError("the mp3 attack needs the libav binding, "
-                                  "which is not ported (ROADMAP, slice H)")
+        """An mp3 round trip through the libav binding, with a
+        straight-through gradient; raises where libav cannot be built."""
+        from ..data.audio_utils import get_mp3
+        return audio_effect_return(get_mp3(tensor, sample_rate, bitrate), mask)
 
     @staticmethod
     def aac_compression(tensor, sample_rate: int = 16000,
                         bitrate: str = "128k", lowpass_freq=None, mask=None,
                         generator=None):
-        raise NotImplementedError("the aac attack needs the libav binding, "
-                                  "which is not ported (ROADMAP, slice H)")
+        """An aac round trip, as `mp3_compression`."""
+        from ..data.audio_utils import get_aac
+        return audio_effect_return(
+            get_aac(tensor, sample_rate, bitrate, lowpass_freq), mask)
 
 
 def sample(keys: tp.Sequence[str], k: int,

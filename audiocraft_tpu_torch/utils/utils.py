@@ -122,3 +122,47 @@ def sample_tokens(logits: torch.Tensor, *, use_sampling: bool = True,
             return sample_top_k(probs, top_k, generator)
         return multinomial(probs, generator)
     return torch.argmax(logits, dim=-1, keepdim=True)
+
+
+_WARNED: tp.Set[str] = set()
+
+
+def warn_once(logger, msg: str) -> None:
+    """Log `msg` as a warning the first time only."""
+    if msg not in _WARNED:
+        _WARNED.add(msg)
+        logger.warning(msg)
+
+
+def construct_frame_chords(min_timestamp: int,
+                           chord_changes: tp.List[tp.Tuple[float, str]],
+                           mapping_dict: tp.Dict[str, int], prev_chord: str,
+                           frame_rate: float,
+                           segment_duration: float) -> tp.List[int]:
+    """The chord index of each frame from `min_timestamp` (a frame number)
+    for `segment_duration` seconds: the chord in force at the frame's time,
+    from `prev_chord` on through the sorted (time, chord) changes; no chord
+    ('' or None) is 'N'."""
+    changes = list(chord_changes)
+    current = prev_chord
+    out = []
+    for frame in range(min_timestamp,
+                       int(min_timestamp + segment_duration * frame_rate)):
+        t = frame / frame_rate
+        while changes and t >= changes[0][0]:
+            current = changes.pop(0)[1]
+        current = "N" if current in (None, "") else current
+        out.append(mapping_dict[current])
+    return out
+
+
+def to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """`t` on `device`; a host tensor goes to a card through page-locked
+    memory without blocking the host (the copy is ordered on the current
+    stream before the kernels that read it)."""
+    device = torch.device(device)
+    if device.type != "cuda" or t.device == device:
+        return t.to(device)
+    if t.device.type == "cpu" and not t.is_pinned():
+        t = t.pin_memory()
+    return t.to(device, non_blocking=True)

@@ -198,7 +198,25 @@ Phases, each printing one JSON line:
            saved as a dac `weights.pth` and read through
            `DAC.get_pretrained`: encode and decode 2 x 10 s (ms, peak
            memory), then codes (but near-ties of the cosine lookup, recorded)
-           and decode card against CPU on 2 x 1 s.
+           and decode card against CPU on 2 x 1 s;
+  data_train  the data plane and the training entry point: 64 stereo 16-bit
+           WAVs of 60 s at 44.1 kHz (0.68 GB, synthesised from a seed, with
+           JSON sidecars) under a temporary directory, their manifest from
+           `python -m audiocraft_tpu_torch.data.audio_dataset`; the loader
+           alone at 0 and 8 worker processes (segments/s, audio-s/s, the
+           first batch bitwise equal at both); then `train.main` with
+           `solver=musicgen/musicgen_base_32khz` over that datasource (16 x
+           30 s resampled to 32 kHz mono by the workers, the loaders
+           phase's EnCodec package, bf16 autocast, 6 updates, a
+           checkpoint): step s and the share spent waiting in
+           `next(loader)`, K2's launches, and its generate stage (2 greedy
+           samples of 10 s stored by the sample manager, K1's launches);
+           the checkpoint exported as a package and read back by
+           `loaders.load_lm_model` (greedy tokens equal the in-memory
+           model's); the same step on one batch held on the card; peak
+           memory; then the loader's worker processes and fork server
+           are stopped, and the script checks that no process it started
+           is left.
 Then the `{"kernels": [...]}` summary, and last `{"ok": true, "device": ...}`.
 Any failed check raises, so the script exits non-zero without the last line.
 It needs no network and imports nothing of JAX.
@@ -206,6 +224,7 @@ It needs no network and imports nothing of JAX.
 import gc
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -231,6 +250,23 @@ INT4_STEPS = 100            # decode-loop steps of the int4 path
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def _children() -> list:
+    """(pid, command line) of every live process whose parent is this one."""
+    found = []
+    for entry in Path("/proc").iterdir():
+        if not entry.name.isdigit():
+            continue
+        try:
+            stat = (entry / "stat").read_text()
+            fields = stat[stat.rindex(")") + 2:].split()
+            if int(fields[1]) == os.getpid() and fields[0] != "Z":
+                cmd = (entry / "cmdline").read_bytes().replace(b"\0", b" ")
+                found.append((int(entry.name), cmd.decode(errors="replace")))
+        except (OSError, ValueError):
+            pass  # ended while being read
+    return found
 
 
 def phase_device(torch):
@@ -3575,6 +3611,322 @@ def phase_dac(torch, card):
     _release(torch)
 
 
+DATA_FILES = 64             # stereo 16-bit WAVs at 44.1 kHz, 60 s each
+DATA_FILE_SECONDS = 60
+DATA_RATE = 44100
+DATA_TRAIN_BATCH = 16       # cut from musicgen_base_32khz's 192, as train
+DATA_TRAIN_STEPS = 6
+DATA_WORKERS = 8
+DATA_LOADER_BATCHES = (1, 16)   # batches timed after the first, at 0 and
+                                # at DATA_WORKERS workers
+DATA_DEVICE_STEPS = 3       # steps on one batch held on the card
+DATA_GEN_SECONDS = 10       # of greedy audio per generated sample
+DATA_EXPORT_SECONDS = 2     # of greedy tokens from the exported package
+DATA_GENRES = ("rock", "jazz", "electronic", "ambient")
+
+
+def _write_dataset(torch, root: Path) -> float:
+    """DATA_FILES stereo 16-bit WAVs at 44.1 kHz, synthesised on the card
+    from seed 11 (harmonics of a seeded pitch per channel, a slow tremolo
+    and a little noise), each with the JSON sidecar of a music track.
+    Returns the bytes written."""
+    from audiocraft_tpu_torch.data.audio import _write_wav
+    g = torch.Generator("cuda").manual_seed(11)
+    t = torch.arange(DATA_FILE_SECONDS * DATA_RATE, device="cuda") / DATA_RATE
+    written = 0
+    for i in range(DATA_FILES):
+        f0 = 110.0 * 2 ** (torch.randint(0, 36, (2, 1), device="cuda",
+                                         generator=g) / 12)
+        wav = torch.zeros(2, t.numel(), device="cuda")
+        for h in range(1, 5):
+            amp = torch.rand(2, 1, device="cuda", generator=g) / h
+            wav += amp * torch.sin(2 * torch.pi * h * f0 * t)
+        wav *= 0.75 + 0.25 * torch.sin(2 * torch.pi * 0.5 * t)
+        wav += 0.01 * torch.randn(wav.shape, device="cuda", generator=g)
+        wav = 0.5 * wav / wav.abs().amax()
+        path = root / f"track_{i:03d}.wav"
+        _write_wav(path, wav.cpu().numpy(), DATA_RATE)
+        written += path.stat().st_size
+        genre = DATA_GENRES[i % len(DATA_GENRES)]
+        (root / f"track_{i:03d}.json").write_text(json.dumps({
+            "title": f"Track {i}", "artist": "Seeded Synth", "key": "C major",
+            "bpm": 90 + i, "genre": genre, "moods": ["calm"],
+            "keywords": f"{genre}, synth", "name": f"track_{i:03d}",
+            "instrument": "Mix",
+            "description": f"{TEXTS[i % 2]}, {genre} take {i}"}))
+    return written
+
+
+def _time_loader(torch, dataset, workers: int, batches: int):
+    """(first batch, seconds to it, seconds for the next `batches`) of a
+    DataLoader over `dataset`: the first includes starting the workers."""
+    from audiocraft_tpu_torch.data.loader import DataLoader
+    loader = DataLoader(dataset, batch_size=DATA_TRAIN_BATCH,
+                        num_workers=workers, pin_memory=True, timeout=120)
+    loader.set_epoch(1)
+    t0 = time.perf_counter()
+    it = iter(loader)
+    first = next(it)
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(batches):
+        next(it)
+    seconds = time.perf_counter() - t0
+    del it
+    return first, first_s, seconds
+
+
+def phase_data_train(torch, card, codec_dir):
+    """The data plane and the training entry point at MusicGen-small's
+    width: a seeded dataset of 44.1 kHz stereo WAVs with JSON sidecars
+    under a temporary directory and its manifest from the port's manifest
+    CLI; the loader alone at 0 and DATA_WORKERS workers (its first batch
+    bitwise equal at both); then `train.main` with
+    `solver=musicgen/musicgen_base_32khz` over that datasource (16 x 30 s
+    resampled to 32 kHz mono by the loader's workers, the full-width codec
+    package of the loaders phase, bf16 autocast, 6 updates, a checkpoint),
+    whose generate stage stores 2 greedy samples of 10 s through the
+    sample manager; then the checkpoint exported as a package and loaded
+    back through `loaders.load_lm_model` (its greedy tokens equal the
+    in-memory model's), and the same train step on one batch held on the
+    card. Returns K1's launches (the generate stage and the export check)."""
+    import tempfile
+    from audiocraft_tpu_torch import train
+    from audiocraft_tpu_torch.data.loader import DataLoader
+    from audiocraft_tpu_torch.data.loader import shutdown as shutdown_loader
+    from audiocraft_tpu_torch.data.music_dataset import MusicDataset
+    from audiocraft_tpu_torch.models import MusicGen, loaders
+    from audiocraft_tpu_torch.ops.decode_attention import decode_attention
+    from audiocraft_tpu_torch.ops.flash_causal_attention import \
+        flash_causal_attention as fca
+    from audiocraft_tpu_torch.solvers.musicgen import MusicGenSolver
+    from audiocraft_tpu_torch.utils.export import export_lm
+    phase_t0 = time.perf_counter()
+    resident = _release(torch)
+    tmp = Path(tempfile.mkdtemp(prefix="smoke_data_train_"))
+    try:
+        data = tmp / "data"
+        data.mkdir()
+        t0 = time.perf_counter()
+        data_bytes = _write_dataset(torch, data)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, "-m",
+                        "audiocraft_tpu_torch.data.audio_dataset", str(data),
+                        str(data / "data.jsonl")], check=True,
+                       cwd=Path(__file__).resolve().parent, timeout=300)
+        manifest_s = time.perf_counter() - t0
+        n_lines = len((data / "data.jsonl").read_text().splitlines())
+        if n_lines != DATA_FILES:
+            raise AssertionError(f"data_train: manifest of {n_lines} files")
+
+        # the loader alone, as the solver builds it
+        dataset = MusicDataset.from_meta(
+            data, segment_duration=TRAIN_SECONDS, num_samples=10000,
+            sample_rate=32000, channels=1, shuffle=True, return_info=True,
+            min_segment_ratio=0.8)
+        rates = {}
+        firsts = {}
+        for workers, batches in zip((0, DATA_WORKERS), DATA_LOADER_BATCHES):
+            firsts[workers], first_s, seconds = _time_loader(
+                torch, dataset, workers, batches)
+            segments = batches * DATA_TRAIN_BATCH
+            rates[workers] = {"first_batch_s": first_s, "batches": batches,
+                              "seconds": seconds,
+                              "segments_per_s": segments / seconds,
+                              "audio_s_per_s":
+                                  segments * TRAIN_SECONDS / seconds}
+        wav0, infos0 = firsts[0]
+        wav8, infos8 = firsts[DATA_WORKERS]
+        if tuple(wav0.shape) != (DATA_TRAIN_BATCH, 1, TRAIN_SECONDS * 32000):
+            raise AssertionError(f"data_train: batch {tuple(wav0.shape)}")
+        equal = bool(torch.equal(wav0, wav8)) and all(
+            (a.meta.path, a.seek_time, a.description)
+            == (b.meta.path, b.seek_time, b.description)
+            for a, b in zip(infos0, infos8))
+        if not equal:
+            raise AssertionError("data_train: the first batch differs "
+                                 "between 0 and 8 workers")
+        if not bool(torch.isfinite(wav0).all()) or float(wav0.abs().max()) == 0:
+            raise AssertionError("data_train: the batch is not audio")
+
+        # train.main, instrumented from outside: the solver it builds, each
+        # run_step's host interval, and the wait in next(loader)
+        marks = {"enter": [], "exit": [], "wait": []}
+        held = {}
+        original_iter = DataLoader.__iter__
+        original_step = MusicGenSolver.run_step
+        original_get_solver = train.get_solver
+
+        def timed_iter(self):
+            it = original_iter(self)
+            while True:
+                t = time.perf_counter()
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    return
+                if self.batch_size == DATA_TRAIN_BATCH:
+                    marks["wait"].append(time.perf_counter() - t)
+                    held.setdefault("batch", batch)
+                yield batch
+
+        def timed_step(self, idx, batch, metrics):
+            marks["enter"].append(time.perf_counter())
+            out = original_step(self, idx, batch, metrics)
+            marks["exit"].append(time.perf_counter())
+            return out
+
+        def keep_solver(cfg):
+            solver = original_get_solver(cfg)
+            held["solver"] = solver
+            generate = solver.generate
+
+            def counted_generate():
+                held["k2_train"] = (fca.launches, fca.backward_launches)
+                decode_attention.launches = 0
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = generate()
+                torch.cuda.synchronize()
+                held["generate_s"] = time.perf_counter() - t
+                held["k1_generate"] = decode_attention.launches
+                return out
+
+            solver.generate = counted_generate
+            return solver
+
+        dora = tmp / "dora"
+        os.environ["AUDIOCRAFT_DORA_DIR"] = str(dora)
+        argv = ["solver=musicgen/musicgen_base_32khz", "device=cuda",
+                f"datasource.train={data}", f"datasource.generate={data}",
+                f"compression_model_checkpoint={codec_dir}",
+                f"dataset.batch_size={DATA_TRAIN_BATCH}",
+                f"dataset.segment_duration={TRAIN_SECONDS}",
+                f"dataset.num_workers={DATA_WORKERS}",
+                "dataset.generate.batch_size=2",
+                "dataset.generate.num_samples=2",
+                "transformer_lm.dtype=bfloat16", "optim.epochs=1",
+                f"optim.updates_per_epoch={DATA_TRAIN_STEPS}",
+                "generate.lm.use_sampling=false",
+                f"generate.lm.gen_duration={DATA_GEN_SECONDS}",
+                "generate.lm.num_samples=2", "logging.level=WARNING"]
+        torch.cuda.reset_peak_memory_stats()
+        fca.launches = fca.backward_launches = 0
+        DataLoader.__iter__ = timed_iter
+        MusicGenSolver.run_step = timed_step
+        train.get_solver = keep_solver
+        threads = torch.get_num_threads()
+        try:
+            t0 = time.perf_counter()
+            history = train.main(argv)
+            main_s = time.perf_counter() - t0
+        finally:
+            DataLoader.__iter__ = original_iter
+            MusicGenSolver.run_step = original_step
+            train.get_solver = original_get_solver
+            torch.set_num_threads(threads)
+        peak = torch.cuda.max_memory_allocated()
+        solver = held["solver"]
+        lm = solver.model
+        ces = [history[0]["train"]["ce"]]
+        if len(marks["enter"]) != DATA_TRAIN_STEPS or not all(
+                math.isfinite(v) for v in history[0]["train"].values()):
+            raise AssertionError(f"data_train: {len(marks['enter'])} steps, "
+                                 f"metrics {history[0]['train']}")
+        expected_k2 = lm.num_layers * DATA_TRAIN_STEPS
+        if held["k2_train"] != (expected_k2, expected_k2):
+            raise AssertionError(f"data_train: K2 launched {held['k2_train']}"
+                                 f", expected {expected_k2} each")
+        gen_frames = DATA_GEN_SECONDS * TOKENS_PER_SECOND
+        if held["k1_generate"] != _k1_launches(lm, gen_frames):
+            raise AssertionError(f"data_train: K1 launched "
+                                 f"{held['k1_generate']} times in the "
+                                 f"generate stage, expected "
+                                 f"{_k1_launches(lm, gen_frames)}")
+        folder = Path(solver.cfg["folder"])
+        samples = sorted((folder / "samples" / "1").glob("*.wav"))
+        if len(samples) != 2:
+            raise AssertionError(f"data_train: {len(samples)} samples stored")
+        from audiocraft_tpu_torch.data.audio import audio_read
+        sample, sample_sr = audio_read(samples[0])
+        if sample.shape != (1, DATA_GEN_SECONDS * 32000) or sample_sr != 32000:
+            raise AssertionError(f"data_train: sample {sample.shape} at "
+                                 f"{sample_sr} Hz")
+        if not (folder / "checkpoint.th").exists():
+            raise AssertionError("data_train: no checkpoint")
+        intervals = [b - a for a, b in zip(marks["enter"], marks["enter"][1:])]
+        waits = marks["wait"][1:len(intervals) + 1]
+        steady = sorted(intervals[1:])[len(intervals[1:]) // 2]
+        wait_share = sum(waits[1:]) / sum(intervals[1:])
+
+        # export, load back, greedy tokens against the in-memory model
+        t0 = time.perf_counter()
+        package = export_lm(folder / "checkpoint.th",
+                            tmp / "export" / "state_dict.bin")
+        export_s = time.perf_counter() - t0
+        (loaded, _), load_s = _timed(torch, lambda: loaders.load_lm_model(
+            str(package.parent), device="cuda"))
+        decode_attention.launches = 0
+        tokens = {}
+        for name, model in (("in_memory", lm), ("exported", loaded)):
+            mg = MusicGen(f"data_train {name}", solver.compression_model,
+                          model, device="cuda")
+            mg.set_generation_params(duration=DATA_EXPORT_SECONDS,
+                                     use_sampling=False)
+            _, tokens[name] = mg.generate(TEXTS[:1], return_tokens=True)
+        k1_export = decode_attention.launches
+        if k1_export != 2 * _k1_launches(lm, DATA_EXPORT_SECONDS
+                                         * TOKENS_PER_SECOND):
+            raise AssertionError(f"data_train: K1 launched {k1_export} times "
+                                 f"in the export check")
+        if not torch.equal(tokens["in_memory"], tokens["exported"]):
+            raise AssertionError("data_train: the exported package's greedy "
+                                 "tokens differ from the in-memory model's")
+        del loaded
+
+        # the same step on one batch held on the card
+        wav, infos = held["batch"]
+        on_card = (wav.to("cuda"), infos)
+        device_s = []
+        for idx in range(DATA_DEVICE_STEPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            solver.run_step(idx, on_card, {})
+            torch.cuda.synchronize()
+            device_s.append(time.perf_counter() - t)
+        held_steady = sorted(device_s[1:])[len(device_s[1:]) // 2]
+        emit("data_train", card=card, cpu_count=os.cpu_count(),
+             data={"files": DATA_FILES, "seconds_each": DATA_FILE_SECONDS,
+                   "rate": DATA_RATE, "channels": 2, "bits": 16,
+                   "bytes": data_bytes, "write_s": write_s,
+                   "manifest_cli_s": manifest_s},
+             config="solver/musicgen/musicgen_base_32khz (MusicGen-small LM: "
+                    "T5-base, 24 layers, d 1024; seeded random weights, f32 "
+                    "params, bf16 autocast; the 32 kHz EnCodec package of "
+                    "the loaders phase)",
+             argv=argv, loader=rates, first_batch_equal_0_vs_8=equal,
+             train_steps=DATA_TRAIN_STEPS, train_ce=ces,
+             step_intervals_s=intervals, loader_wait_s=marks["wait"],
+             steady_step_s_with_loader=steady, loader_wait_share=wait_share,
+             steady_step_s_batch_on_card=held_steady,
+             batch_on_card_step_s=device_s,
+             main_s=main_s, generate_stage_s=held["generate_s"],
+             k2_forward_launches=held["k2_train"][0],
+             k2_backward_launches=held["k2_train"][1],
+             k1_generate_launches=held["k1_generate"],
+             k1_export_check_launches=k1_export, samples=len(samples),
+             export_s=export_s, exported_load_s=load_s,
+             exported_tokens_equal=True,
+             max_memory_allocated=peak, resident_before=resident,
+             seconds=time.perf_counter() - phase_t0)
+        return held["k1_generate"] + k1_export
+    finally:
+        shutdown_loader()
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.environ.pop("AUDIOCRAFT_DORA_DIR", None)
+
+
 def main() -> int:
     root = Path(__file__).resolve().parent
     if not (root / "audiocraft_tpu_torch" / "csrc").is_dir():
@@ -3621,9 +3973,13 @@ def main() -> int:
     phase_watermark_train(torch, card)
     clap_launches = phase_clap(torch, card)
     phase_dac(torch, card)
+    data_launches = phase_data_train(torch, card, codec_dir)
     shutil.rmtree(codec_dir.parent)
+    left = _children()
+    if left:
+        raise AssertionError(f"processes left running: {left}")
     launches += (melody_launches + audiogen_launches + style_launches
-                 + loaders_launches + clap_launches)
+                 + loaders_launches + clap_launches + data_launches)
     timings += melody_timings + audiogen_timings + style_timings
 
     main_t = timings[0]

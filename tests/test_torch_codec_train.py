@@ -393,7 +393,7 @@ def test_two_compression_steps_match_jax(monkeypatch, jax_run):
     assert solver.step == 2
 
 
-def test_valid_step_and_evaluate_match_jax(jax_run):
+def test_valid_step_and_evaluate_match_jax(jax_run, tmp_path):
     final = jax_run["states"][-1]
     solver = get_solver(CFG, device="cpu")
     solver.load_jax_params(_tree(final))
@@ -421,8 +421,10 @@ def test_valid_step_and_evaluate_match_jax(jax_run):
                                      "rvm_2", "rvm_3"}
     for key, value in want.items():
         np.testing.assert_allclose(got[key], value, rtol=1e-3, err_msg=key)
-    with pytest.raises(NotImplementedError, match="slice H"):
-        solver.generate()
+    # the generate stage stores one batch of reconstructions
+    solver.cfg["folder"] = str(tmp_path)
+    assert solver.generate() == {"generated_samples": 2}
+    assert len(list((tmp_path / "samples" / "1").glob("*.wav"))) == 2
 
 
 def test_compression_solver_from_the_registry():

@@ -34,7 +34,8 @@ f32 within 1e-5 of its peak, and in f64 against the sequential filter
 within 1e-10; the TF loudness ratio and its gradient rtol 1e-4; two
 `WatermarkSolver` steps, metrics rtol 1e-4 and gradients within 1e-3 of
 their L2 norm; the CLAP towers atol 1e-5; DAC's codes equal and its decode
-as MBD's."""
+as MBD's; a `MusicGenSolver` step from a datasource, its batch equal and
+its CE rtol 1e-5 and gradients atol 1e-5 / rtol 1e-4."""
 import pytest
 import torch
 
@@ -1363,3 +1364,63 @@ def test_dac_on_card_matches_cpu():
     got_codes, _ = card.encode(x)
     assert torch.equal(got_codes.cpu(), codes)
     _close(card.decode(codes), cpu.decode(codes))
+
+
+@pytest.mark.gpu
+def test_musicgen_solver_step_from_a_datasource_on_card_matches_cpu(
+        tmp_path):
+    """`MusicGenSolver` fed from a manifest of 44.1 kHz stereo WAVs (its
+    loader resamples to 32 kHz mono; pinned batches copied without
+    blocking): the card's first batch equals the CPU's, and one train step
+    on it gives the CPU's CE (rtol 1e-5) and gradients (atol 1e-5, rtol
+    1e-4), f32, TF32 off."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    import json
+    import numpy as np
+    from audiocraft_tpu_torch.data import audio, audio_dataset
+    from audiocraft_tpu_torch.solvers import get_solver
+    rs = np.random.RandomState(0)
+    for i in range(3):
+        t = np.arange(88200) / 44100
+        wav = 0.3 * np.sin(2 * np.pi * (150 + 40 * i) * t) \
+            + 0.05 * rs.randn(2, t.size)
+        audio.audio_write(tmp_path / f"t{i}", wav.astype(np.float32), 44100,
+                          normalize=False, strategy="clip")
+        (tmp_path / f"t{i}.json").write_text(json.dumps({
+            "title": "T", "artist": "A", "key": "C", "bpm": 100,
+            "genre": "rock", "moods": ["calm"], "name": "n",
+            "instrument": "mix", "description": f"calm take {i}"}))
+    audio_dataset.save_audio_meta(tmp_path / "data.jsonl",
+                                  audio_dataset.find_audio_files(tmp_path))
+    cfg = {"solver": "musicgen", "seed": 0, "sample_rate": 32000,
+           "channels": 1, "datasource": {"train": str(tmp_path)},
+           "dataset": {"batch_size": 2, "segment_duration": 1.0,
+                       "num_workers": 2, "train": {"num_samples": 4}}}
+    matmul, cudnn = (torch.backends.cuda.matmul.allow_tf32,
+                     torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        cpu = get_solver(dict(cfg), device="cpu")
+        card = get_solver(dict(cfg), device="cuda")
+        card.model.load_state_dict(cpu.model.state_dict())
+        card.compression_model.load_state_dict(
+            cpu.compression_model.state_dict())
+        batches = []
+        for solver in (cpu, card):
+            solver.dataloaders["train"].set_epoch(1)
+            batches.append(next(iter(solver.dataloaders["train"])))
+        assert batches[1][0].is_pinned()
+        assert torch.equal(batches[0][0], batches[1][0])
+        metrics = [s.run_step(0, b, {}) for s, b in zip((cpu, card), batches)]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul
+        torch.backends.cudnn.allow_tf32 = cudnn
+    torch.testing.assert_close(metrics[1]["ce"].cpu(), metrics[0]["ce"],
+                               rtol=1e-5, atol=0)
+    grads = dict(cpu.model.named_parameters())
+    for name, p in card.model.named_parameters():
+        if grads[name].grad is not None:
+            torch.testing.assert_close(p.grad.cpu(), grads[name].grad,
+                                       atol=1e-5, rtol=1e-4)

@@ -385,8 +385,10 @@ def test_chroma_conditioner_with_separator_matches_jax(tmp_path, monkeypatch):
 
 
 def test_chroma_conditioner_refuses_unported_options():
-    with pytest.raises(NotImplementedError, match="slice H"):
-        ChromaStemConditioner(16, cache_path="/nowhere", device="cpu")
+    # the embedding cache is ported (`test_torch_data_train.py` holds it
+    # against the JAX package); eval_wavs and a wrong dim still raise
+    with pytest.raises(NotImplementedError, match="eval_wavs"):
+        ChromaStemConditioner(16, eval_wavs="/nowhere", device="cpu")
     with pytest.raises(ValueError):
         ChromaStemConditioner(16, dim=13, device="cpu")
 

@@ -246,9 +246,12 @@ def test_unported_stages_raise_naming_slice_h(tmp_path):
     solver = _solver(_cfg(tmp_path, evaluate={"metrics": {"fad": True}}), [])
     with pytest.raises(NotImplementedError, match="slice H"):
         solver.evaluate_audio_generation()
+    # the generate stage stores its samples through the sample manager
     solver.dataloaders["generate"] = [_batch(0)]
-    with pytest.raises(NotImplementedError, match="slice H"):
-        solver.run_one_stage("generate")
+    solver.cfg["generate"] = {"lm": {"gen_duration": 0.2,
+                                     "use_sampling": False}}
+    assert solver.run_one_stage("generate") == {"generated_samples": 2}
+    assert len(list((tmp_path / "samples" / "1").glob("*.json"))) == 2
 
 
 # --------------------------------------------------------- host-side tools

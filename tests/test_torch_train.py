@@ -416,16 +416,17 @@ def test_lm_options_config_trains(option):
 
 
 @pytest.mark.parametrize("change, match", [  # ids as before kv_repeat left
-    # a dataset source: the datasets are still to port (slice H); this
-    # case named the AudioSeal solver until it was ported
-    pytest.param({"datasource": "train.jsonl"}, "not ported",
-                 id="change0-not ported")])
+    # a dataset source is read now (the datasets are ported): a manifest
+    # that does not exist raises; this case named the AudioSeal solver
+    # until it was ported
+    pytest.param({"datasource": {"train": "train.jsonl"}},
+                 "train.jsonl", id="change0-not ported")])
 def test_unported_options_raise(change, match):
     cfg = config.load_config("solver/musicgen/debug")
     for key, value in change.items():
-        if isinstance(value, dict):
+        if isinstance(value, dict) and key in cfg:
             cfg[key].update(value)
         else:
             cfg[key] = value
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(FileNotFoundError, match=match):
         solver_builders.get_solver(cfg, device="cpu")
