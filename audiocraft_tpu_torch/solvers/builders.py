@@ -1,5 +1,6 @@
 """Solver registry, optimizer factory and the loaders of a config's
 datasource (counterpart of `audiocraft_tpu/solvers/builders.py`)."""
+import logging
 import typing as tp
 from enum import Enum
 
@@ -8,6 +9,8 @@ import torch.nn as nn
 
 from ..optim.dadam import DAdaptAdam
 from ..optim.lr_schedulers import get_lr_scheduler
+
+logger = logging.getLogger(__name__)
 
 ParamGroups = tp.List[tp.Dict[str, tp.Any]]
 
@@ -225,3 +228,65 @@ def get_audio_datasets(cfg: dict, dataset_type: DatasetType = DatasetType.AUDIO,
             num_workers=split_cfg.get("num_workers", 2),
             seed=cfg.get("seed", 2036), pin_memory=pin)
     return loaders
+
+
+# ------------------------------------------------- evaluation metric builders
+
+def get_fad(cfg: dict, device=None):
+    """The FAD metric of `metrics.fad` on `device`. Always constructible:
+    without a VGGish checkpoint it takes the log-mel fallback (its
+    `embed_kind` names the key to log under). `model: tf` names upstream's
+    TF subprocess, which is not used: it warns and takes VGGish from
+    `vggish.model_path`."""
+    from .. import metrics
+    model = cfg.get("model", "vggish")
+    if model == "tf":
+        logger.warning(
+            "metrics.fad.model=tf: the TF FAD subprocess is replaced by "
+            "VGGish; set metrics.fad.vggish.model_path to a torch-layout "
+            "vggish.pth")
+        model = "vggish"
+    sub = dict(cfg.get(model) or {})
+    return metrics.FrechetAudioDistanceMetric(
+        model_path=sub.get("model_path"), device=device)
+
+
+def get_kldiv(cfg: dict, device=None):
+    """The PaSST KLD metric of `metrics.kld` on `device`, or None when no
+    PaSST checkpoint is found ($PASST_CHECKPOINT or the cache dir, as in
+    the JAX package: the config names none)."""
+    from .. import metrics
+    model = cfg.get("model", "passt")
+    assert model == "passt", f"unsupported kld model: {model}"
+    sub = dict(cfg.get(model) or {})
+    metric = metrics.PasstKLDivergenceMetric(
+        pretrained_length=sub.get("pretrained_length"), device=device)
+    return metric if metric.classifier_fn is not None else None
+
+
+def get_text_consistency(cfg: dict, device=None):
+    """The CLAP text-consistency metric of `metrics.text_consistency` on
+    `device`, or None without a CLAP checkpoint and its tokenizer files."""
+    from .. import metrics
+    model = cfg.get("model", "clap")
+    assert model == "clap", f"unsupported text consistency model: {model}"
+    sub = dict(cfg.get(model) or {})
+    metric = metrics.CLAPTextConsistencyMetric(
+        model_path=sub.get("model_path"),
+        model_arch=sub.get("model_arch", "HTSAT-base"),
+        enable_fusion=bool(sub.get("enable_fusion", False)), device=device)
+    return metric if metric.embed_audio_fn is not None else None
+
+
+def get_chroma_cosine_similarity(cfg: dict, device=None):
+    """The chroma cosine similarity of `metrics.chroma_cosine` on
+    `device`."""
+    from .. import metrics
+    assert cfg.get("model", "chroma_base") == "chroma_base", \
+        "Only 'chroma_base' supported for chroma cosine similarity"
+    sub = dict(cfg.get("chroma_base") or {})
+    return metrics.ChromaCosineSimilarityMetric(
+        sample_rate=int(sub.get("sample_rate") or 32000),
+        n_chroma=int(sub.get("n_chroma", 12)),
+        radix2_exp=int(sub.get("radix2_exp", 12)),
+        argmax=bool(sub.get("argmax", True)), device=device)

@@ -39,8 +39,6 @@ from .base import SolverRunMixin
 
 logger = logging.getLogger(__name__)
 
-GENERATIVE_METRICS = ("fad", "kld", "text_consistency", "chroma_cosine")
-
 
 def compute_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
                           mask: torch.Tensor
@@ -324,17 +322,104 @@ class MusicGenSolver(SolverRunMixin):
         return metrics
 
     def evaluate_audio_generation(self) -> dict:
-        """The generative metrics (FAD, KLD, text consistency, chroma
-        cosine) are not ported: {} unless `evaluate.metrics` asks for one,
-        which raises."""
-        asked = ((self.cfg.get("evaluate", {}) or {}).get("metrics", {})
-                 or {})
-        wanted = [name for name in GENERATIVE_METRICS if asked.get(name)]
-        if wanted:
-            raise NotImplementedError(
-                f"the generative metrics {wanted} are not ported (ROADMAP, "
-                f"slice H: metrics/)")
-        return {}
+        """The generative metrics that `evaluate.metrics` asks for (FAD,
+        KLD, CLAP text consistency, chroma cosine), over audio generated
+        from the descriptions of the 'evaluate' loader's batches (at most
+        `evaluate.max_generation_batches`). A metric is built only when
+        asked for, on the solver's device; KLD and text consistency are
+        skipped with a warning without their checkpoints, and FAD reports
+        `fad_logmel` under its fallback. With `use_gt` a metric takes the
+        reference through the codec instead of the generated audio (text
+        consistency: the reference itself). A metric whose `compute`
+        fails (too few windows, an empty split) is left out of the result,
+        as the JAX package's averaging drops a key of weight 0."""
+        evaluate_cfg = self.cfg.get("evaluate", {}) or {}
+        asked = evaluate_cfg.get("metrics", {}) or {}
+        m_cfg = self.cfg.get("metrics", {}) or {}
+        fad = kldiv = textcons = chroma = None
+        if asked.get("fad"):
+            fad = builders.get_fad(m_cfg.get("fad", {}) or {}, self.device)
+        if asked.get("kld"):
+            kldiv = builders.get_kldiv(m_cfg.get("kld", {}) or {}, self.device)
+            if kldiv is None:
+                logger.warning("kld requested but no local PaSST checkpoint; "
+                               "skipping")
+        if asked.get("text_consistency"):
+            textcons = builders.get_text_consistency(
+                m_cfg.get("text_consistency", {}) or {}, self.device)
+            if textcons is None:
+                logger.warning("text_consistency requested but no local CLAP "
+                               "checkpoint; skipping")
+        if asked.get("chroma_cosine"):
+            sub = dict(m_cfg.get("chroma_cosine", {}) or {})
+            sub["chroma_base"] = dict(sub.get("chroma_base") or {})
+            sub["chroma_base"].setdefault(
+                "sample_rate", self.compression_model.sample_rate)
+            chroma = builders.get_chroma_cosine_similarity(sub, self.device)
+        if all(m is None for m in (fad, kldiv, textcons, chroma)):
+            return {}
+        loader = self.dataloaders.get("evaluate")
+        if loader is None:
+            return {}
+        model = self._gen_model()
+        sr = self.compression_model.sample_rate
+        max_batches = evaluate_cfg.get("max_generation_batches")
+
+        def use_gt(name: str) -> bool:
+            return bool((m_cfg.get(name, {}) or {}).get("use_gt"))
+
+        @torch.no_grad()
+        def compressed_gt(ref: torch.Tensor) -> torch.Tensor:
+            codes, scale = self.compression_model.encode(ref,
+                                                         device=self.device)
+            out = self.compression_model.decode(codes, scale,
+                                                device=self.device)
+            return out.float()[..., :ref.shape[-1]]
+
+        for idx, (wav, infos) in enumerate(loader):
+            if max_batches is not None and idx >= max_batches:
+                break
+            descriptions = [getattr(i, "description", None) or ""
+                            for i in infos]
+            ref = torch.as_tensor(wav, dtype=torch.float32).to(self.device)
+            gen = model.generate(descriptions).float()
+            T = min(gen.shape[-1], ref.shape[-1])
+            gen, ref = gen[..., :T], ref[..., :T]
+            sizes = np.minimum(np.asarray([getattr(i, "n_frames", T)
+                                           for i in infos]), T)
+            rates = np.full((gen.shape[0],), sr)
+            if fad is not None:
+                fad.update(compressed_gt(ref) if use_gt("fad") else gen, ref,
+                           sizes, rates)
+            if kldiv is not None:
+                kldiv.update(compressed_gt(ref) if use_gt("kld") else gen, ref,
+                             sizes, rates)
+            if textcons is not None:
+                textcons.update(ref if use_gt("text_consistency") else gen,
+                                descriptions, sizes, rates)
+            if chroma is not None:
+                chroma.update(compressed_gt(ref) if use_gt("chroma_cosine")
+                              else gen, ref, sizes, rates)
+
+        results: tp.Dict[str, float] = {}
+
+        def emit(name: str, compute: tp.Callable[[], tp.Dict[str, float]]):
+            try:
+                results.update({k: float(v) for k, v in compute().items()})
+            except (AssertionError, ValueError) as exc:
+                logger.warning("generative metric %s left out: %s", name, exc)
+
+        if fad is not None:
+            key = "fad" if fad.embed_kind != "logmel-fallback" else "fad_logmel"
+            emit(key, lambda: {key: fad.compute()})
+        if kldiv is not None:
+            emit("kld", kldiv.compute)
+        if textcons is not None:
+            emit("text_consistency",
+                 lambda: {"text_consistency": textcons.compute()})
+        if chroma is not None:
+            emit("chroma_cosine", lambda: {"chroma_cosine": chroma.compute()})
+        return results
 
     def _gen_model(self):
         """The generation API over the solver's LM and codec, with the

@@ -1,5 +1,6 @@
 """Device selection, hashing, masks and token sampling
 (counterpart of `audiocraft_tpu/utils/utils.py`)."""
+import contextlib
 import hashlib
 import typing as tp
 
@@ -20,6 +21,29 @@ def resolve_device(device: tp.Union[None, str, torch.device] = None
         if device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
     return device
+
+
+def host_f32(x) -> np.ndarray:
+    """A float32 numpy copy of `x` (a tensor on any device, or array-like)."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().float().cpu().numpy()
+    return np.asarray(x, np.float32)
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """Full f32 products and convolutions on the card inside the block
+    (cuDNN convolves in TF32 by default), so that the evaluation towers
+    give the CPU's outputs."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
 
 
 def check_module_device(module: torch.nn.Module, device: torch.device) -> None:

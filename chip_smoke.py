@@ -215,8 +215,20 @@ Phases, each printing one JSON line:
            `loaders.load_lm_model` (greedy tokens equal the in-memory
            model's); the same step on one batch held on the card; peak
            memory; then the loader's worker processes and fork server
-           are stopped, and the script checks that no process it started
-           is left.
+           are stopped;
+  evaluate the evaluate stage through the grid CLI
+           (`musicgen.musicgen_pretrained_32khz_eval --run --max-jobs 1`
+           with `-o` overrides) over data_train's checkpoint and WAVs: 16
+           segments of 10 s in 2 batches of 8, each generated at 10 s
+           (top-k 250, CFG 3.0) through K1's decode graph, then FAD over
+           VGGish, KLD over PaSST-S, CLAP text consistency (the clap
+           phase's towers) and chroma cosine, the towers at their published
+           widths from seeded checkpoints, f32 without TF32: the result's
+           keys, K1's launches, every tower and the LM on the card, per
+           batch the generate s and each update's host and other s, the
+           computes' s, peak memory; the towers on 2 generated clips card
+           against CPU (relative L2); then the script checks that no
+           process it started is left.
 Then the `{"kernels": [...]}` summary, and last `{"ok": true, "device": ...}`.
 Any failed check raises, so the script exits non-zero without the last line.
 It needs no network and imports nothing of JAX.
@@ -3332,6 +3344,23 @@ def _synthetic_roberta_files(root: Path) -> None:
         "#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in merges))
 
 
+def _write_clap_checkpoint(torch) -> Path:
+    """The seeded HTSAT-base + RoBERTa-base towers (512-wide projections)
+    as `clap.safetensors` in the Hugging Face layout, with the synthetic
+    tokenizer files beside it, under `_packages_dir()/clap`; the folder."""
+    from audiocraft_tpu_torch.modules import clap
+    from audiocraft_tpu_torch.utils import safetensors
+    root = _packages_dir() / "clap"
+    root.mkdir(exist_ok=True)
+    with torch.random.fork_rng(devices=[torch.device("cuda")]):
+        torch.manual_seed(11)
+        tower = clap.ClapModel(clap.CLAPConfig(), device="cuda")
+    safetensors.save_file(tower.state_dict(), root / "clap.safetensors")
+    del tower
+    _synthetic_roberta_files(root)
+    return root
+
+
 def phase_clap(torch, card):
     """MusicGen-small conditioned by CLAP (`solver/musicgen/default` with
     `conditioner=clapemb2music`: the HTSAT-base audio and RoBERTa-base text
@@ -3353,18 +3382,10 @@ def phase_clap(torch, card):
     from audiocraft_tpu_torch.modules.conditioners import (
         ConditioningAttributes, JointEmbedCondition, set_joint_embed_train)
     from audiocraft_tpu_torch.ops.decode_attention import decode_attention
-    from audiocraft_tpu_torch.utils import safetensors
     from audiocraft_tpu_torch.utils.timing import time_ms
     phase_t0 = time.perf_counter()
     _release(torch)
-    root = _packages_dir() / "clap"
-    root.mkdir(exist_ok=True)
-    with torch.random.fork_rng(devices=[torch.device("cuda")]):
-        torch.manual_seed(11)
-        tower = clap.ClapModel(clap.CLAPConfig(), device="cuda")
-    safetensors.save_file(tower.state_dict(), root / "clap.safetensors")
-    del tower
-    _synthetic_roberta_files(root)
+    root = _write_clap_checkpoint(torch)
     cfg = load_config("solver/musicgen/default")
     clap_cfg = load_config("conditioner/clapemb2music")
     for key in ("conditioners", "fuser", "classifier_free_guidance",
@@ -3503,7 +3524,6 @@ def phase_clap(torch, card):
                           greedy_tokens_equal=True,
                           greedy_seconds=CLAP_GREEDY_SECONDS),
          phase_s=time.perf_counter() - phase_t0)
-    (root / "clap.safetensors").unlink()
     del embedder, cpu_embedder, cond, audio_embed
     conditioners._CLAP_EMBEDDERS.clear()
     _release(torch)
@@ -3689,7 +3709,9 @@ def phase_data_train(torch, card, codec_dir):
     sample manager; then the checkpoint exported as a package and loaded
     back through `loaders.load_lm_model` (its greedy tokens equal the
     in-memory model's), and the same train step on one batch held on the
-    card. Returns K1's launches (the generate stage and the export check)."""
+    card. Returns K1's launches (the generate stage and the export check),
+    the dataset's folder and the checkpoint, which the evaluate phase reads;
+    the caller removes the folder's parent."""
     import tempfile
     from audiocraft_tpu_torch import train
     from audiocraft_tpu_torch.data.loader import DataLoader
@@ -3920,11 +3942,298 @@ def phase_data_train(torch, card, codec_dir):
              exported_tokens_equal=True,
              max_memory_allocated=peak, resident_before=resident,
              seconds=time.perf_counter() - phase_t0)
-        return held["k1_generate"] + k1_export
+        return (held["k1_generate"] + k1_export, data,
+                folder / "checkpoint.th")
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
     finally:
         shutdown_loader()
-        shutil.rmtree(tmp, ignore_errors=True)
         os.environ.pop("AUDIOCRAFT_DORA_DIR", None)
+
+
+EVAL_SEGMENTS = 16          # 10 s segments of the data_train WAVs
+EVAL_BATCH = 8
+EVAL_SECONDS = 10
+EVAL_CHECK_CLIPS = 2        # generated clips whose towers run card vs CPU
+EVAL_TOWER_RTOL = 1e-4      # |card - CPU| / |CPU| (L2), f32 without TF32
+EVAL_KEYS = ("fad", "kld", "kld_pq", "kld_qp", "kld_both",
+             "text_consistency", "chroma_cosine")
+
+
+def _rel_l2(got, want) -> float:
+    import numpy as np
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def phase_evaluate(torch, card, codec_dir, data, checkpoint):
+    """The evaluate stage through the grid CLI: `python -m
+    audiocraft_tpu_torch.grids musicgen.musicgen_pretrained_32khz_eval --run
+    --max-jobs 1` with `-o` overrides that point its first job at the
+    data_train phase's checkpoint (MusicGen-small, warm start), codec
+    package and WAVs (an evaluate split of EVAL_SEGMENTS segments of 10 s
+    in batches of EVAL_BATCH, read in the main process), and at seeded
+    checkpoints at the published widths: VGGish (`metrics.fad.vggish.
+    model_path`, torchvggish layout), PaSST-S (`$PASST_CHECKPOINT`,
+    hear21passt layout with the `net.` prefix) and the clap phase's
+    HTSAT-base + RoBERTa-base towers with their tokenizer files
+    (`metrics.text_consistency.clap.model_path`, `$CLAP_TOKENIZER`). Each
+    batch generates its 8 descriptions at 10 s (top-k 250, CFG 3.0, as the
+    config says) through K1's decode graph, then updates FAD, KLD, text
+    consistency and chroma cosine. Per batch the generate time and each
+    update's time split into host preprocessing (VGGish examples, PaSST
+    mels, CLAP mels) and the rest (device work and copies); the towers'
+    outputs on EVAL_CHECK_CLIPS generated clips on the card against the
+    CPU. Returns K1's launches."""
+    import collections
+    import tempfile
+    import numpy as np
+    from audiocraft_tpu_torch import train
+    from audiocraft_tpu_torch.grids.__main__ import main as grid_main
+    from audiocraft_tpu_torch.metrics import passt, vggish
+    from audiocraft_tpu_torch.modules import clap
+    from audiocraft_tpu_torch.ops.decode_attention import decode_attention
+    from audiocraft_tpu_torch.ops.flash_causal_attention import \
+        flash_causal_attention as fca
+    from audiocraft_tpu_torch.solvers import builders
+    from audiocraft_tpu_torch.utils.utils import check_module_device
+    phase_t0 = time.perf_counter()
+    resident = _release(torch)
+    tmp = Path(tempfile.mkdtemp(prefix="smoke_evaluate_"))
+    clap_root = _packages_dir() / "clap"
+    env = {"AUDIOCRAFT_DORA_DIR": str(tmp / "dora"),
+           "PASST_CHECKPOINT": str(tmp / "passt.pt"),
+           "CLAP_TOKENIZER": str(clap_root)}
+    saved_env = {k: os.environ.get(k) for k in env}
+    held = {"generate_s": [], "metrics": {}}
+    host = collections.defaultdict(list)
+    updates = collections.defaultdict(list)
+    computes = {}
+    patched = []
+
+    def patch(obj, name, value):
+        patched.append((obj, name, getattr(obj, name)))
+        setattr(obj, name, value)
+
+    def host_timed(name, fn):
+        def wrapped(*args, **kwargs):
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            host[name].append(time.perf_counter() - t)
+            return out
+        return wrapped
+
+    def timed_metric(name, getter):
+        def get(*args, **kwargs):
+            metric = getter(*args, **kwargs)
+            if metric is None:
+                return None
+            held["metrics"][name] = metric
+            update, compute = metric.update, metric.compute
+
+            def timed_update(*a, **k):
+                n = len(host[name])
+                out, seconds = _timed(torch, lambda: update(*a, **k))
+                h = sum(host[name][n:])
+                updates[name].append({"update_s": seconds, "host_s": h,
+                                      "rest_s": seconds - h})
+                return out
+
+            def timed_compute():
+                out, computes[name] = _timed(torch, compute)
+                return out
+
+            metric.update, metric.compute = timed_update, timed_compute
+            return metric
+        return get
+
+    def keep_solver(cfg):
+        solver = original_get_solver(cfg)
+        held["solver"] = solver
+        gen_model, evaluate = solver._gen_model, solver.evaluate
+
+        def timed_gen_model():
+            model = gen_model()
+            generate = model.generate
+
+            def timed_generate(descriptions):
+                out, seconds = _timed(torch, lambda: generate(descriptions))
+                held["generate_s"].append(seconds)
+                if "clips" not in held:
+                    held["clips"] = out[:EVAL_CHECK_CLIPS].float().cpu()
+                    held["texts"] = list(descriptions[:EVAL_CHECK_CLIPS])
+                return out
+
+            model.generate = timed_generate
+            return model
+
+        def kept_evaluate():
+            out, held["evaluate_s"] = _timed(torch, evaluate)
+            held["result"] = out
+            return out
+
+        solver._gen_model, solver.evaluate = timed_gen_model, kept_evaluate
+        return solver
+
+    original_get_solver = train.get_solver
+    try:
+        t0 = time.perf_counter()
+        with torch.random.fork_rng(devices=[torch.device("cuda")]):
+            torch.manual_seed(21)
+            torch.save(vggish.VGGish().state_dict(), tmp / "vggish.pth")
+            torch.manual_seed(22)
+            net = passt.PaSST()
+            with torch.no_grad():
+                for p in (net.cls_token, net.dist_token,
+                          net.new_pos_embed, net.freq_new_pos_embed,
+                          net.time_new_pos_embed):
+                    p.normal_(0, 0.02)
+            torch.save({"net." + k: v
+                        for k, v in net.state_dict().items()},
+                       tmp / "passt.pt")
+            del net
+        if not (clap_root / "clap.safetensors").exists():
+            _write_clap_checkpoint(torch)
+        write_s = time.perf_counter() - t0
+        try:
+            os.environ.update(env)
+            overrides = [
+                f"continue_from={checkpoint}", "device=cuda",
+                f"datasource.evaluate={data}",
+                f"compression_model_checkpoint={codec_dir}",
+                "transformer_lm.dtype=bfloat16",
+                f"dataset.segment_duration={EVAL_SECONDS}",
+                f"dataset.evaluate.num_samples={EVAL_SEGMENTS}",
+                f"dataset.evaluate.batch_size={EVAL_BATCH}",
+                "dataset.evaluate.num_workers=0",
+                f"metrics.fad.vggish.model_path={tmp / 'vggish.pth'}",
+                "metrics.text_consistency.clap.model_path="
+                f"{clap_root / 'clap.safetensors'}", "logging.level=WARNING"]
+            argv = ["musicgen.musicgen_pretrained_32khz_eval", "--run",
+                    "--max-jobs", "1"]
+            for override in overrides:
+                argv += ["-o", override]
+            patch(train, "get_solver", keep_solver)
+            for name, getter in (("fad", "get_fad"), ("kld", "get_kldiv"),
+                                 ("text_consistency", "get_text_consistency"),
+                                 ("chroma_cosine",
+                                  "get_chroma_cosine_similarity")):
+                patch(builders, getter,
+                      timed_metric(name, getattr(builders, getter)))
+            patch(vggish, "waveform_to_examples",
+                  host_timed("fad", vggish.waveform_to_examples))
+            patch(passt, "passt_mel", host_timed("kld", passt.passt_mel))
+            patch(clap.CLAPEmbedder, "mels",
+                  host_timed("text_consistency", clap.CLAPEmbedder.mels))
+            torch.cuda.reset_peak_memory_stats()
+            decode_attention.launches = 0
+            k2_before = (fca.launches, fca.backward_launches)
+            t0 = time.perf_counter()
+            jobs = grid_main(argv)
+            main_s = time.perf_counter() - t0
+            k1 = decode_attention.launches
+            k2 = (fca.launches - k2_before[0],
+                  fca.backward_launches - k2_before[1])
+            peak = torch.cuda.max_memory_allocated()
+        finally:
+            for obj, name, value in reversed(patched):
+                setattr(obj, name, value)
+            for k, v in saved_env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+
+        solver, result, metrics = held["solver"], held["result"], \
+            held["metrics"]
+        if len(jobs) != 1 or solver.cfg.get("execute_only") != "evaluate" \
+                or solver.cfg.get("continue_from") != str(checkpoint):
+            raise AssertionError(f"evaluate: the grid ran {len(jobs)} jobs "
+                                 f"with {solver.cfg.get('continue_from')}")
+        missing = [k for k in EVAL_KEYS if k not in result]
+        if missing or "fad_logmel" in result or not all(
+                math.isfinite(v) for v in result.values()):
+            raise AssertionError(f"evaluate: result {result}, missing "
+                                 f"{missing}")
+        batches = len(held["generate_s"])
+        if batches != EVAL_SEGMENTS // EVAL_BATCH:
+            raise AssertionError(f"evaluate: {batches} batches generated")
+        frames = EVAL_SECONDS * TOKENS_PER_SECOND
+        expected = batches * _k1_launches(solver.model, frames)
+        if k1 != expected:
+            raise AssertionError(f"evaluate: K1 launched {k1} times, "
+                                 f"expected {expected}")
+        device = torch.device("cuda", torch.cuda.current_device())
+        towers = {"lm": solver.model, "codec": solver.compression_model,
+                  "vggish": metrics["fad"].embed_fn.model,
+                  "passt": metrics["kld"].classifier_fn.model,
+                  "clap": metrics["text_consistency"].embedder.model,
+                  "chroma": metrics["chroma_cosine"].extractor}
+        for module in towers.values():
+            check_module_device(module, device)
+        widths = {f"{name}_params": sum(p.numel() for p in m.parameters())
+                  for name, m in towers.items() if name != "chroma"}
+        widths["passt_blocks"] = len(towers["passt"].blocks)
+
+        # the towers on generated clips, card against the CPU
+        clips, texts = held["clips"], held["texts"]
+        cpu = {"fad": vggish.VGGishEmbedder(vggish.load_vggish_params(
+                   tmp / "vggish.pth"), device="cpu"),
+               "kld": passt.PasstClassifier(passt.load_passt_params(
+                   tmp / "passt.pt"), max_duration=20.0, device="cpu"),
+               "clap": clap.CLAPEmbedder.from_checkpoint(
+                   clap_root / "clap.safetensors", "cpu")}
+        tc = metrics["text_consistency"]
+        pairs = {
+            "vggish_embeddings": (metrics["fad"].embed_fn(clips, 32000),
+                                  cpu["fad"](clips, 32000)),
+            "passt_probabilities": (metrics["kld"].classifier_fn(clips,
+                                                                 32000),
+                                    cpu["kld"](clips, 32000)),
+            "clap_audio_embeddings": (tc.embed_audio_fn(clips, 32000).cpu(),
+                                      cpu["clap"].embed_audio(clips, 32000)),
+            "clap_text_embeddings": (tc.embed_text_fn(texts).cpu(),
+                                     cpu["clap"].embed_text(texts))}
+        drifts = {name: _rel_l2(got, want)
+                  for name, (got, want) in pairs.items()}
+        bad = {k: v for k, v in drifts.items() if not v <= EVAL_TOWER_RTOL}
+        if bad:
+            raise AssertionError(f"evaluate: card vs CPU drifts {bad} > "
+                                 f"{EVAL_TOWER_RTOL}")
+        left = _children()
+        if left:
+            raise AssertionError(f"evaluate: processes left running: {left}")
+        per_batch = [{"generate_s": held["generate_s"][i],
+                      **{name: updates[name][i] for name in updates}}
+                     for i in range(batches)]
+        emit("evaluate", card=card,
+             config="grid musicgen.musicgen_pretrained_32khz_eval, first job"
+                    " (solver=musicgen: MusicGen-small LM, T5-base, d 1024,"
+                    " 24 layers, 4 x 2048 codes; the data_train checkpoint, "
+                    "bf16 autocast; the 32 kHz EnCodec package); towers f32 "
+                    "without TF32: VGGish (6 convolutions 64-512, 12288 -> "
+                    "4096 -> 4096 -> 128), PaSST-S (12 blocks, d 768, 12 "
+                    "heads, 99 time positions, 527 classes), CLAP HTSAT-base "
+                    "+ RoBERTa-base; seeded random weights",
+             argv=argv, towers=widths, checkpoints_write_s=write_s,
+             segments=EVAL_SEGMENTS, batch=EVAL_BATCH,
+             seconds_per_clip=EVAL_SECONDS, result=result,
+             per_batch=per_batch, compute_s=computes,
+             evaluate_s=held["evaluate_s"], grid_main_s=main_s,
+             evaluate_s_per_clip=held["evaluate_s"] / EVAL_SEGMENTS,
+             k1_launches=k1, k1_launches_expected=expected,
+             k2_forward_launches=k2[0], k2_backward_launches=k2[1],
+             card_vs_cpu=dict(clips=EVAL_CHECK_CLIPS, rel_l2=drifts,
+                              rel_l2_tol=EVAL_TOWER_RTOL),
+             max_memory_allocated=peak, resident_before=resident,
+             processes_left=len(left),
+             phase_s=time.perf_counter() - phase_t0)
+        return k1
+    finally:
+        held.clear()
+        shutil.rmtree(tmp, ignore_errors=True)
+        _release(torch)
 
 
 def main() -> int:
@@ -3973,13 +4282,19 @@ def main() -> int:
     phase_watermark_train(torch, card)
     clap_launches = phase_clap(torch, card)
     phase_dac(torch, card)
-    data_launches = phase_data_train(torch, card, codec_dir)
+    data_launches, data, checkpoint = phase_data_train(torch, card, codec_dir)
+    try:
+        eval_launches = phase_evaluate(torch, card, codec_dir, data,
+                                       checkpoint)
+    finally:
+        shutil.rmtree(data.parent)
     shutil.rmtree(codec_dir.parent)
     left = _children()
     if left:
         raise AssertionError(f"processes left running: {left}")
     launches += (melody_launches + audiogen_launches + style_launches
-                 + loaders_launches + clap_launches + data_launches)
+                 + loaders_launches + clap_launches + data_launches
+                 + eval_launches)
     timings += melody_timings + audiogen_timings + style_timings
 
     main_t = timings[0]

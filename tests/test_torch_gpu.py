@@ -35,7 +35,10 @@ within 1e-10; the TF loudness ratio and its gradient rtol 1e-4; two
 `WatermarkSolver` steps, metrics rtol 1e-4 and gradients within 1e-3 of
 their L2 norm; the CLAP towers atol 1e-5; DAC's codes equal and its decode
 as MBD's; a `MusicGenSolver` step from a datasource, its batch equal and
-its CE rtol 1e-5 and gradients atol 1e-5 / rtol 1e-4."""
+its CE rtol 1e-5 and gradients atol 1e-5 / rtol 1e-4; the evaluation
+towers under PyTorch's TF32 defaults (they turn TF32 off themselves):
+VGGish embeddings and PaSST probabilities relative L2 1e-4, CLAP text
+consistency atol 1e-5."""
 import pytest
 import torch
 
@@ -1424,3 +1427,102 @@ def test_musicgen_solver_step_from_a_datasource_on_card_matches_cpu(
         if grads[name].grad is not None:
             torch.testing.assert_close(p.grad.cpu(), grads[name].grad,
                                        atol=1e-5, rtol=1e-4)
+
+
+def _rel_l2(got, want) -> float:
+    got, want = torch.as_tensor(got).cpu().double(), torch.as_tensor(want).double()
+    return float((got - want).norm() / want.norm())
+
+
+@pytest.fixture
+def _tf32_on():
+    """TF32 allowed around the test, as PyTorch's default for cuDNN: the
+    evaluation towers must turn it off themselves."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    yield
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = saved
+
+
+def _eval_audio(B, seconds, sr=32000):
+    g = torch.Generator().manual_seed(9)
+    t = torch.arange(int(seconds * sr)) / sr
+    f0 = 110.0 * 2 ** (torch.randint(0, 36, (B, 1, 1), generator=g) / 12)
+    wav = torch.sin(2 * torch.pi * f0 * t) + 0.1 * torch.randn(
+        B, 1, len(t), generator=g)
+    return 0.3 * wav / wav.abs().max()
+
+
+@pytest.mark.gpu
+def test_vggish_embedder_on_card_matches_cpu(_tf32_on):
+    """A narrow VGGish (convolutions 8-32, fully connected 64-64-16) on the
+    card under TF32 defaults against the CPU: relative L2 <= 1e-4."""
+    from audiocraft_tpu_torch.metrics.vggish import VGGish, VGGishEmbedder
+    torch.manual_seed(0)
+    state = VGGish((8, 16, 32, 32, 32, 32), (64, 64), 16).state_dict()
+    wav = _eval_audio(2, 3.0)
+    got = VGGishEmbedder(state, device="cuda")(wav.cuda(), 32000)
+    want = VGGishEmbedder(state, device="cpu")(wav, 32000)
+    assert got.shape == (6, 16)
+    assert _rel_l2(got, want) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_passt_classifier_on_card_matches_cpu(_tf32_on):
+    """A narrow PaSST (d 128, 2 heads, 2 blocks, 16 time positions) on the
+    card under TF32 defaults against the CPU, over an input that takes two
+    segments: probabilities relative L2 <= 1e-4."""
+    from audiocraft_tpu_torch.metrics.passt import PaSST, PasstClassifier
+    torch.manual_seed(1)
+    net = PaSST(dim=128, depth=2, mlp_hidden=512, time_patches=16)
+    with torch.no_grad():
+        for p in (net.cls_token, net.dist_token, net.freq_new_pos_embed,
+                  net.time_new_pos_embed):
+            p.normal_(0, 0.5)
+    state = net.state_dict()
+    wav = _eval_audio(2, 2.5)
+    got = PasstClassifier(state, device="cuda")(wav.cuda(), 32000)
+    want = PasstClassifier(state, device="cpu")(wav, 32000)
+    assert _rel_l2(got, want) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_text_consistency_on_card_matches_cpu(tmp_path, _tf32_on):
+    """`CLAPTextConsistencyMetric` over a small seeded CLAP with
+    character-level tokenizer files, on the card under TF32 defaults
+    against the CPU: the towers' parameters on the card, the metric atol
+    1e-5 (a mean of cosines)."""
+    import json
+    from audiocraft_tpu_torch.metrics import CLAPTextConsistencyMetric
+    from audiocraft_tpu_torch.modules import clap
+    from audiocraft_tpu_torch.utils import safetensors
+    from audiocraft_tpu_torch.utils.utils import check_module_device
+    cfg = clap.CLAPConfig(
+        num_mel_bins=16, spec_size=64, patch_embeds_hidden_size=16,
+        window_size=4, depths=[2, 2], num_heads=[2, 2], vocab_size=100,
+        text_hidden_size=32, text_num_layers=2, text_num_heads=2,
+        text_intermediate_size=64, max_position_embeddings=80,
+        projection_dim=20)
+    torch.manual_seed(0)
+    safetensors.save_file(clap.ClapModel(cfg).state_dict(),
+                          tmp_path / "clap.safetensors")
+    tokens = ["<s>", "<pad>", "</s>", "<unk>", "<mask>", "Ġ"] + [
+        chr(c) for c in range(ord("a"), ord("z") + 1)]
+    (tmp_path / "vocab.json").write_text(json.dumps(
+        {t: i for i, t in enumerate(tokens)}))
+    (tmp_path / "merges.txt").write_text("#version: 0.2\n")
+    wav, texts = _eval_audio(2, 1.0), ["warm piano", "fast drums"]
+    values = {}
+    for device in ("cpu", "cuda"):
+        metric = CLAPTextConsistencyMetric(
+            model_path=str(tmp_path / "clap.safetensors"), device=device)
+        check_module_device(metric.embedder.model, torch.device(device, 0)
+                            if device == "cuda" else torch.device(device))
+        metric.update(wav.to(device), texts, [32000, 32000], [32000, 32000])
+        values[device] = metric.compute()
+    assert abs(values["cuda"] - values["cpu"]) <= 1e-5

@@ -90,8 +90,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     scripts = sorted(str(p) for p in (ROOT / "scripts").glob("torch_*.py"))
     assert any(p.endswith("torch_int4_decode.py") for p in scripts)
     assert any(p.endswith("torch_demucs_precision.py") for p in scripts)
-    # the melody, AudioGen, training, codec-training and AudioSeal, CLAP
-    # and DAC slices' modules are among those imported
+    # the melody, AudioGen, training, codec-training, AudioSeal, CLAP,
+    # DAC and evaluation slices' modules are among those imported
     assert {f"audiocraft_tpu_torch.{m}" for m in (
         "ops.stft", "modules.chroma", "modules.demucs", "models.audiogen",
         "solvers.audiogen", "solvers.base", "solvers.magnet", "optim.dadam",
@@ -100,7 +100,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "adversarial.losses", "adversarial.discriminators.msstftd",
         "quantization.base", "metrics.rvm", "solvers.compression",
         "losses.wmloss", "losses.loudnessloss", "utils.audio_effects",
-        "solvers.watermark", "modules.clap", "models.dac", "metrics.miou")
+        "solvers.watermark", "modules.clap", "models.dac", "metrics.miou",
+        "metrics.fad", "metrics.vggish", "metrics.passt", "metrics.kld",
+        "metrics.clap_consistency", "metrics.chroma_cosinesim",
+        "metrics.pesq", "metrics.visqol", "grids._base_explorers",
+        "grids.__main__", "utils.assets", "utils.notebook")
     } <= set(modules)
     script = (
         "import sys, importlib, importlib.util\n"
