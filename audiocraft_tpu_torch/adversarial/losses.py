@@ -102,9 +102,12 @@ class AdversarialLoss(nn.Module):
         self.loss_feat = loss_feat
         self.normalize = normalize
 
-    def train_adv(self, fake: torch.Tensor, real: torch.Tensor) -> torch.Tensor:
+    def train_adv(self, fake: torch.Tensor, real: torch.Tensor,
+                  mesh=None) -> torch.Tensor:
         """One optimizer step of the adversary on its loss over the
-        detached fake and real; returns the loss (detached)."""
+        detached fake and real; returns the loss (detached). With a `mesh`
+        fake and real are this rank's slice of the batch, and the
+        gradients are averaged over the data ranks before the step."""
         all_logits_fake, _ = self.adversary(fake.detach())
         all_logits_real, _ = self.adversary(real.detach())
         loss = 0.0
@@ -114,6 +117,9 @@ class AdversarialLoss(nn.Module):
             loss = loss / len(all_logits_fake)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if mesh is not None:
+            from ..parallel.mesh import data_average_grads
+            data_average_grads(self.adversary.parameters(), mesh)
         self.optimizer.step()
         return loss.detach()
 

@@ -93,6 +93,10 @@ def _declare_io(lib: ctypes.CDLL) -> None:
     lib.wav_read.argtypes = [ctypes.c_char_p, ctypes.c_long, ctypes.c_long,
                              _c_float_p, ctypes.c_long]
     lib.wav_read.restype = ctypes.c_long
+    lib.wav_read_resample.argtypes = [ctypes.c_char_p, ctypes.c_double,
+                                      ctypes.c_double, ctypes.c_int,
+                                      ctypes.c_int, _c_float_p, ctypes.c_long]
+    lib.wav_read_resample.restype = ctypes.c_long
 
 
 def _declare_av(lib: ctypes.CDLL) -> None:
@@ -117,6 +121,15 @@ def io_lib() -> ctypes.CDLL:
 def av_lib() -> ctypes.CDLL:
     """The libav wrapper, built first if needed (raises if it cannot be)."""
     return _load("av_io.cc", AV_LIBS, _declare_av)
+
+
+def available() -> bool:
+    """Whether the WAV library builds and loads here."""
+    try:
+        io_lib()
+    except RuntimeError:
+        return False
+    return True
 
 
 def av_available() -> bool:
@@ -156,6 +169,23 @@ def wav_read(path: str, seek_time: float = 0.0, duration: float = -1.0
     if got < 0:
         raise RuntimeError(f"wav_read failed ({got}) for {path}")
     return out[:, :got].copy(), sr
+
+
+def wav_read_resample(path: str, seek_time: float, duration: float,
+                      target_sr: int, target_channels: int) -> np.ndarray:
+    """Decode, resample to `target_sr` and convert to `target_channels` in
+    one native pass: [target_channels, frames] f32 from `seek_time` for
+    `duration` seconds (all of the rest when not positive)."""
+    sr, _, total = wav_info(path)
+    want = int(duration * sr) if duration > 0 else total
+    cap = int(np.ceil(want * target_sr / sr)) + 16
+    out = np.empty((target_channels, cap), np.float32)
+    got = io_lib().wav_read_resample(str(path).encode(), float(seek_time),
+                                     float(duration), int(target_sr),
+                                     int(target_channels), _fptr(out), cap)
+    if got < 0:
+        raise RuntimeError(f"wav_read_resample failed ({got}) for {path}")
+    return out[:, :got].copy()
 
 
 def av_info(path: str) -> tp.Tuple[int, int, int, float]:

@@ -118,3 +118,50 @@ def audio_write(stem_name: tp.Union[str, Path], wav, sample_rate: int,
             path.unlink()
         raise
     return path
+
+
+def get_spec(y, sr: int = 16000, n_fft: int = 4096, hop_length: int = 128,
+             dur: float = 8) -> np.ndarray:
+    """A 128-bin mel spectrogram in dB [128, frames] of the first `dur`
+    seconds of `y` (any shape, flattened): the power floored at 1e-10,
+    `10 log10`, then at most 80 dB below its peak (librosa's
+    `power_to_db(ref=max)`). Computed on the host in f32."""
+    import torch
+
+    from ..ops.stft import mel_spectrogram
+    y = np.asarray(y, np.float32).reshape(-1)[:int(dur * sr)]
+    with torch.no_grad():
+        mel = mel_spectrogram(torch.from_numpy(y)[None], sr, n_fft=n_fft,
+                              hop_length=hop_length, n_mels=128)[0].numpy()
+    db = 10.0 * np.log10(np.maximum(mel, 1e-10))
+    return np.maximum(db - db.max(), -80.0)
+
+
+def save_spectrograms(ys: tp.List[np.ndarray], sr: int, path: str,
+                      names: tp.List[str], n_fft: int = 4096,
+                      hop_length: int = 128, dur: float = 8.0) -> None:
+    """One spectrogram per waveform of `ys`, stacked in one figure titled
+    by `names` (default: ground truth, watermarked audio, watermark) and
+    saved to `path` with matplotlib's Agg backend."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    if not names:
+        names = ["Ground Truth", "Audio Watermarked", "Watermark"]
+    assert len(names) == len(ys), \
+        f"There are {len(ys)} wavs but {len(names)} names ({names})"
+    fig, axes = plt.subplots(len(ys), 1, figsize=(8, 3 * len(ys)),
+                             squeeze=False)
+    for ax, y, name in zip(axes[:, 0], ys, names):
+        spec = get_spec(np.asarray(y), sr=sr, n_fft=n_fft,
+                        hop_length=hop_length, dur=dur)
+        ax.imshow(spec, origin="lower", aspect="auto", cmap="magma",
+                  vmin=-80.0, vmax=0.0)
+        ax.set_title(name, fontsize=10)
+        ax.set_ylabel("mel bin")
+    axes[-1, 0].set_xlabel("frame")
+    fig.tight_layout()
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    fig.savefig(path)
+    plt.close(fig)

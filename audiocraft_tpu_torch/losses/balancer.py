@@ -8,6 +8,11 @@ gradient. The state is a debiased EMA of each gradient's norm: with beta
 average is sum / count (beta 1: the plain mean). The norm is the mean over
 batch items of each item's norm with `per_batch_item`, else the whole
 gradient's. Without `balance_grads` each gradient is scaled by its weight.
+
+With a `mesh` (`parallel/mesh.py`), each data rank holds its slice of the
+batch and the gradients of its own mean losses; the norms are taken of the
+whole batch's gradient (each rank's is 1 / ranks of it), so every rank
+scales as one process would.
 """
 import typing as tp
 
@@ -35,9 +40,21 @@ class Balancer:
             return grad.square().sum(dims).sqrt().mean()
         return grad.square().sum().sqrt()
 
+    def _global_norms(self, norms: tp.Dict[str, torch.Tensor], mesh
+                      ) -> tp.Dict[str, torch.Tensor]:
+        from ..parallel.mesh import data_all_reduce, data_size
+        n = data_size(mesh)
+        names = sorted(norms)
+        stacked = torch.stack([norms[k] for k in names])
+        if self.per_batch_item:  # the mean over every item of the batch
+            stacked = data_all_reduce(stacked, mesh) / n
+        else:
+            stacked = data_all_reduce(stacked.square(), mesh).sqrt()
+        return dict(zip(names, stacked / n))
+
     @torch.no_grad()
     def compute_out_grad(self, losses: tp.Dict[str, torch.Tensor],
-                         grads: tp.Dict[str, torch.Tensor]
+                         grads: tp.Dict[str, torch.Tensor], mesh=None
                          ) -> tp.Tuple[torch.Tensor, torch.Tensor, dict]:
         """(out_grad, effective loss, metrics) from each loss and its
         gradient with respect to the output; the EMA state takes this
@@ -46,6 +63,8 @@ class Balancer:
         assert set(losses) == set(self.weights), (losses.keys(),
                                                   self.weights.keys())
         norms = {name: self._grad_norm(g) for name, g in grads.items()}
+        if mesh is not None:
+            norms = self._global_norms(norms, mesh)
         beta = self.ema_decay
         if self.count is None:
             device = next(iter(norms.values())).device
@@ -78,8 +97,8 @@ class Balancer:
             effective_loss = effective_loss + scale * losses[name].detach()
         return out_grad, effective_loss, metrics
 
-    def backward(self, losses: tp.Dict[str, torch.Tensor], input: torch.Tensor
-                 ) -> tp.Tuple[torch.Tensor, dict]:
+    def backward(self, losses: tp.Dict[str, torch.Tensor], input: torch.Tensor,
+                 mesh=None) -> tp.Tuple[torch.Tensor, dict]:
         """Each loss's gradient with respect to `input`, balanced; the
         balanced gradient is back-propagated from `input` and the effective
         loss returned with the metrics."""
@@ -90,7 +109,8 @@ class Balancer:
                                                    retain_graph=True)
             else:
                 grads[name] = torch.zeros_like(input)
-        out_grad, effective_loss, metrics = self.compute_out_grad(losses, grads)
+        out_grad, effective_loss, metrics = self.compute_out_grad(
+            losses, grads, mesh)
         input.backward(out_grad)
         return effective_loss, metrics
 

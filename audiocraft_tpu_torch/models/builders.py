@@ -91,11 +91,6 @@ def get_compression_model(cfg: dict, device=None) -> EncodecModel:
     seanet = dict(enc.get("seanet", {}) or {})
     overrides = {part: dict(seanet.pop(part, {}) or {})
                  for part in ("encoder", "decoder")}
-    # the norm's parameters are read only by a time_group_norm, which the
-    # port's convolutions refuse; with weight_norm they are unused, as in
-    # the JAX package
-    for part in (seanet, *overrides.values()):
-        part.pop("norm_params", None)
     for key in ("ratios", "kernel_sizes", "dilations"):
         if key in seanet:
             seanet[key] = tuple(seanet[key])

@@ -98,18 +98,19 @@ class EncodecModel(CompressionModel):
         return x
 
     def forward(self, x: torch.Tensor,
-                generator: tp.Optional[torch.Generator] = None
-                ) -> QuantizedResult:
+                generator: tp.Optional[torch.Generator] = None,
+                mesh=None) -> QuantizedResult:
         """The training path over audio [B, C, T] (on the model's device):
         a `QuantizedResult` whose x is the decoded audio [B, C, T] (cut to
         the input's length and rescaled), with the codes, the bandwidth and
         the commitment penalty. In training mode the quantizer updates its
-        codebooks, drawing from `generator`."""
+        codebooks, drawing from `generator` (over the whole batch when x is
+        this rank's slice of it on the data ranks of `mesh`)."""
         assert x.dim() == 3, "audio must be [B, C, T]"
         length = x.shape[-1]
         x, scale = self.preprocess(x)
         q_res = self.quantizer(self.encoder(x), self.frame_rate,
-                               generator=generator)
+                               generator=generator, mesh=mesh)
         out = self.decoder(q_res.x)
         assert out.shape[-1] >= length, (out.shape[-1], length)
         q_res.x = self.postprocess(out[..., :length], scale)

@@ -12,6 +12,7 @@ conditioner keeps its chroma per file in an embedding cache when given a
 `cache_path` (`utils/cache.py`).
 """
 import dataclasses
+import logging
 import math
 import re
 import typing as tp
@@ -27,6 +28,8 @@ from ..utils.utils import hash_trick, length_to_mask
 from .chroma import ChromaExtractor
 from .t5 import T5Encoder, T5EncoderConfig
 from .transformer import create_sin_embedding
+
+logger = logging.getLogger(__name__)
 
 ConditionType = tp.Tuple[torch.Tensor, torch.Tensor]
 
@@ -215,11 +218,35 @@ class T5Conditioner(TextConditioner):
                  finetune: bool = False, device=None, dtype=None):
         cfg = config or T5EncoderConfig.for_model(model_name)
         super().__init__(cfg.d_model, output_dim, device, dtype)
+        self.model_name = model_name
         self.t5 = T5Encoder(cfg, device=device, dtype=dtype)
         self.finetune = finetune
         self.t5.requires_grad_(finetune)
 
+    def _get_tokenizer(self):
+        """The sentencepiece tokenizer of `model_name` through
+        `transformers`, or None (with a warning) when it cannot be had:
+        no `transformers`, or no local vocabulary."""
+        try:
+            from transformers import T5Tokenizer
+            return T5Tokenizer.from_pretrained(self.model_name,
+                                               local_files_only=True)
+        except Exception as exc:
+            logger.warning("T5 tokenizer unavailable (%s); using hash "
+                           "fallback", exc)
+            return None
+
     def tokenize(self, x: tp.List[tp.Optional[str]]):
+        """(ids, mask) int32 numpy arrays [B, L]: the T5 tokenizer's
+        padded ids with the mask of empty texts zeroed, else the
+        whitespace hash over the T5 vocabulary's 32128 bins."""
+        entries = [xi if xi is not None else "" for xi in x]
+        tok = self._get_tokenizer()
+        if tok is not None:
+            inputs = tok(entries, return_tensors="np", padding=True)
+            mask = inputs["attention_mask"].astype(np.int32)
+            mask[np.array([not e for e in entries])] = 0
+            return inputs["input_ids"].astype(np.int32), mask
         return WhiteSpaceTokenizer(n_bins=self.N_BINS)(
             [xi if xi else None for xi in x])
 
@@ -280,8 +307,8 @@ class ChromaStemConditioner(StemSeparated, WaveformConditioner):
         if dim is not None and dim != n_chroma:
             raise ValueError(f"the chroma conditioner's input is its "
                              f"{n_chroma} classes, got dim={dim}")
-        if eval_wavs is not None:
-            raise NotImplementedError("eval_wavs is not ported")
+        # `eval_wavs` and `n_eval_wavs` are accepted and ignored: the JAX
+        # package takes the fields and reads no evaluation waveforms either
         super().__init__(n_chroma, output_dim, device, dtype)
         self.sample_rate = sample_rate
         self.n_chroma = n_chroma

@@ -7,6 +7,14 @@ parameters are `weight_g` / `weight_v` as in torch's `weight_norm(dim=0)`:
 per output channel for a conv ([Cout, Cin, K]) and per *input* channel for a
 transposed conv ([Cin, Cout, K]). `NormConv2d` (the discriminators') is
 NCHW, its weight [Cout, Cin, kh, kw] normed per output channel.
+
+`time_group_norm` is a GroupNorm of one group (over channels and time)
+after the convolution and its bias, `norm` beside `conv` in the module tree
+(upstream's key `conv.norm.weight`). Its `norm_kwargs` are flax's
+`nn.GroupNorm` names with flax's defaults (`epsilon` 1e-6, `use_bias`,
+`use_scale`), so one `norm_params` means the same in both packages.
+`spectral_norm` applies no normalisation: the weight is a plain parameter,
+as in the JAX package.
 """
 import math
 import typing as tp
@@ -15,7 +23,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-CONV_NORMALIZATIONS = frozenset(["none", "weight_norm"])
+CONV_NORMALIZATIONS = frozenset(["none", "weight_norm", "spectral_norm",
+                                 "time_group_norm"])
 
 
 def get_extra_padding_for_conv1d(length: int, kernel_size: int, stride: int,
@@ -63,12 +72,43 @@ def _norm_over_rest(w: torch.Tensor) -> torch.Tensor:
     return w.square().sum(dim=tuple(range(1, w.dim())), keepdim=True).sqrt()
 
 
+class TimeGroupNorm(nn.Module):
+    """GroupNorm of one group over [B, C, T] (flax `nn.GroupNorm(
+    num_groups=1)` over [B, T, C]): `weight` and `bias` [C] unless
+    `use_scale` / `use_bias` is False."""
+
+    def __init__(self, channels: int, epsilon: float = 1e-6,
+                 use_bias: bool = True, use_scale: bool = True, device=None,
+                 dtype=None):
+        super().__init__()
+        self.epsilon = epsilon
+        factory = dict(device=device, dtype=dtype)
+        self.weight = (nn.Parameter(torch.ones(channels, **factory))
+                       if use_scale else None)
+        self.bias = (nn.Parameter(torch.zeros(channels, **factory))
+                     if use_bias else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.group_norm(x, 1, self.weight, self.bias, self.epsilon)
+
+
+def _norm_module(conv: nn.Module, norm: str,
+                 norm_kwargs: tp.Optional[tp.Mapping[str, tp.Any]]
+                 ) -> nn.Module:
+    if norm != "time_group_norm":
+        return nn.Identity()
+    # a time_group_norm conv keeps a plain weight
+    return TimeGroupNorm(conv.out_channels, **dict(norm_kwargs or {}),
+                         device=conv.weight.device, dtype=conv.weight.dtype)
+
+
 class _NormMixin:
-    """Weight-norm reparametrisation of a torch conv's `weight`."""
+    """Weight-norm reparametrisation of a torch conv's `weight` (the other
+    norms leave the weight a plain parameter)."""
 
     def _setup_norm(self, norm: str):
         if norm not in CONV_NORMALIZATIONS:
-            raise ValueError(f"norm {norm!r} is not ported")
+            raise ValueError(f"unknown norm {norm!r}")
         self.norm_type = norm
         if norm == "weight_norm":
             w = self.weight.detach()
@@ -126,21 +166,31 @@ class Conv2d(_NormMixin, nn.Conv2d):
 class NormConv1d(nn.Module):
     """Conv1d with its normalization (upstream key `conv.weight...`)."""
 
-    def __init__(self, *args, norm: str = "none", **kwargs):
+    def __init__(self, *args, norm: str = "none", causal: bool = False,
+                 norm_kwargs: tp.Optional[tp.Mapping[str, tp.Any]] = None,
+                 **kwargs):
         super().__init__()
+        assert not (causal and norm == "time_group_norm"), \
+            "GroupNorm doesn't support causal evaluation."
         self.conv = Conv1d(*args, norm=norm, **kwargs)
+        self.norm = _norm_module(self.conv, norm, norm_kwargs)
 
     def forward(self, x):
-        return self.conv(x)
+        return self.norm(self.conv(x))
 
 
 class NormConvTranspose1d(nn.Module):
-    def __init__(self, *args, norm: str = "none", **kwargs):
+    def __init__(self, *args, norm: str = "none", causal: bool = False,
+                 norm_kwargs: tp.Optional[tp.Mapping[str, tp.Any]] = None,
+                 **kwargs):
         super().__init__()
+        assert not (causal and norm == "time_group_norm"), \
+            "GroupNorm doesn't support causal evaluation."
         self.convtr = ConvTranspose1d(*args, norm=norm, **kwargs)
+        self.norm = _norm_module(self.convtr, norm, norm_kwargs)
 
     def forward(self, x):
-        return self.convtr(x)
+        return self.norm(self.convtr(x))
 
 
 class StreamableConv1d(nn.Module):
@@ -149,11 +199,14 @@ class StreamableConv1d(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, dilation: int = 1, groups: int = 1,
                  bias: bool = True, causal: bool = False, norm: str = "none",
+                 norm_kwargs: tp.Optional[tp.Mapping[str, tp.Any]] = None,
                  pad_mode: str = "reflect", device=None, dtype=None):
         super().__init__()
         self.conv = NormConv1d(in_channels, out_channels, kernel_size,
                                stride=stride, dilation=dilation, groups=groups,
-                               bias=bias, norm=norm, device=device, dtype=dtype)
+                               bias=bias, norm=norm, causal=causal,
+                               norm_kwargs=norm_kwargs, device=device,
+                               dtype=dtype)
         self.causal = causal
         self.pad_mode = pad_mode
 
@@ -179,12 +232,16 @@ class StreamableConvTranspose1d(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, causal: bool = False, norm: str = "none",
-                 trim_right_ratio: float = 1.0, device=None, dtype=None):
+                 trim_right_ratio: float = 1.0,
+                 norm_kwargs: tp.Optional[tp.Mapping[str, tp.Any]] = None,
+                 device=None, dtype=None):
         super().__init__()
         assert causal or trim_right_ratio == 1.0, \
             "`trim_right_ratio` != 1.0 only makes sense for causal convolutions"
         self.convtr = NormConvTranspose1d(in_channels, out_channels, kernel_size,
                                           stride=stride, norm=norm,
+                                          causal=causal,
+                                          norm_kwargs=norm_kwargs,
                                           device=device, dtype=dtype)
         self.causal = causal
         self.trim_right_ratio = trim_right_ratio
@@ -204,9 +261,12 @@ class NormConv2d(nn.Module):
     """Conv2d over NCHW with its normalization (upstream key
     `conv.weight...`)."""
 
-    def __init__(self, *args, norm: str = "none", **kwargs):
+    def __init__(self, *args, norm: str = "none",
+                 norm_kwargs: tp.Optional[tp.Mapping[str, tp.Any]] = None,
+                 **kwargs):
         super().__init__()
         self.conv = Conv2d(*args, norm=norm, **kwargs)
+        self.norm = _norm_module(self.conv, norm, norm_kwargs)
 
     def forward(self, x):
-        return self.conv(x)
+        return self.norm(self.conv(x))

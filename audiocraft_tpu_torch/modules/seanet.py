@@ -25,14 +25,15 @@ class SEANetResnetBlock(nn.Module):
     def __init__(self, dim: int, kernel_sizes: tp.Sequence[int] = (3, 1),
                  dilations: tp.Sequence[int] = (1, 1), activation: str = "elu",
                  activation_params: _ActParams = None,
-                 norm: str = "none", causal: bool = False,
-                 pad_mode: str = "reflect", compress: int = 2,
-                 true_skip: bool = True, device=None, dtype=None):
+                 norm: str = "none", norm_params: _ActParams = None,
+                 causal: bool = False, pad_mode: str = "reflect",
+                 compress: int = 2, true_skip: bool = True, device=None,
+                 dtype=None):
         super().__init__()
         assert len(kernel_sizes) == len(dilations)
         hidden = dim // compress
-        common = dict(norm=norm, causal=causal, pad_mode=pad_mode,
-                      device=device, dtype=dtype)
+        common = dict(norm=norm, norm_kwargs=norm_params, causal=causal,
+                      pad_mode=pad_mode, device=device, dtype=dtype)
         block: tp.List[nn.Module] = []
         n = len(kernel_sizes)
         for i, (kernel_size, dilation) in enumerate(zip(kernel_sizes, dilations)):
@@ -68,7 +69,8 @@ class _SEANet(nn.Module):
             dilations=(kw["dilation_base"] ** j, 1),
             activation=kw["activation"],
             activation_params=kw["activation_params"],
-            norm=block_norm, causal=kw["causal"], pad_mode=kw["pad_mode"],
+            norm=block_norm, norm_params=kw["norm_params"],
+            causal=kw["causal"], pad_mode=kw["pad_mode"],
             compress=kw["compress"], true_skip=kw["true_skip"],
             device=kw["device"], dtype=kw["dtype"])
 
@@ -84,7 +86,8 @@ class SEANetEncoder(_SEANet):
                  n_filters: int = 32, n_residual_layers: int = 3,
                  ratios: tp.Sequence[int] = (8, 5, 4, 2), activation: str = "elu",
                  activation_params: _ActParams = None,
-                 norm: str = "none", kernel_size: int = 7,
+                 norm: str = "none", norm_params: _ActParams = None,
+                 kernel_size: int = 7,
                  last_kernel_size: int = 7, residual_kernel_size: int = 3,
                  dilation_base: int = 2, causal: bool = False,
                  pad_mode: str = "reflect", true_skip: bool = True,
@@ -95,9 +98,11 @@ class SEANetEncoder(_SEANet):
         kw = dict(residual_kernel_size=residual_kernel_size,
                   dilation_base=dilation_base, activation=activation,
                   activation_params=activation_params,
+                  norm_params=norm_params,
                   causal=causal, pad_mode=pad_mode, compress=compress,
                   true_skip=true_skip, device=device, dtype=dtype)
-        conv = dict(causal=causal, pad_mode=pad_mode, device=device, dtype=dtype)
+        conv = dict(norm_kwargs=norm_params, causal=causal, pad_mode=pad_mode,
+                    device=device, dtype=dtype)
         dnob = disable_norm_outer_blocks
         mult = 1
         layers: tp.List[nn.Module] = [StreamableConv1d(
@@ -131,7 +136,8 @@ class SEANetDecoder(_SEANet):
                  n_filters: int = 32, n_residual_layers: int = 3,
                  ratios: tp.Sequence[int] = (8, 5, 4, 2), activation: str = "elu",
                  activation_params: _ActParams = None,
-                 norm: str = "none", kernel_size: int = 7,
+                 norm: str = "none", norm_params: _ActParams = None,
+                 kernel_size: int = 7,
                  last_kernel_size: int = 7, residual_kernel_size: int = 3,
                  dilation_base: int = 2, causal: bool = False,
                  pad_mode: str = "reflect", true_skip: bool = True,
@@ -143,14 +149,16 @@ class SEANetDecoder(_SEANet):
         kw = dict(residual_kernel_size=residual_kernel_size,
                   dilation_base=dilation_base, activation=activation,
                   activation_params=activation_params,
+                  norm_params=norm_params,
                   causal=causal, pad_mode=pad_mode, compress=compress,
                   true_skip=true_skip, device=device, dtype=dtype)
         dnob = disable_norm_outer_blocks
         mult = int(2 ** len(self.ratios))
         layers: tp.List[nn.Module] = [StreamableConv1d(
             dimension, mult * n_filters, kernel_size,
-            norm="none" if dnob == self.n_blocks else norm, causal=causal,
-            pad_mode=pad_mode, device=device, dtype=dtype)]
+            norm="none" if dnob == self.n_blocks else norm,
+            norm_kwargs=norm_params, causal=causal, pad_mode=pad_mode,
+            device=device, dtype=dtype)]
         if lstm:
             layers.append(StreamableLSTM(mult * n_filters, num_layers=lstm,
                                          device=device, dtype=dtype))
@@ -160,7 +168,8 @@ class SEANetDecoder(_SEANet):
                        StreamableConvTranspose1d(
                            mult * n_filters, mult * n_filters // 2,
                            kernel_size=ratio * 2, stride=ratio, norm=block_norm,
-                           causal=causal, trim_right_ratio=trim_right_ratio,
+                           norm_kwargs=norm_params, causal=causal,
+                           trim_right_ratio=trim_right_ratio,
                            device=device, dtype=dtype)]
             for j in range(n_residual_layers):
                 layers.append(self._resblock(mult * n_filters // 2, j,
@@ -169,6 +178,7 @@ class SEANetDecoder(_SEANet):
         layers += [Activation(activation, activation_params),
                    StreamableConv1d(n_filters, channels, last_kernel_size,
                                     norm="none" if dnob >= 1 else norm,
-                                    causal=causal, pad_mode=pad_mode,
-                                    device=device, dtype=dtype)]
+                                    norm_kwargs=norm_params, causal=causal,
+                                    pad_mode=pad_mode, device=device,
+                                    dtype=dtype)]
         self.model = nn.Sequential(*layers)

@@ -80,7 +80,8 @@ def ema_codebook_update(codebook: "EuclideanCodebook", flat: torch.Tensor, *,
                         threshold_ema_dead_code: float,
                         generator: tp.Optional[torch.Generator] = None,
                         replacement: tp.Optional[torch.Tensor] = None,
-                        init_means: tp.Optional[torch.Tensor] = None) -> None:
+                        init_means: tp.Optional[torch.Tensor] = None,
+                        mesh=None) -> None:
     """One training update of `codebook` by the vectors flat [N, D], in
     place. A codebook that is not `inited` first takes k-means of the batch
     (from `init_means` [C, D], else from `sample_vectors` of `generator`)
@@ -91,8 +92,15 @@ def ema_codebook_update(codebook: "EuclideanCodebook", flat: torch.Tensor, *,
     its cluster's size (decay) and sum, normalised with Laplace smoothing
     (epsilon). Assignments use the codebook as it was before the EMA
     update (after the k-means). The count of expired codes is left in
-    `codebook.last_expired`."""
+    `codebook.last_expired`. With a `mesh` (`parallel/mesh.py`) flat is
+    this rank's slice of the batch's vectors: the update takes the whole
+    batch's, gathered in order, so every data rank keeps the codebook that
+    one process would (the JAX package's step sees the global batch under
+    GSPMD)."""
     flat = flat.float()
+    if mesh is not None:
+        from ..parallel.mesh import data_all_gather
+        flat = data_all_gather(flat, mesh)
     size = codebook.embed.shape[0]
     if not bool(codebook.inited.all()):
         means, bins = kmeans(flat, size, generator=generator,
@@ -187,15 +195,16 @@ class ResidualVectorQuantization(nn.Module):
     def forward(self, x: torch.Tensor, n_q_active: int, training: bool,
                 generator: tp.Optional[torch.Generator] = None,
                 decay: float = 0.99, epsilon: float = 1e-5,
-                threshold_ema_dead_code: float = 2.0
+                threshold_ema_dead_code: float = 2.0, mesh=None
                 ) -> tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """The residual cascade over x [B, T, D] through the first
         `n_q_active` levels (the others add nothing and stay as they are).
         Returns (quantized [B, T, D], codes [B, K, T] of every level, the
         commitment losses [K]: mean |quantized - residual|^2 of each active
         level, 0 for the others). With `training`, each active level's
-        codebook takes an EMA step on its residuals, and the output passes
-        the gradient straight through to x."""
+        codebook takes an EMA step on its residuals (the batch's over the
+        data ranks of `mesh`), and the output passes the gradient straight
+        through to x."""
         residual = x
         quantized_out = torch.zeros_like(x)
         codes, commits = [], []
@@ -214,7 +223,7 @@ class ResidualVectorQuantization(nn.Module):
                     layer._codebook, residual.detach().reshape(-1, x.shape[-1]),
                     decay=decay, epsilon=epsilon,
                     threshold_ema_dead_code=threshold_ema_dead_code,
-                    generator=generator)
+                    generator=generator, mesh=mesh)
             residual = residual - quantized
             quantized_out = quantized_out + quantized
         if training:

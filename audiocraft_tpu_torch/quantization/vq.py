@@ -57,11 +57,12 @@ class ResidualVectorQuantizer(BaseQuantizer):
 
     def forward(self, x: torch.Tensor, frame_rate: int,
                 n_q: tp.Optional[int] = None,
-                generator: tp.Optional[torch.Generator] = None
-                ) -> QuantizedResult:
+                generator: tp.Optional[torch.Generator] = None,
+                mesh=None) -> QuantizedResult:
         """x [B, D, T] through the first `n_q` levels (default: `self.n_q`,
         or with `q_dropout` in training mode a draw from `generator`); in
-        training mode the active codebooks take their EMA step."""
+        training mode the active codebooks take their EMA step (over the
+        data ranks of `mesh`, whose slices x is one of)."""
         if n_q is None:
             n_q = self.n_q
             if self.training and self.q_dropout:
@@ -70,7 +71,7 @@ class ResidualVectorQuantizer(BaseQuantizer):
         quantized, codes, commits = self.vq(
             x.transpose(1, 2), n_q, self.training, generator,
             decay=self.decay,
-            threshold_ema_dead_code=self.threshold_ema_dead_code)
+            threshold_ema_dead_code=self.threshold_ema_dead_code, mesh=mesh)
         bandwidth = torch.tensor(n_q * math.log2(self.bins) * frame_rate / 1000,
                                  device=x.device)
         return QuantizedResult(quantized.transpose(1, 2), codes, bandwidth,

@@ -30,6 +30,7 @@ import torch
 
 from .. import environment
 from ..optim.ema import EMAState, ema_init, ema_params, ema_update
+from ..parallel import distrib
 from ..utils import checkpoint
 
 logger = logging.getLogger(__name__)
@@ -221,6 +222,7 @@ class SolverRunMixin:
         one stage instead. Returns this run's metrics per epoch."""
         if self.restore(self.cfg.get("continue_from")):
             self.epoch += 1
+        distrib.check_epoch_consistency(self.epoch)
         execute_only = self.cfg.get("execute_only")
         if execute_only:
             logger.info("Running single stage: %s", execute_only)

@@ -9,6 +9,7 @@ import torch.nn as nn
 
 from ..optim.dadam import DAdaptAdam
 from ..optim.lr_schedulers import get_lr_scheduler
+from ..parallel import sharding
 
 logger = logging.getLogger(__name__)
 
@@ -100,10 +101,13 @@ class ClippedOptimizer:
         """Clip, update, advance the schedule; returns the gradients' global
         norm before clipping (a 0-d tensor, not synchronised)."""
         grads = [p.grad for p in self.params if p.grad is not None]
-        norm = torch.nn.utils.get_total_norm(grads)
-        if self.max_norm:
-            torch.nn.utils.clip_grads_with_norm_(self.params, self.max_norm,
-                                                 norm)
+        if sharding.is_sharded(grads):
+            norm = sharding.clip_grad_norm_(grads, self.max_norm)
+        else:
+            norm = torch.nn.utils.get_total_norm(grads)
+            if self.max_norm:
+                torch.nn.utils.clip_grads_with_norm_(self.params,
+                                                     self.max_norm, norm)
         self.optimizer.step()
         self.scheduler.step()
         return norm

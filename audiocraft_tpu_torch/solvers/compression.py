@@ -38,6 +38,9 @@ from ..losses import (SISNR, Balancer, MelSpectrogramL1Loss, MRSTFTLoss,
                       MultiScaleMelSpectrogramLoss)
 from ..metrics import RelativeVolumeMel
 from ..models import builders as model_builders
+from ..parallel import distrib
+from ..parallel.mesh import (batch_sharding, data_all_reduce,
+                             data_average_grads, data_size)
 from ..utils import jax_weights
 from ..utils.samples.manager import SampleManager
 from ..utils.utils import resolve_device, to_device
@@ -188,10 +191,23 @@ class CompressionSolver(SolverRunMixin):
             metrics.update(self.train_step(x))
         return metrics
 
-    def train_step(self, x: torch.Tensor) -> tp.Dict[str, torch.Tensor]:
-        """One GAN step on audio x [B, C, T] on the solver's device."""
+    def train_step(self, x: torch.Tensor, mesh=None
+                   ) -> tp.Dict[str, torch.Tensor]:
+        """One GAN step on audio x [B, C, T] on the solver's device.
+
+        With a `mesh` (`parallel/mesh.py`; the JAX package's
+        `make_compression_train_step(..., mesh=)`) every rank passes the
+        same global batch and runs its slice over ('dp', 'fsdp'), the
+        generator and the adversaries replicated: the codebooks update on
+        the whole batch's latents, the balancer takes the whole batch's
+        gradient norms, every gradient is averaged over the data ranks
+        before its optimizer's step, and so are the metrics; the step is
+        the one-process step on the whole batch. Every rank draws the same
+        numbers from the solver's generator, as one process would."""
+        if mesh is not None:
+            x = batch_sharding(mesh)(x)
         self.model.train()
-        qres = self.model(x, generator=self._rng)
+        qres = self.model(x, generator=self._rng, mesh=mesh)
         y_pred = qres.x
         metrics = {"bandwidth": qres.bandwidth.float().mean()}
         penalty = qres.penalty
@@ -203,7 +219,7 @@ class CompressionSolver(SolverRunMixin):
                           <= 1.0 / self.disc_every)
         d_total = torch.zeros((), device=x.device)
         for name, adversary in self.adv_losses.items():
-            d_loss = (adversary.train_adv(y_det, x) if train_disc
+            d_loss = (adversary.train_adv(y_det, x, mesh) if train_disc
                       else torch.zeros((), device=x.device))
             metrics[f"d_{name}"] = d_loss
             d_total = d_total + d_loss
@@ -216,7 +232,7 @@ class CompressionSolver(SolverRunMixin):
             losses[f"adv_{name}"], losses[f"feat_{name}"] = adversary(y, x)
         for k in self.balanced_names:
             losses[k] = self.aux_losses[k](y, x)
-        g_loss, balancer_metrics = self.balancer.backward(losses, y)
+        g_loss, balancer_metrics = self.balancer.backward(losses, y, mesh)
         metrics.update({k: v.detach() for k, v in losses.items()})
         metrics.update(balancer_metrics)
         metrics["g_loss"] = g_loss
@@ -228,6 +244,8 @@ class CompressionSolver(SolverRunMixin):
             grads.append(torch.ones_like(penalty))
         torch.autograd.backward(outputs, grads)
         builders.fill_missing_grads(self.optimizer.optimizer)
+        if mesh is not None:
+            data_average_grads(self.model.parameters(), mesh)
         self.optimizer.step()
         self.step += 1
 
@@ -237,6 +255,11 @@ class CompressionSolver(SolverRunMixin):
         if self.adv_losses:
             metrics["adv"] = sum(metrics[f"adv_{n}"] for n in self.adv_losses)
             metrics["feat"] = sum(metrics[f"feat_{n}"] for n in self.adv_losses)
+        if mesh is not None:
+            names = sorted(metrics)
+            means = data_all_reduce(torch.stack(
+                [metrics[k].detach().float() for k in names]), mesh)
+            metrics = dict(zip(names, means / data_size(mesh)))
         return metrics
 
     @torch.no_grad()
@@ -287,7 +310,8 @@ class CompressionSolver(SolverRunMixin):
         if ((self.cfg.get("evaluate", {}) or {}).get("metrics", {})
                 or {}).get("visqol"):
             logger.warning("ViSQOL is an external binary; skipping")
-        return {k: v / max(count, 1) for k, v in totals.items()}
+        return distrib.average_metrics(
+            {k: v / max(count, 1) for k, v in totals.items()}, count)
 
     @torch.no_grad()
     def generate(self) -> dict:

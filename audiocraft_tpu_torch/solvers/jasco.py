@@ -31,6 +31,7 @@ from ..modules.conditioners import ConditioningAttributes, SymbolicCondition
 from ..modules.jasco_conditioners import (DrumsConditioner,
                                           JascoConditioningProvider,
                                           bind_drums_codec)
+from ..parallel import distrib
 from ..utils import jax_weights
 from ..utils.samples.manager import SampleManager
 from ..utils.utils import randn, resolve_device
@@ -176,7 +177,7 @@ class JascoSolver(SolverRunMixin):
             count += 1
         metrics = {k: v / max(count, 1) for k, v in totals.items()}
         metrics["loss"] = float(np.mean(list(metrics.values())))
-        return metrics
+        return distrib.average_metrics(metrics, count)
 
     @torch.no_grad()
     def generate(self) -> dict:

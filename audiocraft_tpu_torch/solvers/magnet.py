@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from ..models import builders as model_builders
+from ..parallel import distrib
 from .musicgen import (MusicGenSolver, _autocast, _rng_state, _set_rng_state)
 
 
@@ -167,8 +168,12 @@ class MagnetSolver(MusicGenSolver):
                                      training=False)
                 ce_sum += float(m["ce"])
                 n += 1
-        ce = ce_sum / max(n, 1)
-        return {"ce": ce, "ppl": math.exp(ce)}
+        # average the CE over the processes first, then take its
+        # perplexity: the mean of exp(ce) would differ from exp(mean ce)
+        metrics = distrib.average_metrics({"ce": ce_sum / max(n, 1)}, n)
+        if "ce" in metrics:
+            metrics["ppl"] = math.exp(metrics["ce"])
+        return metrics
 
     def _rng_states(self) -> dict:
         return {**super()._rng_states(), "mask": _rng_state(self._mask_rng)}

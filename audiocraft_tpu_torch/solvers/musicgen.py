@@ -30,6 +30,8 @@ from ..models.lm import LMModel
 from ..modules.conditioners import (AttributeDropout,
                                     ClassifierFreeGuidanceDropout,
                                     ConditioningAttributes)
+from ..parallel import distrib
+from ..parallel.mesh import batch_sharding, data_all_reduce
 from ..utils import jax_weights
 from ..utils.cache import CachedBatchLoader, CachedBatchWriter
 from ..utils.samples.manager import SampleManager
@@ -41,21 +43,27 @@ logger = logging.getLogger(__name__)
 
 
 def compute_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
-                          mask: torch.Tensor
+                          mask: torch.Tensor, mesh=None
                           ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
     """CE over the valid positions, per codebook. logits [B, K, T, card] (any
     float dtype; the softmax runs in f32), targets [B, K, T], mask [B, K, T].
     Returns (mean over codebooks, per-codebook CE [K]). Positions outside the
     mask are selected away (`torch.where`, not a product: their CE may be
     anything and must not reach the sum or its gradient); their targets,
-    which may be the special token, are clamped into range first."""
+    which may be the special token, are clamped into range first. With a
+    `mesh` the rows are this rank's slice of the batch and the counts are
+    the whole batch's: the result is this rank's share of the global CE,
+    which the ranks' shares sum to."""
     B, K, T = targets.shape
     card = logits.shape[-1]
     ce_all = F.cross_entropy(logits.float().reshape(-1, card),
                              targets.clamp(0, card - 1).reshape(-1),
                              reduction="none").view(B, K, T)
     ce_sel = torch.where(mask, ce_all, torch.zeros_like(ce_all))
-    counts = mask.sum(dim=(0, 2)).float().clamp_min(1.0)
+    counts = mask.sum(dim=(0, 2)).float()
+    if mesh is not None:
+        counts = data_all_reduce(counts, mesh)
+    counts = counts.clamp_min(1.0)
     ce_per_codebook = ce_sel.sum(dim=(0, 2)) / counts
     return ce_per_codebook.mean(), ce_per_codebook
 
@@ -114,21 +122,37 @@ def _ce_metrics(ce: torch.Tensor, ce_q: torch.Tensor) -> dict:
 def train_step(model: LMModel, optimizer: builders.ClippedOptimizer,
                codes: torch.Tensor, tokenized: tp.Dict[str, tp.Any],
                dropout_seed: tp.Optional[int] = None,
-               compute_dtype: tp.Optional[torch.dtype] = None) -> dict:
+               compute_dtype: tp.Optional[torch.dtype] = None,
+               mesh=None) -> dict:
     """One update on codes [B, K, T] (padding already the special token).
     Returns 0-d device tensors: ce, ppl, grad_norm (before clipping), and
-    ce_q{k}, ppl_q{k} per codebook; nothing here waits for the device."""
+    ce_q{k}, ppl_q{k} per codebook; nothing here waits for the device.
+
+    With a `mesh` (the model through `parallel.sharding.shard_lm`, the
+    optimizer over its parameters) every rank passes the same global
+    batch and runs its slice over ('dp', 'fsdp'); the loss is its share of
+    the global CE, the gradients are summed over the data-like axes, and
+    the metrics are the global batch's: the step computes the one-process
+    step on the whole batch (the JAX package's `make_train_step(model,
+    optimizer, mesh)`). Dropout draws its masks per rank's rows, so with
+    dropout the two steps differ."""
     model.train()
     model.condition_provider.eval()
+    rows = None if mesh is None else batch_sharding(mesh)
     with _autocast(codes.device, compute_dtype):
         condition_tensors = model.compute_conditions(tokenized)
+        if rows is not None:
+            codes, condition_tensors = rows(codes), rows(condition_tensors)
         out = model.compute_predictions(codes, condition_tensors,
                                         dropout_seed=dropout_seed)
         mask = out.mask & (codes != model.special_token_id)
-        ce, ce_q = compute_cross_entropy(out.logits, codes, mask)
+        ce, ce_q = compute_cross_entropy(out.logits, codes, mask, mesh)
     optimizer.zero_grad()
     ce.backward()
     grad_norm = optimizer.step()
+    if mesh is not None:
+        ce_q = data_all_reduce(ce_q.detach().clone(), mesh)
+        ce = ce_q.mean()
     return {**_ce_metrics(ce, ce_q), "grad_norm": grad_norm}
 
 
@@ -204,15 +228,7 @@ class MusicGenSolver(SolverRunMixin):
             p=cls_free.get("training_dropout", 0.0))
         self.att_dropout = AttributeDropout(p=cfg.get("attribute_dropout", {}))
 
-        optim_cfg = cfg.get("optim", {}) or {}
-        total_updates = (optim_cfg.get("epochs", 1)
-                         * optim_cfg.get("updates_per_epoch", 2000))
-        overrides = {k: lm_cfg[k] for k in ("lr", "weight_decay")
-                     if lm_cfg.get(k) is not None}
-        params = builders.get_optim_parameter_groups(
-            self.model, {"transformer": overrides})
-        self.optimizer = builders.get_optimizer(params, optim_cfg,
-                                                total_updates)
+        self.optimizer = self.new_optimizer()
         self._rng = torch.Generator().manual_seed(seed)
         self.epoch = 1
 
@@ -236,6 +252,20 @@ class MusicGenSolver(SolverRunMixin):
                 self.dataloaders["train"] = self.cached_batch_loader
 
     _debug_lm = staticmethod(model_builders.get_debug_lm_model)
+
+    def new_optimizer(self) -> builders.ClippedOptimizer:
+        """The config's optimizer (groups, schedule, clipping) over the
+        LM's parameters as they are now: a model that
+        `parallel.sharding.shard_lm` re-stored needs a new one."""
+        lm_cfg = self.cfg.get("transformer_lm") or {}
+        optim_cfg = self.cfg.get("optim", {}) or {}
+        total_updates = (optim_cfg.get("epochs", 1)
+                         * optim_cfg.get("updates_per_epoch", 2000))
+        overrides = {k: lm_cfg[k] for k in ("lr", "weight_decay")
+                     if lm_cfg.get(k) is not None}
+        params = builders.get_optim_parameter_groups(
+            self.model, {"transformer": overrides})
+        return builders.get_optimizer(params, optim_cfg, total_updates)
 
     def _next_dropout_seed(self) -> int:
         return int(torch.randint(0, 2 ** 62, (1,), generator=self._rng))
@@ -318,10 +348,11 @@ class MusicGenSolver(SolverRunMixin):
             for key, value in step.items():
                 average[key] = average.get(key, 0.0) + float(value)
         metrics = {k: v / max(count, 1) for k, v in average.items()}
-        metrics.update(self.evaluate_audio_generation())
-        return metrics
+        gen_metrics, gen_weights = self.evaluate_audio_generation()
+        metrics.update(gen_metrics)
+        return distrib.average_metrics(metrics, count, weights=gen_weights)
 
-    def evaluate_audio_generation(self) -> dict:
+    def evaluate_audio_generation(self) -> tp.Tuple[dict, dict]:
         """The generative metrics that `evaluate.metrics` asks for (FAD,
         KLD, CLAP text consistency, chroma cosine), over audio generated
         from the descriptions of the 'evaluate' loader's batches (at most
@@ -330,9 +361,11 @@ class MusicGenSolver(SolverRunMixin):
         skipped with a warning without their checkpoints, and FAD reports
         `fad_logmel` under its fallback. With `use_gt` a metric takes the
         reference through the codec instead of the generated audio (text
-        consistency: the reference itself). A metric whose `compute`
-        fails (too few windows, an empty split) is left out of the result,
-        as the JAX package's averaging drops a key of weight 0."""
+        consistency: the reference itself). Returns the metrics and their
+        weights for `distrib.average_metrics`: a metric whose `compute`
+        fails on this process (too few windows, an empty split) gets
+        weight 0, so the key set stays the same on every process and the
+        key drops out where no process had it."""
         evaluate_cfg = self.cfg.get("evaluate", {}) or {}
         asked = evaluate_cfg.get("metrics", {}) or {}
         m_cfg = self.cfg.get("metrics", {}) or {}
@@ -357,10 +390,10 @@ class MusicGenSolver(SolverRunMixin):
                 "sample_rate", self.compression_model.sample_rate)
             chroma = builders.get_chroma_cosine_similarity(sub, self.device)
         if all(m is None for m in (fad, kldiv, textcons, chroma)):
-            return {}
+            return {}, {}
         loader = self.dataloaders.get("evaluate")
         if loader is None:
-            return {}
+            return {}, {}
         model = self._gen_model()
         sr = self.compression_model.sample_rate
         max_batches = evaluate_cfg.get("max_generation_batches")
@@ -402,24 +435,33 @@ class MusicGenSolver(SolverRunMixin):
                               else gen, ref, sizes, rates)
 
         results: tp.Dict[str, float] = {}
+        weights: tp.Dict[str, float] = {}
 
-        def emit(name: str, compute: tp.Callable[[], tp.Dict[str, float]]):
+        def emit(keys: tp.List[str],
+                 compute: tp.Callable[[], tp.Dict[str, float]]):
             try:
-                results.update({k: float(v) for k, v in compute().items()})
+                values = compute()
             except (AssertionError, ValueError) as exc:
-                logger.warning("generative metric %s left out: %s", name, exc)
+                logger.warning("generative metric %s incomplete on this "
+                               "process: %s", "/".join(keys), exc)
+                values = {k: 0.0 for k in keys}
+                weights.update({k: 0.0 for k in keys})
+            else:
+                weights.update({k: 1.0 for k in keys})
+            results.update({k: float(v) for k, v in values.items()})
 
         if fad is not None:
             key = "fad" if fad.embed_kind != "logmel-fallback" else "fad_logmel"
-            emit(key, lambda: {key: fad.compute()})
+            emit([key], lambda: {key: fad.compute()})
         if kldiv is not None:
-            emit("kld", kldiv.compute)
+            emit(["kld", "kld_pq", "kld_qp", "kld_both"], kldiv.compute)
         if textcons is not None:
-            emit("text_consistency",
+            emit(["text_consistency"],
                  lambda: {"text_consistency": textcons.compute()})
         if chroma is not None:
-            emit("chroma_cosine", lambda: {"chroma_cosine": chroma.compute()})
-        return results
+            emit(["chroma_cosine"],
+                 lambda: {"chroma_cosine": chroma.compute()})
+        return results, weights
 
     def _gen_model(self):
         """The generation API over the solver's LM and codec, with the

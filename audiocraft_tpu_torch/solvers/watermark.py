@@ -51,6 +51,7 @@ from ..losses.wmloss import WMDetectionLoss, WMMbLoss
 from ..metrics.miou import calculate_miou
 from ..models.watermark import AudioSealDetector, AudioSealWM
 from ..modules.watermark import mix, pad
+from ..parallel import distrib
 from ..utils import audio_effects, jax_weights
 from ..utils.audio_effects import AudioEffects
 from ..utils.utils import resolve_device
@@ -287,7 +288,8 @@ class WatermarkSolver(SolverRunMixin):
         if ((self.cfg.get("evaluate", {}) or {}).get("metrics", {})
                 or {}).get("pesq"):
             logger.warning("PESQ/STOI need external C extensions; skipping")
-        return {k: v / max(count, 1) for k, v in totals.items()}
+        return distrib.average_metrics(
+            {k: v / max(count, 1) for k, v in totals.items()}, count)
 
     # ------------------------------------------------------------ checkpoints
     def state_dict(self) -> dict:

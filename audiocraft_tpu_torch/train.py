@@ -12,11 +12,16 @@ where `config.json` and the checkpoint go. The solver runs on the config's
 `device`: `cuda` by default, and for the `tpu` that the shared configs
 name; asking for CUDA without a card raises. `--run_stage <stage>` runs one
 stage (train, valid, evaluate or generate) instead of the epochs.
+
+Several processes: start the module under torchrun (`torchrun
+--nproc_per_node=N -m audiocraft_tpu_torch.train ...`); its `MASTER_ADDR`
+and `WORLD_SIZE` make `parallel.distrib.init` start the process group
+(NCCL on CUDA, gloo with `device=cpu`), and the batch size and each split's
+`num_samples` are divided among the processes.
 """
 import argparse
 import json
 import logging
-import os
 import random
 import typing as tp
 
@@ -25,6 +30,7 @@ import torch
 
 from .config import CONFIG_ROOT, XP, _deep_update, apply_overrides, load_config
 from .environment import AudioCraftEnvironment
+from .parallel import distrib
 
 logger = logging.getLogger(__name__)
 
@@ -32,10 +38,8 @@ SPLITS = ("train", "valid", "evaluate", "generate")
 
 
 def world_size() -> int:
-    """The processes of the run: the process group's, else `WORLD_SIZE`."""
-    if torch.distributed.is_available() and torch.distributed.is_initialized():
-        return torch.distributed.get_world_size()
-    return int(os.environ.get("WORLD_SIZE", 1))
+    """The processes of the run: the process group's (1 without one)."""
+    return distrib.world_size()
 
 
 def solver_device(cfg: dict) -> str:
@@ -143,6 +147,7 @@ def main(argv: tp.Optional[tp.List[str]] = None):
                         format="[%(levelname)s %(name)s] %(message)s")
     logger.info("XP signature: %s folder: %s", xp.sig, xp.folder)
     init_seed_and_system(cfg)
+    distrib.init(device=solver_device(cfg))
     (xp.folder / "config.json").write_text(json.dumps(cfg, default=str))
     solver = get_solver(cfg)
     if args.run_stage:

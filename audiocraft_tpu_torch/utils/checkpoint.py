@@ -1,6 +1,6 @@
-"""Checkpoint naming, source resolution, atomic saves and the stale flush
-(counterpart of `audiocraft_tpu/utils/checkpoint.py`, without its
-multi-host sharded protocol).
+"""Checkpoint naming, source resolution, atomic saves with the sharded
+`.tmp.done` protocol, and the stale flush (counterpart of
+`audiocraft_tpu/utils/checkpoint.py`).
 
 The port's checkpoints are `torch.save` files of plain containers and
 tensors, read back with `weights_only=True`. A checkpoint that the JAX
@@ -19,14 +19,13 @@ import numpy as np
 import torch
 
 from .. import environment
+from ..parallel import distrib
 
 logger = logging.getLogger(__name__)
 
 
 def current_rank() -> int:
-    if torch.distributed.is_available() and torch.distributed.is_initialized():
-        return torch.distributed.get_rank()
-    return 0
+    return distrib.rank()
 
 
 def checkpoint_name(name: tp.Optional[str] = None,
@@ -59,13 +58,30 @@ def resolve_checkpoint_path(sig_or_path: tp.Union[Path, str],
 
 
 def save_checkpoint(state: tp.Dict[str, tp.Any],
-                    path: tp.Union[Path, str]) -> None:
+                    path: tp.Union[Path, str], is_sharded: bool = False
+                    ) -> None:
     """`torch.save` to `<path>.tmp`, then an atomic rename onto `path`, so
-    a reader never sees half a file."""
+    a reader never sees half a file. A sharded save (every rank writes its
+    own `path`) is a two-phase commit: rank 0 removes the stale
+    `.tmp.done` token beside rank 0's file, all ranks meet, each writes,
+    all meet again, and only then rank 0 touches the token; a reader that
+    sees it has a complete shard set."""
     path = Path(path)
+    token = None
+    if is_sharded:
+        stem = re.sub(r"^checkpoint_?|\.th.*$", "", path.name) or None
+        rank0 = path.parent / checkpoint_name(stem, rank=0, use_fsdp=False)
+        token = rank0.parent / f"{rank0.name}.tmp.done"
+        if distrib.is_rank_zero() and token.exists():
+            token.unlink()
+        distrib.barrier("ckpt-token-removed")
     tmp = path.with_name(path.name + ".tmp")
     torch.save(state, tmp)
     os.replace(tmp, path)
+    if token is not None:
+        distrib.barrier("ckpt-shards-written")
+        if distrib.is_rank_zero():
+            token.touch()
 
 
 def load_checkpoint(path: tp.Union[Path, str]) -> tp.Dict[str, tp.Any]:

@@ -291,6 +291,18 @@ def _conv(p: Tree, prefix: str, transposed: bool, out: dict) -> None:
         out[prefix + "weight"] = np.asarray(p["kernel"]).transpose(perm)
     if "bias" in p:
         out[prefix + "bias"] = p["bias"]
+    _group_norm(p, prefix, out)
+
+
+def _group_norm(p: Tree, prefix: str, out: dict) -> None:
+    # a time_group_norm's flax `GroupNorm_0` is the `norm` beside the conv:
+    # `<...>.conv.conv.` -> `<...>.conv.norm.`
+    if "GroupNorm_0" in p:
+        parent = prefix[:-1].rpartition(".")[0]
+        parent = f"{parent}.norm." if parent else "norm."
+        for name, target in (("scale", "weight"), ("bias", "bias")):
+            if name in p["GroupNorm_0"]:
+                out[parent + target] = p["GroupNorm_0"][name]
 
 
 def _seanet(p: Tree, model: nn.Sequential, prefix: str, decoder: bool,
@@ -362,6 +374,7 @@ def _conv2d(p: Tree, prefix: str, out: dict) -> None:
         out[prefix + "weight_g"] = np.asarray(p["kernel_g"]).reshape(-1, 1, 1, 1)
     if "bias" in p:
         out[prefix + "bias"] = p["bias"]
+    _group_norm(p, prefix, out)
 
 
 def adversary_state(adversary: nn.Module, params: Tree) -> dict:

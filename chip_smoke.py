@@ -47,6 +47,14 @@ Phases, each printing one JSON line:
   resume   2 more steps, `save_checkpoints`, a fresh solver that
            `restore`s them (weights equal bit for bit), then one step in
            each: equal CE and weights within 2 x lr;
+  parallel the same LM and batch through `parallel/` on a one-rank NCCL
+           group (mesh 1 x 1 x 1): `shard_lm`, 2 sharded steps against 2
+           plain steps from the same weights (CE within 1e-5 relative,
+           weights within 2 x lr, K2 on every layer), `save_sharded` with
+           its `.tmp.done` token, a fresh sharded LM that restores and
+           takes the 3rd step with the CE of the run that went on,
+           bitwise; the epoch guard and `average_metrics`; then a SEANet
+           codec under `time_group_norm`, card against CPU;
   magnet_train  MAGNeT-small training at full width (8 x 10 s): two steps
            of each codebook stage, then two `run_step`s; finite CE, ms per
            step, peak memory, no K2 launch (non-causal attention);
@@ -1184,6 +1192,202 @@ def phase_resume(torch, card, solver, batch):
         del fresh, ours, theirs, diffs
     finally:
         shutil.rmtree(folder, ignore_errors=True)
+
+
+PARALLEL_STEPS = 2
+CODEC_TGN_SECONDS = 2
+# the codec's f32 decode on the card (TF32 off) against the CPU's, as
+# relative L2 over the waveform: both sum in their own orders, about 1e-6
+CODEC_TGN_RTOL = 1e-4
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _codec_time_group_norm(torch, card):
+    """EnCodec 32 kHz's SEANet (`solver/compression/encodec_musicgen_32khz`)
+    under `norm: time_group_norm` with `norm_params: {epsilon: 1e-5}`,
+    seeded random weights: the encoder's latents and the decoder's
+    waveform on the card (f32, TF32 off) against the CPU's."""
+    from audiocraft_tpu_torch.config import load_config
+    from audiocraft_tpu_torch.models import builders
+    from audiocraft_tpu_torch.utils.utils import no_tf32
+    cfg = load_config("solver/compression/encodec_musicgen_32khz")
+    cfg["encodec"]["seanet"].update(norm="time_group_norm",
+                                    norm_params={"epsilon": 1e-5})
+    torch.manual_seed(3)
+    cpu = builders.get_compression_model(cfg, device="cpu")
+    n_norms = sum(type(m).__name__ == "TimeGroupNorm" for m in cpu.modules())
+    dev = builders.get_compression_model(cfg, device="cuda")
+    dev.load_state_dict(cpu.state_dict())
+    x = _seeded_music(torch, 2, CODEC_TGN_SECONDS).float()
+    with torch.no_grad(), no_tf32():
+        z_cpu = cpu.encoder(x.cpu())
+        y_cpu = cpu.decoder(z_cpu)
+        z_dev, t = _timed(torch, lambda: dev.encoder(x))
+        y_dev, t_dec = _timed(torch, lambda: dev.decoder(z_cpu.to("cuda")))
+    errs = {"latent_rel_l2": _rel_l2(z_dev.cpu(), z_cpu),
+            "decode_rel_l2": _rel_l2(y_dev.cpu(), y_cpu)}
+    if not all(e <= CODEC_TGN_RTOL for e in errs.values()):
+        raise AssertionError(f"time_group_norm codec: card vs CPU {errs} "
+                             f"beyond {CODEC_TGN_RTOL}")
+    return dict(codec_time_group_norm=dict(
+        config="solver/compression/encodec_musicgen_32khz + "
+               "seanet.norm=time_group_norm, norm_params.epsilon=1e-5",
+        group_norms=n_norms, batch=2, seconds=CODEC_TGN_SECONDS,
+        encode_s=t, decode_s=t_dec, tolerance=f"relative L2 <= "
+        f"{CODEC_TGN_RTOL} (f32, TF32 off)", **errs))
+
+
+def phase_parallel(torch, card, solver, batch):
+    """The sharded training path on a one-rank NCCL group at full width:
+    the train phase's solver LM (T5-base, 24 x 1024, f32 parameters, bf16
+    autocast) and encoded batch (16 x 30 s). `parallel.distrib.init` on a
+    free local port, a 1 x 1 x 1 mesh, `shard_lm`, then 2 sharded steps
+    against 2 plain `train_step`s from the same weights (CE within 1e-5
+    relative, weights within 2 x lr; K2 forward and backward on every
+    layer of every step); `save_sharded` (token present), the 3rd step of
+    the run that goes on, a freshly built and sharded LM that
+    `restore_sharded`s and takes the same 3rd step (CE bitwise equal);
+    the epoch guard and `average_metrics` on the group; then a SEANet
+    codec under `time_group_norm`, card against CPU."""
+    import shutil
+    from audiocraft_tpu_torch.models import builders
+    from audiocraft_tpu_torch.ops.flash_causal_attention import \
+        flash_causal_attention as fca
+    from audiocraft_tpu_torch.parallel import distrib
+    from audiocraft_tpu_torch.parallel.checkpoint import (restore_sharded,
+                                                          save_sharded)
+    from audiocraft_tpu_torch.parallel.composed_check import (
+        init_optimizer_state, load_train_state, train_state)
+    from audiocraft_tpu_torch.parallel.mesh import create_mesh
+    from audiocraft_tpu_torch.parallel.sharding import shard_lm
+    from audiocraft_tpu_torch.solvers.musicgen import train_step
+    from torch.distributed.tensor import DTensor
+    phase_t0 = time.perf_counter()
+    lm, dtype = solver.model, solver.compute_dtype
+    codes, tokenized = batch["codes"], batch["tokenized"]
+    L = lm.num_layers
+    folder = Path(__file__).resolve().parent / "build" / "smoke_parallel"
+    shutil.rmtree(folder, ignore_errors=True)
+    init = {k: v.detach().clone() for k, v in lm.state_dict().items()}
+    del solver.optimizer
+
+    # ---- the plain step from these weights
+    optimizer = solver.new_optimizer()
+    plain_ce = [float(train_step(lm, optimizer, codes, tokenized,
+                                 dropout_seed=i, compute_dtype=dtype)["ce"])
+                for i in range(PARALLEL_STEPS)]
+    plain = {k: v.detach().clone() for k, v in lm.state_dict().items()}
+    lr = optimizer.optimizer.param_groups[0]["lr"]
+    del optimizer
+    lm.load_state_dict(init)
+    _release(torch)
+
+    try:
+        t = time.perf_counter()
+        distrib.init(f"tcp://127.0.0.1:{_free_port()}", world_size=1,
+                     rank=0, device="cuda")
+        mesh = create_mesh(dp=1, fsdp=1, tp=1)
+        shard_lm(lm, mesh)
+        optimizer = solver.new_optimizer()
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t
+        if not all(isinstance(p, DTensor) for p in lm.parameters()):
+            raise AssertionError("shard_lm left a parameter unsharded")
+
+        # ---- sharded steps: the plain step's CE and weights, through K2
+        torch.cuda.reset_peak_memory_stats()
+        fca.launches = fca.backward_launches = 0
+        ces, step_s = [], []
+        for i in range(PARALLEL_STEPS):
+            m, s = _timed(torch, lambda: train_step(
+                lm, optimizer, codes, tokenized, dropout_seed=i,
+                compute_dtype=dtype, mesh=mesh))
+            ces.append(float(m["ce"]))
+            step_s.append(s)
+        launches = (fca.launches, fca.backward_launches)
+        peak = torch.cuda.max_memory_allocated()
+        expected = L * PARALLEL_STEPS
+        if launches != (expected, expected):
+            raise AssertionError(f"sharded steps: K2 launched {launches} "
+                                 f"(forward, backward), expected {expected} "
+                                 f"each")
+        ce_err = max(abs(a - b) / abs(b) for a, b in zip(ces, plain_ce))
+        if not ce_err <= 1e-5:
+            raise AssertionError(f"sharded CE {ces} vs plain {plain_ce}")
+        ours = lm.state_dict()
+        weight_err = max(
+            float((ours[k].to_local().float() - v.float()).abs().max())
+            for k, v in plain.items() if v.is_floating_point())
+        if not weight_err <= 2 * lr:
+            raise AssertionError(f"sharded weights differ from the plain "
+                                 f"step's by {weight_err} (> 2 x lr)")
+        del plain, ours
+
+        # ---- sharded save, then the run goes on for one step
+        state = train_state(lm, optimizer)
+        path, save_s = _timed(torch, lambda: save_sharded(
+            state, folder, name="parallel"))
+        token = path.parent / f"{path.name}.tmp.done"
+        if not token.exists():
+            raise AssertionError(f"no {token.name} after save_sharded")
+        written = path.stat().st_size
+        del state
+        ce3 = float(train_step(lm, optimizer, codes, tokenized,
+                               dropout_seed=PARALLEL_STEPS,
+                               compute_dtype=dtype, mesh=mesh)["ce"])
+        del optimizer
+        solver.model = lm = None
+        _release(torch)
+
+        # ---- a fresh sharded LM restores and takes the same step
+        t = time.perf_counter()
+        solver.model = fresh = builders.get_lm_model(solver.cfg,
+                                                     device="cuda", seed=9)
+        shard_lm(fresh, mesh)
+        fresh_opt = solver.new_optimizer()
+        init_optimizer_state(fresh_opt.optimizer)
+        torch.cuda.synchronize()
+        fresh_s = time.perf_counter() - t
+        restored, restore_s = _timed(torch, lambda: restore_sharded(
+            folder, train_state(fresh, fresh_opt), name="parallel"))
+        load_train_state(fresh, fresh_opt, restored)
+        step = int(restored["step"])
+        del restored
+        if step != PARALLEL_STEPS:
+            raise AssertionError(f"restored step {step}")
+        ce3_restored = float(train_step(
+            fresh, fresh_opt, codes, tokenized, dropout_seed=PARALLEL_STEPS,
+            compute_dtype=dtype, mesh=mesh)["ce"])
+        if ce3_restored != ce3:
+            raise AssertionError(f"restored CE {ce3_restored} != {ce3}")
+        distrib.check_epoch_consistency(step)
+        avg = distrib.average_metrics({"ce": ce3}, count=1)
+        if avg != {"ce": ce3}:
+            raise AssertionError(f"average_metrics {avg} on one rank")
+        backend = torch.distributed.get_backend()
+        del fresh, fresh_opt
+    finally:
+        distrib.close()
+        shutil.rmtree(folder, ignore_errors=True)
+    _release(torch)
+    codec = _codec_time_group_norm(torch, card)
+    emit("parallel", card=card, backend=backend, world_size=1,
+         mesh={"dp": 1, "fsdp": 1, "tp": 1}, layers=L, batch=TRAIN_BATCH,
+         seconds_per_item=TRAIN_SECONDS, setup_s=setup_s, step_s=step_s,
+         ce=ces, plain_ce=plain_ce, ce_max_rel_err=ce_err,
+         weights_max_abs_diff=weight_err, weight_tolerance=2 * lr,
+         k2_forward_launches=launches[0], k2_backward_launches=launches[1],
+         expected_launches=expected, max_memory_allocated=peak,
+         save_s=save_s, bytes_written=written, fresh_lm_build_s=fresh_s,
+         restore_s=restore_s, ce_continued=ce3, ce_restored=ce3_restored,
+         restored_step=step, **codec,
+         phase_s=time.perf_counter() - phase_t0)
 
 
 def phase_magnet_train(torch, card):
@@ -4260,6 +4464,7 @@ def main() -> int:
     train_launches, solver, batch = phase_train(torch, card)
     remat = phase_train_remat(torch, card, solver, batch)
     phase_resume(torch, card, solver, batch)
+    phase_parallel(torch, card, solver, batch)
     del solver, batch
     _release(torch)
     phase_magnet_train(torch, card)

@@ -38,7 +38,8 @@ as MBD's; a `MusicGenSolver` step from a datasource, its batch equal and
 its CE rtol 1e-5 and gradients atol 1e-5 / rtol 1e-4; the evaluation
 towers under PyTorch's TF32 defaults (they turn TF32 off themselves):
 VGGish embeddings and PaSST probabilities relative L2 1e-4, CLAP text
-consistency atol 1e-5."""
+consistency atol 1e-5; a sharded LM step on a one-rank NCCL group against
+the plain step, CE rtol 1e-6 and weights within 2 x lr."""
 import pytest
 import torch
 
@@ -1526,3 +1527,58 @@ def test_text_consistency_on_card_matches_cpu(tmp_path, _tf32_on):
         metric.update(wav.to(device), texts, [32000, 32000], [32000, 32000])
         values[device] = metric.compute()
     assert abs(values["cuda"] - values["cpu"]) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_sharded_step_on_a_one_rank_nccl_group_matches_the_plain_step():
+    """`parallel.shard_lm` on a one-rank NCCL group (mesh 1 x 1 x 1): two
+    sharded steps of an f32 LM with one 64-wide head give the plain steps'
+    CE (rtol 1e-6) and weights (within 2 x lr), every self-attention
+    through K2."""
+    import socket
+    import numpy as np
+    from torch.distributed.tensor import DTensor
+    from audiocraft_tpu_torch.parallel import distrib
+    from audiocraft_tpu_torch.parallel.mesh import create_mesh
+    from audiocraft_tpu_torch.parallel.sharding import shard_lm
+    from audiocraft_tpu_torch.solvers.musicgen import (make_optimizer,
+                                                       train_step)
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+
+    def build():
+        torch.manual_seed(0)
+        return musicgen_lm("xsmall", n_q=4, card=64, num_heads=1,
+                           num_layers=2, device="cuda")
+
+    rs = np.random.RandomState(3)
+    codes = torch.from_numpy(rs.randint(0, 64, (4, 4, 32))).cuda()
+    tok = {"description": (rs.randint(0, 2048, (4, 4)),
+                           np.ones((4, 4), np.int64))}
+    plain = build()
+    opt = make_optimizer(plain.parameters(), 1e-3)
+    want = [float(train_step(plain, opt, codes, tok, dropout_seed=i)["ce"])
+            for i in range(2)]
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    distrib.init(f"tcp://127.0.0.1:{port}", world_size=1, rank=0,
+                 device="cuda")
+    try:
+        mesh = create_mesh(dp=1, fsdp=1, tp=1)
+        sharded = shard_lm(build(), mesh)
+        assert all(isinstance(p, DTensor) for p in sharded.parameters())
+        opt = make_optimizer(sharded.parameters(), 1e-3)
+        flash_causal_attention.launches = 0
+        flash_causal_attention.backward_launches = 0
+        got = [float(train_step(sharded, opt, codes, tok, dropout_seed=i,
+                                mesh=mesh)["ce"]) for i in range(2)]
+        assert (flash_causal_attention.launches,
+                flash_causal_attention.backward_launches) == (4, 4)
+        for a, b in zip(got, want):
+            assert abs(a - b) <= 1e-6 * abs(b), (got, want)
+        ours = sharded.state_dict()
+        for k, v in plain.state_dict().items():
+            assert float((ours[k].to_local() - v).abs().max()) <= 2e-3, k
+    finally:
+        distrib.close()

@@ -386,9 +386,8 @@ def test_chroma_conditioner_with_separator_matches_jax(tmp_path, monkeypatch):
 
 def test_chroma_conditioner_refuses_unported_options():
     # the embedding cache is ported (`test_torch_data_train.py` holds it
-    # against the JAX package); eval_wavs and a wrong dim still raise
-    with pytest.raises(NotImplementedError, match="eval_wavs"):
-        ChromaStemConditioner(16, eval_wavs="/nowhere", device="cpu")
+    # against the JAX package) and eval_wavs is accepted as there
+    # (`test_torch_parallel.py`); a wrong dim still raises
     with pytest.raises(ValueError):
         ChromaStemConditioner(16, dim=13, device="cpu")
 

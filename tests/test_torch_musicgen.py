@@ -82,7 +82,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     """Every module of the port, chip_smoke.py and the port's scripts
     (`scripts/torch_*.py`) import with `jax`, `audiocraft_tpu` and
     `transformers` (absent on the card's machine) blocked, and no source
-    names them in an import."""
+    names them in an import, but for the T5 tokenizer's optional import of
+    `transformers` inside the call, behind its fallback (as the JAX
+    package's)."""
     modules = sorted(
         ".".join(p.relative_to(ROOT).with_suffix("").parts)
         for p in PORT.rglob("*.py") if p.name != "__init__.py") + [
@@ -104,7 +106,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "metrics.fad", "metrics.vggish", "metrics.passt", "metrics.kld",
         "metrics.clap_consistency", "metrics.chroma_cosinesim",
         "metrics.pesq", "metrics.visqol", "grids._base_explorers",
-        "grids.__main__", "utils.assets", "utils.notebook")
+        "grids.__main__", "utils.assets", "utils.notebook",
+        "parallel.distrib", "parallel.mesh", "parallel.sharding",
+        "parallel.checkpoint", "parallel.composed_check")
     } <= set(modules)
     script = (
         "import sys, importlib, importlib.util\n"
@@ -122,10 +126,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                           capture_output=True, text=True, timeout=120)
     assert "IMPORTS_OK" in proc.stdout, proc.stderr[-3000:]
     pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|audiocraft_tpu"
-                         r"|transformers)\b(?!_torch)", re.M)
+                         r")\b(?!_torch)", re.M)
+    optional = re.compile(r"^(\s*)(import|from)\s+transformers\b", re.M)
     for path in (list(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
                  + [Path(p) for p in scripts]):
-        assert not pattern.search(path.read_text()), path
+        text = path.read_text()
+        assert not pattern.search(text), path
+        for match in optional.finditer(text):
+            assert path.name == "conditioners.py" and match.group(1), path
 
 
 def test_generation_counts_forwards_per_pattern_step():

@@ -248,7 +248,7 @@ def test_unported_stages_raise_naming_slice_h(tmp_path):
     holds them against the JAX solver), and the generate stage stores its
     samples."""
     solver = _solver(_cfg(tmp_path, evaluate={"metrics": {"fad": True}}), [])
-    assert solver.evaluate_audio_generation() == {}
+    assert solver.evaluate_audio_generation() == ({}, {})
     # the generate stage stores its samples through the sample manager
     solver.dataloaders["generate"] = [_batch(0)]
     solver.cfg["generate"] = {"lm": {"gen_duration": 0.2,
