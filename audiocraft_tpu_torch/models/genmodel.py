@@ -8,6 +8,7 @@ import torch
 
 from ..data.audio_utils import convert_audio
 from ..modules.conditioners import ConditioningAttributes
+from ..utils import tracing
 from ..utils.utils import resolve_device
 from .encodec import CompressionModel
 from .lm import GenParams, LMModel
@@ -102,10 +103,12 @@ class BaseGenModel:
         return self._generate(descriptions, prompt, return_tokens)
 
     def _generate(self, descriptions, prompt, return_tokens: bool):
-        attributes, prompt_tokens = self._prepare_tokens_and_attributes(
-            descriptions, prompt)
-        tokens = self._generate_tokens(attributes, prompt_tokens)
-        audio = self.generate_audio(tokens)
+        with tracing.span("generate", rows=len(descriptions),
+                          frames=int(self.duration * self.frame_rate)):
+            attributes, prompt_tokens = self._prepare_tokens_and_attributes(
+                descriptions, prompt)
+            tokens = self._generate_tokens(attributes, prompt_tokens)
+            audio = self.generate_audio(tokens)
         return (audio, tokens) if return_tokens else audio
 
     def _lm_generate(self, prompt_tokens, attributes, max_gen_len: int):
@@ -151,4 +154,6 @@ class BaseGenModel:
     def generate_audio(self, gen_tokens: torch.Tensor) -> torch.Tensor:
         """Codes [B, K, T] -> audio [B, C, T * hop]."""
         assert gen_tokens.dim() == 3
-        return self.compression_model.decode(gen_tokens, device=self.device)
+        with tracing.span("codec.decode", device=self.device.type == "cuda"):
+            return self.compression_model.decode(gen_tokens,
+                                                 device=self.device)

@@ -44,6 +44,7 @@ from ..modules.patterns import CodebooksPatternProvider
 from ..modules.transformer import LayerCache, StreamingTransformer
 from ..ops.decode_attention import decode_attention
 from ..ops.quant import QTensor, quantize_weight, w8a8_heads
+from ..utils import tracing
 from ..utils.utils import check_module_device, resolve_device, sample_tokens
 
 ConditionTensors = tp.Dict[str, ConditionType]
@@ -316,10 +317,6 @@ class LMModel(nn.Module):
         cfg_coef = self.cfg_coef if gen.cfg_coef is None else gen.cfg_coef
         two_step = (self.two_step_cfg if gen.two_step_cfg is None
                     else gen.two_step_cfg)
-        if condition_tensors is None:
-            condition_tensors = self.prepare_cfg_conditions(
-                conditions, bool(two_step), gen.cfg_coef_beta)
-
         K = self.n_q
         if prompt is None:
             prompt = torch.zeros(num_samples, K, 0, dtype=torch.long)
@@ -339,29 +336,35 @@ class LMModel(nn.Module):
             max_gen_len, K, keep_only_valid_steps=False)
         seq_mask = torch.from_numpy(seq_mask_np).to(device)  # [K, S]
 
-        cfg_mult = 1
-        if condition_tensors:
-            cfg_mult = 3 if gen.cfg_coef_beta is not None else 2
-        # one stream of cfg_mult * B rows, or two streams of B (two-step CFG)
-        if isinstance(condition_tensors, tuple):
-            streams, stream_batch = list(condition_tensors), B
-        else:
-            streams, stream_batch = [condition_tensors], cfg_mult * B
-        cache_dtype = cache_dtype or self.emb[0].weight.dtype
-        caches_list = []
-        for ct in streams:
-            # the pattern steps plus this stream's prepended conditions
-            capacity = S + self.fuser.prepend_length(ct)
-            caches = self.transformer.init_cache(stream_batch, capacity,
-                                                 cache_dtype, device)
-            if self.cross_attention and ct:
-                cross_src = self.fuser.cross_source(ct)
-                # cross K/V stay bf16 under an int8 self-attention cache
-                cross_dt = (torch.bfloat16 if cache_dtype == torch.int8
-                            else cache_dtype)
-                self.transformer.precompute_cross_kv(cross_src.to(cross_dt),
-                                                     caches)
-            caches_list.append(caches)
+        on_card = device.type == "cuda"
+        with tracing.span("lm.conditions", device=on_card):
+            if condition_tensors is None:
+                condition_tensors = self.prepare_cfg_conditions(
+                    conditions, bool(two_step), gen.cfg_coef_beta)
+            cfg_mult = 1
+            if condition_tensors:
+                cfg_mult = 3 if gen.cfg_coef_beta is not None else 2
+            # one stream of cfg_mult * B rows, or two streams of B
+            # (two-step CFG)
+            if isinstance(condition_tensors, tuple):
+                streams, stream_batch = list(condition_tensors), B
+            else:
+                streams, stream_batch = [condition_tensors], cfg_mult * B
+            cache_dtype = cache_dtype or self.emb[0].weight.dtype
+            caches_list = []
+            for ct in streams:
+                # the pattern steps plus this stream's prepended conditions
+                capacity = S + self.fuser.prepend_length(ct)
+                caches = self.transformer.init_cache(stream_batch, capacity,
+                                                     cache_dtype, device)
+                if self.cross_attention and ct:
+                    cross_src = self.fuser.cross_source(ct)
+                    # cross K/V stay bf16 under an int8 self-attention cache
+                    cross_dt = (torch.bfloat16 if cache_dtype == torch.int8
+                                else cache_dtype)
+                    self.transformer.precompute_cross_kv(
+                        cross_src.to(cross_dt), caches)
+                caches_list.append(caches)
         # the pattern step that the next step samples, on the device
         offset = torch.full((1,), start, dtype=torch.long, device=device)
 
@@ -396,13 +399,15 @@ class LMModel(nn.Module):
                 cur == unknown, next_token, cur)[..., None])
             offset.add_(1)
 
-        step(gen_sequence[..., :start])  # the prefill
+        with tracing.span("lm.prefill", device=on_card):
+            step(gen_sequence[..., :start])
         decode_steps = S - 1 - start
-        if device.type == "cuda":
-            _replay_decode_steps(step, decode_steps, device, generator)
-        else:
-            for _ in range(decode_steps):
-                step()
+        with tracing.span("lm.decode", steps=decode_steps):
+            if on_card:
+                _replay_decode_steps(step, decode_steps, device, generator)
+            else:
+                for _ in range(decode_steps):
+                    step()
 
         gen_sequence = torch.where(seq_mask[None], gen_sequence,
                                    torch.full_like(gen_sequence, special))
@@ -413,12 +418,13 @@ class LMModel(nn.Module):
 
 @dataclasses.dataclass
 class DecodeGraphStats:
-    """What the decode graphs of this process did: captures, replays, the
-    host seconds and device bytes (the graph's private memory pool, as
-    `torch.cuda.memory_reserved` grew) of the last capture, and CUDA events
-    around the last generate's replays."""
+    """What the decode graphs of this process did: the captures, the host
+    seconds and device bytes (the graph's private memory pool, as
+    `torch.cuda.memory_reserved` grew) of the last capture, and the CUDA
+    events around the last generate's replays with their count. The same
+    readings time the spans `lm.graph.capture` (host) and `lm.replays`
+    (device) of `utils.tracing`."""
     captures: int = 0
-    replays: int = 0
     last_capture_s: float = 0.0
     last_capture_bytes: int = 0
     last_replays: tp.Optional[tp.Tuple[torch.cuda.Event, torch.cuda.Event,
@@ -444,12 +450,20 @@ def _replay_decode_steps(step: tp.Callable[[], None], steps: int,
     Warm-up and capture share a side stream. The request's generator is
     registered with the graph, so each replay draws new numbers from it.
     A replay skips the kernel wrappers, so the K1 launches captured into
-    the graph are counted once per replay instead of at capture."""
+    the graph are counted once per replay instead of at capture.
+
+    Spans (`utils.tracing`): `lm.warmup_step`, the eager step;
+    `lm.graph.sync`, the host's wait for the prefill and the warm-up;
+    `lm.graph.release`, the `empty_cache` before capture (cudaFree);
+    `lm.graph.capture`, timed by the same clock readings as
+    `decode_graph_stats.last_capture_s`; `lm.replays`, on the same CUDA
+    events as `decode_graph_stats.last_replays`. None lies inside the
+    captured step, where it would fire once, at capture."""
     if steps <= 0:
         return
     side = torch.cuda.Stream(device)
     side.wait_stream(torch.cuda.current_stream(device))
-    with torch.cuda.stream(side):
+    with tracing.span("lm.warmup_step"), torch.cuda.stream(side):
         step()
     if steps == 1:
         torch.cuda.current_stream(device).wait_stream(side)
@@ -458,14 +472,20 @@ def _replay_decode_steps(step: tp.Callable[[], None], steps: int,
     if generator is not None:
         graph.register_generator_state(generator)
     launches = decode_attention.launches
-    torch.cuda.synchronize(device)
-    torch.cuda.empty_cache()
-    reserved, t0 = torch.cuda.memory_reserved(device), time.perf_counter()
-    with torch.cuda.graph(graph, stream=side,
-                          capture_error_mode="thread_local"):
-        step()
+    with tracing.span("lm.graph.sync"):
+        torch.cuda.synchronize(device)
+    with tracing.span("lm.graph.release"):
+        torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved(device)
+    with tracing.span("lm.graph.capture") as capture:
+        t0 = time.time_ns()
+        with torch.cuda.graph(graph, stream=side,
+                              capture_error_mode="thread_local"):
+            step()
+        t1 = time.time_ns()
+        capture.set_host(t0, t1)
     stats = decode_graph_stats
-    stats.last_capture_s = time.perf_counter() - t0
+    stats.last_capture_s = (t1 - t0) / 1e9
     stats.last_capture_bytes = torch.cuda.memory_reserved(device) - reserved
     stats.captures += 1
     captured = decode_attention.launches - launches
@@ -473,12 +493,13 @@ def _replay_decode_steps(step: tp.Callable[[], None], steps: int,
     stream = torch.cuda.current_stream(device)
     stream.wait_stream(side)
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record(stream)
-    for _ in range(steps - 1):
-        graph.replay()
-        decode_attention.launches += captured
-    end.record(stream)
-    stats.replays += steps - 1
+    with tracing.span("lm.replays", steps=steps - 1) as replays:
+        start.record(stream)
+        for _ in range(steps - 1):
+            graph.replay()
+            decode_attention.launches += captured
+        end.record(stream)
+        replays.set_events(start, end)
     stats.last_replays = (start, end, steps - 1)
 
 

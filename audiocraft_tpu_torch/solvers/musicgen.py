@@ -32,7 +32,7 @@ from ..modules.conditioners import (AttributeDropout,
                                     ConditioningAttributes)
 from ..parallel import distrib
 from ..parallel.mesh import batch_sharding, data_all_reduce
-from ..utils import jax_weights
+from ..utils import jax_weights, tracing
 from ..utils.cache import CachedBatchLoader, CachedBatchWriter
 from ..utils.samples.manager import SampleManager
 from ..utils.utils import resolve_device, to_device
@@ -139,7 +139,9 @@ def train_step(model: LMModel, optimizer: builders.ClippedOptimizer,
     model.train()
     model.condition_provider.eval()
     rows = None if mesh is None else batch_sharding(mesh)
-    with _autocast(codes.device, compute_dtype):
+    on_card = codes.device.type == "cuda"
+    with tracing.span("solver.forward", device=on_card), \
+            _autocast(codes.device, compute_dtype):
         condition_tensors = model.compute_conditions(tokenized)
         if rows is not None:
             codes, condition_tensors = rows(codes), rows(condition_tensors)
@@ -147,9 +149,11 @@ def train_step(model: LMModel, optimizer: builders.ClippedOptimizer,
                                         dropout_seed=dropout_seed)
         mask = out.mask & (codes != model.special_token_id)
         ce, ce_q = compute_cross_entropy(out.logits, codes, mask, mesh)
-    optimizer.zero_grad()
-    ce.backward()
-    grad_norm = optimizer.step()
+    with tracing.span("solver.backward", device=on_card):
+        optimizer.zero_grad()
+        ce.backward()
+    with tracing.span("solver.optimizer", device=on_card):
+        grad_norm = optimizer.step()
     if mesh is not None:
         ce_q = data_all_reduce(ce_q.detach().clone(), mesh)
         ce = ce_q.mean()
@@ -295,37 +299,41 @@ class MusicGenSolver(SolverRunMixin):
     def _batch_codes(self, batch, training: bool = True):
         """(codes, tokenized, padding mask) of a (wav, infos) batch or of a
         precomputed dict (its padding mask, or None)."""
-        if isinstance(batch, tuple) and len(batch) == 1 \
-                and isinstance(batch[0], dict):
-            batch = batch[0]
-        if isinstance(batch, dict) and "codes" in batch:
-            padding = batch.get("padding_mask")
-            return (torch.as_tensor(batch["codes"]).to(self.device),
-                    batch["tokenized"],
-                    None if padding is None
-                    else torch.as_tensor(padding).to(self.device))
-        codes, tokenized, padding = self._prepare_tokens_and_attributes(
-            batch, training)
-        if training and self.cached_batch_writer is not None:
-            self.cached_batch_writer.save({"codes": codes,
-                                           "tokenized": tokenized,
-                                           "padding_mask": padding})
-        return codes, tokenized, padding
+        with tracing.span("solver.batch"):
+            if isinstance(batch, tuple) and len(batch) == 1 \
+                    and isinstance(batch[0], dict):
+                batch = batch[0]
+            if isinstance(batch, dict) and "codes" in batch:
+                padding = batch.get("padding_mask")
+                return (torch.as_tensor(batch["codes"]).to(self.device),
+                        batch["tokenized"],
+                        None if padding is None
+                        else torch.as_tensor(padding).to(self.device))
+            codes, tokenized, padding = self._prepare_tokens_and_attributes(
+                batch, training)
+            if training and self.cached_batch_writer is not None:
+                self.cached_batch_writer.save({"codes": codes,
+                                               "tokenized": tokenized,
+                                               "padding_mask": padding})
+            return codes, tokenized, padding
 
     def run_step(self, idx: int, batch, metrics: dict) -> dict:
         """A train step in the 'train' stage; in another stage (valid) the
-        CE without an update."""
+        CE without an update. Span `solver.step` (`utils.tracing`), the
+        root of the step's `solver.batch` and `train_step`'s phases."""
         training = self.current_stage == "train"
-        if training and idx == 0 and self.cached_batch_writer is not None:
-            self.cached_batch_writer.start_epoch(self.epoch)
-        codes, tokenized, _ = self._batch_codes(batch, training)
-        if not training:
-            metrics.update(eval_step(self.model, codes, tokenized,
-                                     compute_dtype=self.compute_dtype))
-            return metrics
-        metrics.update(train_step(self.model, self.optimizer, codes, tokenized,
-                                  dropout_seed=self._next_dropout_seed(),
-                                  compute_dtype=self.compute_dtype))
+        with tracing.span("solver.step", stage=self.current_stage, idx=idx):
+            if training and idx == 0 and self.cached_batch_writer is not None:
+                self.cached_batch_writer.start_epoch(self.epoch)
+            codes, tokenized, _ = self._batch_codes(batch, training)
+            if not training:
+                metrics.update(eval_step(self.model, codes, tokenized,
+                                         compute_dtype=self.compute_dtype))
+                return metrics
+            metrics.update(train_step(
+                self.model, self.optimizer, codes, tokenized,
+                dropout_seed=self._next_dropout_seed(),
+                compute_dtype=self.compute_dtype))
         return metrics
 
     def run_epoch(self, split: str = "train", max_updates: int = 0) -> dict:

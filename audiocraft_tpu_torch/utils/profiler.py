@@ -6,7 +6,9 @@ there is a card, of its kernels; after `num_steps` calls of `step()` (or on
 exit, if sooner) the trace is written to `output_dir` as a Chrome trace
 (`trace_<steps>.json`, readable in Perfetto or chrome://tracing). Only the
 first `num_steps` updates are ever traced: entering again after that does
-nothing, so a solver can wrap every split.
+nothing, so a solver can wrap every split. The program's spans
+(`utils.tracing`: `solver.step`, `solver.forward`, ...) are on while it
+records and show in the trace under their names.
 """
 import logging
 import typing as tp

@@ -1,0 +1,11 @@
+"""`optimizer_ms.<suffix>`: device milliseconds per training step of
+`optimizer.step()` (clipping, AdamW and the schedule:
+`solvers/musicgen.py::train_step`), from the CUDA events of the program's
+span `solver.optimizer`, over the first traced pass (`harness/spans.py`).
+Moves `train_audio_s_per_s`."""
+from harness import spans
+
+
+def read(view, suffix):
+    return spans.per_item(view, spans.spans_sum(["solver.optimizer"],
+                                                "device_ms"))

@@ -62,6 +62,7 @@ from audiocraft_tpu_torch.ops.int4_decode_attention import (
     int4_decode_attention_reference, quant_pack_kv)
 from audiocraft_tpu_torch.solvers.builders import get_optimizer
 from audiocraft_tpu_torch.solvers.musicgen import train_step
+from audiocraft_tpu_torch.utils import tracing
 
 TEXTS = ["90s rock song with loud guitars", "calm piano"]
 
@@ -364,12 +365,63 @@ def test_decode_graph_replays_every_step_after_the_warm_up():
     lm = builders.get_debug_lm_model(device="cuda")
     attrs = [ConditioningAttributes(text={"description": t}) for t in TEXTS]
     stats = lm_module.decode_graph_stats
-    captures, replays = stats.captures, stats.replays
+    captures = stats.captures
     lm.generate(conditions=attrs, max_gen_len=16,
                 gen=GenParams(use_sampling=False))
     S = len(lm.pattern_provider.get_pattern(16).layout)
     assert stats.captures == captures + 1
-    assert stats.replays == replays + S - 3  # S - 1 forwards: 2 eager
+    assert stats.last_replays[2] == S - 3  # S - 1 forwards: 2 eager
+
+
+@pytest.mark.gpu
+def test_decode_spans_time_the_replays_with_the_stats_events():
+    """With tracing on, a debug generate on the card gives the decode
+    graph's spans in order; `lm.replays` reads the same CUDA events as
+    `decode_graph_stats`, device spans have events, the root counts the
+    allocator's calls; and a device span entered while the stream captures
+    a graph records no event."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    lm = builders.get_debug_lm_model(device="cuda")
+    attrs = [ConditioningAttributes(text={"description": t}) for t in TEXTS]
+    stats = lm_module.decode_graph_stats
+    tracing.clear()
+    tracing.enable()
+    try:
+        with tracing.span("generate"):
+            lm.generate(conditions=attrs, max_gen_len=16,
+                        gen=GenParams(use_sampling=False))
+        torch.cuda.synchronize()
+        x = torch.zeros(8, device="cuda")
+        graph, side = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            x.add_(1)  # warm-up outside the graph
+        torch.cuda.current_stream().wait_stream(side)
+        with torch.cuda.graph(graph):
+            with tracing.span("captured", device=True) as captured:
+                x.add_(1)
+        graph.replay()
+        torch.cuda.synchronize()
+    finally:
+        tracing.disable()
+    root = tracing.roots()[0]
+    assert set(root.counters) == {"num_device_alloc", "num_device_free"}
+    names = [c.name for c in root.children]
+    assert names == ["lm.conditions", "lm.prefill", "lm.decode"]
+    conditions, prefill, decode = root.children
+    assert [c.name for c in decode.children] == [
+        "lm.warmup_step", "lm.graph.sync", "lm.graph.release",
+        "lm.graph.capture", "lm.replays"]
+    assert conditions.device_ms > 0 and prefill.device_ms > 0
+    capture, replays = decode.children[3:]
+    assert capture.host_ms == pytest.approx(stats.last_capture_s * 1e3,
+                                            abs=1e-6)
+    count = stats.last_replays[2]
+    assert replays.attrs == {"steps": count}
+    assert replays.device_ms == pytest.approx(
+        stats.last_replay_ms_per_step() * count, rel=1e-6)
+    assert captured.device_ms is None and x[0].item() == 2.0
 
 
 @pytest.mark.gpu
