@@ -42,6 +42,7 @@ from ..modules.conditioners import (BaseConditioner,
                                     drop_description_condition)
 from ..modules.patterns import CodebooksPatternProvider
 from ..modules.transformer import LayerCache, StreamingTransformer
+from ..ops.cross_attention_step import cross_attention_step
 from ..ops.decode_attention import decode_attention
 from ..ops.quant import QTensor, quantize_weight, w8a8_heads
 from ..utils import tracing
@@ -439,6 +440,8 @@ class DecodeGraphStats:
 
 
 decode_graph_stats = DecodeGraphStats()
+# the kernel wrappers whose launches a graph replay repeats uncounted
+_COUNTED_KERNELS = (decode_attention, cross_attention_step)
 
 
 def _replay_decode_steps(step: tp.Callable[[], None], steps: int,
@@ -449,8 +452,8 @@ def _replay_decode_steps(step: tp.Callable[[], None], steps: int,
     attributes), then the rest as replays of one CUDA graph of the step.
     Warm-up and capture share a side stream. The request's generator is
     registered with the graph, so each replay draws new numbers from it.
-    A replay skips the kernel wrappers, so the K1 launches captured into
-    the graph are counted once per replay instead of at capture.
+    A replay skips the kernel wrappers, so the K1 and K4 launches captured
+    into the graph are counted once per replay instead of at capture.
 
     Spans (`utils.tracing`): `lm.warmup_step`, the eager step;
     `lm.graph.sync`, the host's wait for the prefill and the warm-up;
@@ -471,7 +474,7 @@ def _replay_decode_steps(step: tp.Callable[[], None], steps: int,
     graph = torch.cuda.CUDAGraph()
     if generator is not None:
         graph.register_generator_state(generator)
-    launches = decode_attention.launches
+    launches = [f.launches for f in _COUNTED_KERNELS]
     with tracing.span("lm.graph.sync"):
         torch.cuda.synchronize(device)
     with tracing.span("lm.graph.release"):
@@ -488,8 +491,9 @@ def _replay_decode_steps(step: tp.Callable[[], None], steps: int,
     stats.last_capture_s = (t1 - t0) / 1e9
     stats.last_capture_bytes = torch.cuda.memory_reserved(device) - reserved
     stats.captures += 1
-    captured = decode_attention.launches - launches
-    decode_attention.launches = launches  # nothing ran at capture
+    captured = [f.launches - n for f, n in zip(_COUNTED_KERNELS, launches)]
+    for f, n in zip(_COUNTED_KERNELS, launches):
+        f.launches = n  # nothing ran at capture
     stream = torch.cuda.current_stream(device)
     stream.wait_stream(side)
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -497,7 +501,8 @@ def _replay_decode_steps(step: tp.Callable[[], None], steps: int,
         start.record(stream)
         for _ in range(steps - 1):
             graph.replay()
-            decode_attention.launches += captured
+            for f, n in zip(_COUNTED_KERNELS, captured):
+                f.launches += n
         end.record(stream)
         replays.set_events(start, end)
     stats.last_replays = (start, end, steps - 1)

@@ -10,7 +10,10 @@ reads the device on the host and can be captured into a CUDA graph. A
 single-step causal self-attention reads the cache through the
 decode-attention kernel (`ops/decode_attention.py`), which takes the same
 device length and visits only the valid prefix; with GQA (`kv_repeat > 1`)
-it takes the masked plain attention, as the JAX package does. Full-sequence
+it takes the masked plain attention, as the JAX package does. A
+single-step cross-attention over precomputed K/V (stored once per request
+as [B, H, Tc, D]) goes through the cross-attention step kernel
+(`ops/cross_attention_step.py`) outside training. Full-sequence
 causal self-attention without a cache (training, evaluation) goes through
 the flash causal-attention kernel (`ops/flash_causal_attention.py`) under
 the JAX package's conditions.
@@ -40,6 +43,7 @@ import torch.utils.checkpoint
 from ..ops.attention import (dot_product_attention, dropout,
                              flash_causal_eligible, make_causal_bias,
                              repeat_kv)
+from ..ops.cross_attention_step import cross_attention_step, eligible_head_dim
 from ..ops.decode_attention import decode_attention
 from ..ops.flash_causal_attention import flash_causal_attention
 from ..ops.quant import div_scalar, qdot
@@ -172,7 +176,7 @@ class QLinear(nn.Linear):
 class LayerCache:
     """Per-layer state: self-attention KV cache + precomputed cross K/V."""
     self_attn: KVCache
-    cross_k: tp.Optional[torch.Tensor] = None  # [B, Tc, H, D]
+    cross_k: tp.Optional[torch.Tensor] = None  # [B, H, Tc, D], contiguous
     cross_v: tp.Optional[torch.Tensor] = None
 
 
@@ -273,8 +277,18 @@ class StreamingMultiheadAttention(nn.Module):
             if self.qk_layer_norm:
                 q = self.q_layer_norm(q)
             q = self._split_heads(q, self.num_heads)
-            k, v = cross_kv if cross_kv is not None else self.project_kv(key)
             # no mask: the null condition of CFG is zeros of length 1
+            if (cross_kv is not None and T == 1 and not self.training
+                    and eligible_head_dim(E // self.num_heads)
+                    and q.dtype == cross_kv[0].dtype):
+                # a decode step over the request's constant text keys and
+                # values, stored [B, H, Tc, D] by `precompute_cross_kv`
+                x = cross_attention_step(q[:, 0].contiguous(), *cross_kv)
+                return self.out_proj(x.reshape(B, T, E))
+            if cross_kv is not None:
+                k, v = (t.transpose(1, 2) for t in cross_kv)
+            else:
+                k, v = self.project_kv(key)
             x = dot_product_attention(q, k, v, **attn)
             return self.out_proj(x.reshape(B, T, E))
 
@@ -511,9 +525,13 @@ class StreamingTransformer(nn.Module):
 
     def precompute_cross_kv(self, src: torch.Tensor,
                             caches: tp.List[LayerCache]) -> None:
-        """Fill each layer cache with its projected cross-attention K/V."""
+        """Fill each layer cache with its projected cross-attention K/V,
+        each stored contiguous as [B, H, Tc, D] (the layout that the decode
+        step's `cross_attention_step` reads)."""
         for layer, cache in zip(self.layers, caches):
-            cache.cross_k, cache.cross_v = layer.cross_attention.project_kv(src)
+            cache.cross_k, cache.cross_v = (
+                t.transpose(1, 2).contiguous()
+                for t in layer.cross_attention.project_kv(src))
 
     def forward(self, x: torch.Tensor, *,
                 cross_attention_src: tp.Optional[torch.Tensor] = None,

@@ -22,7 +22,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 KERNELS = ("decode_attention", "flash_causal_attention",
-           "int4_decode_attention")
+           "int4_decode_attention", "cross_attention_step")
 
 _LOADED: tp.Dict[str, ctypes.CDLL] = {}
 

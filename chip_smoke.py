@@ -19,6 +19,10 @@ Phases, each printing one JSON line:
            the edges of its tiles (T 127,
            128, 129, 1501; D 64 and 128), its backward twice on the same
            inputs for bit-identical gradients, and timed at T 1500 and 1501;
+           the cross-attention step K4 over the serving shapes, Tc 1 and
+           512, f32 caches, D 8, 24 and 128, at 1, 2 and 4 warps per (row,
+           head), timed beside the plain attention it replaced and SDPA
+           over the same stored K/V;
   reference  the debug MusicGen, greedy in f32: tokens on the card equal the
            CPU's; then a train step of a small K2-eligible LM in f32: CE and
            every gradient on the card match the CPU's, and
@@ -28,8 +32,9 @@ Phases, each printing one JSON line:
            requests of 2 texts x 10 s, then one 16-prompt LM generation over
            an int8 KV cache; checks shapes, finiteness, code range, that
            every generate decoded through one captured CUDA graph and that
-           every decode-attention step launched the hand-written kernel
-           (replays count the launches they hold); then 1 s of greedy
+           every decode-attention and cross-attention step launched its
+           hand-written kernel (K1, K4; replays count the launches they
+           hold); then 1 s of greedy
            tokens from the graph equals the same step run eagerly on the
            card (bf16 and int8 caches), and a profile at 100 frames gives
            wall and device ms per forward and the idle share;
@@ -712,6 +717,132 @@ def _time_flash(torch, B, T, H, D, g):
     return timing
 
 
+def _cross_step_bytes_and_ops(B, H, Tc, D, kv_bytes, q_bytes):
+    """HBM bytes (K and V read once, q read and the output written once)
+    and f32 operations of one cross-attention step over Tc keys."""
+    n = B * H * Tc * D
+    return 2 * n * kv_bytes + 2 * B * H * D * q_bytes, 4 * n
+
+
+# B, H, Tc, D, dtype of q, k and v: the serving cells' steps (MusicGen-small
+# at 192 rows, MusicGen-medium at 4), one key (two-step CFG's null stream)
+# and T5's longest, f32 caches, and the head dims at the edges of the lane
+# layout (D 128: a row over all 32 lanes in f32; D 8: a lane a key in bf16;
+# D 24 in f32: idle lanes in each group)
+K4_CASES = ((192, 16, 40, 64, "bfloat16"),
+            (4, 24, 40, 64, "bfloat16"),
+            (8, 16, 1, 64, "bfloat16"),
+            (4, 16, 512, 64, "bfloat16"),
+            (6, 16, 77, 64, "float32"),
+            (6, 32, 129, 128, "bfloat16"),
+            (3, 8, 65, 128, "float32"),
+            (5, 5, 300, 8, "bfloat16"),
+            (3, 5, 17, 24, "float32"))
+# against the plain version on the same inputs, by the output's dtype:
+# absolute and relative elementwise (bf16: one ulp, 2^-7 of the value at
+# most, where the two f32 results round apart), and the relative L2
+# distance from the f32 plain version (bf16 rounding alone reads about
+# 1e-3; a key left out at Tc 512 reads several per cent)
+K4_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (4e-3, 8e-3)}
+K4_REL_L2 = 4e-3
+# (label, B, H, Tc): the serving cells' shapes and T5's longest at 192 rows
+K4_TIMED = (("gen96", 192, 16, 40), ("req2", 4, 24, 40),
+            ("gen96_tc512", 192, 16, 512))
+
+
+def phase_cross_attention_kernels(torch):
+    """K4 vs its plain version over `K4_CASES`, each through the wrapper and
+    through the C launcher at 1, 2 and 4 warps to a (row, head); then
+    timings at `K4_TIMED` (D 64, bf16) beside the plain version, the route
+    it replaced (the plain attention, bf16 compute, over the fused
+    projection's strided K/V views) and the library: one
+    `scaled_dot_product_attention` call over the same stored [B, H, Tc, D]
+    K/V. Emits a `kernel_check` and a `kernel_timing` line; returns the
+    worst error per output dtype and the timings."""
+    import torch.nn.functional as F
+    from audiocraft_tpu_torch.ops.attention import dot_product_attention
+    from audiocraft_tpu_torch.ops.cross_attention_step import (
+        _DTYPE_CODES, _launcher, _sm_count, cross_attention_step,
+        cross_attention_step_reference, warps_per_head)
+    from audiocraft_tpu_torch.utils.timing import time_ms
+    g = torch.Generator("cuda").manual_seed(7)
+    worst, worst_rel, checks = {}, {}, 0
+    for B, H, Tc, D, name in K4_CASES:
+        q, k, v = (torch.randn(*shape, device="cuda", generator=g).to(
+            getattr(torch, name)) for shape in ((B, H, D), (B, H, Tc, D),
+                                                (B, H, Tc, D)))
+        ref = cross_attention_step_reference(q, k, v).float()
+        exact = cross_attention_step_reference(q.float(), k.float(),
+                                               v.float())
+        outs = [cross_attention_step(q, k, v)]
+        for wph in (1, 2, 4):
+            out = torch.empty_like(q)
+            err = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                              out.data_ptr(), B, H, Tc, D, _DTYPE_CODES[q.dtype],
+                              wph, torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise AssertionError(f"cross_attention_step launch at {wph} "
+                                     f"warps per head: CUDA error {err}")
+            outs.append(out)
+        torch.cuda.synchronize()
+        atol, rtol = K4_TOL[name]
+        for out in outs:
+            diff = (out.float() - ref).abs()
+            err = diff.max().item()
+            rel = (torch.linalg.vector_norm(out.float() - exact)
+                   / torch.linalg.vector_norm(exact)).item()
+            if not (bool((diff <= atol + rtol * ref.abs()).all())
+                    and rel < K4_REL_L2):
+                raise AssertionError(
+                    f"cross_attention_step B={B} H={H} Tc={Tc} D={D} "
+                    f"{name}: max abs err {err}, relative L2 {rel} (limits "
+                    f"{atol} + {rtol} x |ref|, {K4_REL_L2})")
+            worst[name] = max(worst.get(name, 0.0), err)
+            worst_rel[name] = max(worst_rel.get(name, 0.0), rel)
+            checks += 1
+    emit("kernel_check", kernel="cross_attention_step", checks=checks,
+         shapes=[dict(B=B, H=H, Tc=Tc, D=D, dtype=name)
+                 for B, H, Tc, D, name in K4_CASES],
+         warps_per_head=["wrapper", 1, 2, 4], max_abs_err=worst,
+         max_rel_l2=worst_rel, tolerance=K4_TOL, rel_l2_limit=K4_REL_L2)
+
+    D, flush, timings = 64, 128 << 20, []
+    for label, B, H, Tc in K4_TIMED:
+        E = H * D
+        q = torch.randn(B, H, D, device="cuda", generator=g).to(torch.bfloat16)
+        kv = torch.randn(B, Tc, 2 * E, device="cuda", generator=g).to(
+            torch.bfloat16)
+        k_view, v_view = (t.reshape(B, Tc, H, D) for t in kv.chunk(2, dim=-1))
+        k, v = (t.transpose(1, 2).contiguous() for t in (k_view, v_view))
+        ms = time_ms(lambda: cross_attention_step(q, k, v), flush_bytes=flush)
+        plain_ms = time_ms(lambda: cross_attention_step_reference(q, k, v),
+                           flush_bytes=flush)
+        q4 = q[:, None]
+        einsum_ms = time_ms(lambda: dot_product_attention(
+            q4, k_view, v_view, as_float32=False), flush_bytes=flush)
+        q_sdpa = q[:, :, None]  # [B, H, 1, D]
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            q_sdpa, k, v), flush_bytes=flush)
+        nbytes, ops = _cross_step_bytes_and_ops(B, H, Tc, D, 2, 2)
+        bound = max(nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS) * 1e3
+        timings.append(dict(
+            cell=label, B=B, H=H, Tc=Tc, D=D, dtype="bfloat16",
+            warps_per_head=warps_per_head(B, H, _sm_count(0)), ms=ms,
+            plain_ms=plain_ms, einsum_ms=einsum_ms, library_ms=library_ms,
+            bound_ms=bound,
+            bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_FLOPS
+            else "operations", roofline_share=bound / ms))
+        del kv, k_view, v_view, k, v
+    emit("kernel_timing", kernel="cross_attention_step", l2_flushed=True,
+         statistic="median of 50 calls",
+         einsum="the route before this kernel: dot_product_attention "
+                "(bf16 compute, f32 logits) over [B, Tc, H, D] strided views "
+                "of the fused [B, Tc, 2E] projection",
+         library="F.scaled_dot_product_attention, q [B, H, 1, D], over the "
+                 "stored [B, H, Tc, D] K/V", timings=timings)
+    return worst, timings
+
+
 def phase_reference(torch):
     """Debug MusicGen, greedy, f32: the card's tokens equal the CPU's."""
     from audiocraft_tpu_torch.models import builders
@@ -831,6 +962,8 @@ def phase_slice(torch, card):
     from audiocraft_tpu_torch.models import lm as lm_module
     from audiocraft_tpu_torch.models.lm import GenParams
     from audiocraft_tpu_torch.modules.conditioners import ConditioningAttributes
+    from audiocraft_tpu_torch.ops.cross_attention_step import \
+        cross_attention_step
     from audiocraft_tpu_torch.ops.decode_attention import decode_attention
     t0 = time.perf_counter()
     lm = builders.get_musicgen_small_lm(device="cuda", dtype=torch.bfloat16,
@@ -859,6 +992,7 @@ def phase_slice(torch, card):
     torch.cuda.reset_peak_memory_stats()
     captures = stats.captures
     decode_attention.launches = fca.launches = fca.backward_launches = 0
+    cross_attention_step.launches = 0
     request_s = []
     for _ in range(N_REQUESTS):
         t = time.perf_counter()
@@ -882,6 +1016,7 @@ def phase_slice(torch, card):
     torch.cuda.synchronize()
     int8_s = time.perf_counter() - t
     launches = decode_attention.launches
+    cross_launches = cross_attention_step.launches
     flash_launches = fca.launches + fca.backward_launches
     peak = torch.cuda.max_memory_allocated()
     note_graph()
@@ -896,6 +1031,9 @@ def phase_slice(torch, card):
     if launches != expected:
         raise AssertionError(f"decode_attention launched {launches} times, "
                              f"expected {expected}")
+    if cross_launches != expected:  # the same single-step forwards
+        raise AssertionError(f"cross_attention_step launched {cross_launches} "
+                             f"times, expected {expected}")
 
     # about 1 s of greedy tokens: the graph's equal the step run eagerly
     short = dict(conditions=attrs[:2], max_gen_len=TOKENS_PER_SECOND,
@@ -926,6 +1064,7 @@ def phase_slice(torch, card):
          int8_audio_s_per_s=16 * DURATION / int8_s,
          pattern_steps=steps, forwards_per_generate=forwards,
          decode_attention_launches=launches, expected_launches=expected,
+         cross_attention_step_launches=cross_launches,
          flash_causal_attention_launches=flash_launches,
          max_memory_allocated=peak,
          decode_graph=dict(graph, captures=N_REQUESTS + 1,
@@ -939,7 +1078,7 @@ def phase_slice(torch, card):
              "device_idle_share", "kernel_launches_per_forward",
              "host_launch_calls_per_forward", "graph_capture_s",
              "graph_capture_bytes")} for p in profiled])
-    return launches, wav
+    return launches, cross_launches, wav
 
 
 def _seeded_music(torch, batch: int, seconds: int, sample_rate: int = 32000):
@@ -4458,9 +4597,10 @@ def main() -> int:
     for kind, err in phase_graph_kernel(torch, S).items():
         worst[kind] = max(worst[kind], err)
     flash_worst, flash_timing = phase_flash_kernels(torch)
+    k4_worst, k4_timings = phase_cross_attention_kernels(torch)
     phase_reference(torch)
     phase_reference_train(torch)
-    launches, music = phase_slice(torch, card)
+    launches, k4_launches, music = phase_slice(torch, card)
     train_launches, solver, batch = phase_train(torch, card)
     remat = phase_train_remat(torch, card, solver, batch)
     phase_resume(torch, card, solver, batch)
@@ -4560,7 +4700,22 @@ def main() -> int:
         "shape": {k: int4_t[k] for k in ("B", "S", "H", "D", "length")},
         "design": "cluster split-S + cp.async ring, running max per tile",
         "replaced_design": "block per (head, row), three phases over the "
-                           "window in shared memory"}]}),
+                           "window in shared memory"}, {
+        "name": "cross_attention_step", "route": "cuda",
+        "source": "audiocraft_tpu_torch/csrc/cross_attention_step.cu",
+        "replaces": None, "launches": k4_launches,
+        "max_abs_err": max(k4_worst.values()),
+        "ms": k4_timings[0]["ms"], "plain_ms": k4_timings[0]["plain_ms"],
+        "bound_ms": k4_timings[0]["bound_ms"],
+        "bound_by": k4_timings[0]["bound_by"],
+        "library_ms": k4_timings[0]["library_ms"],
+        "einsum_ms": k4_timings[0]["einsum_ms"],
+        "shape": {k: k4_timings[0][k] for k in ("B", "H", "Tc", "D", "dtype")},
+        "timings": k4_timings,
+        "design": "warp per (row, head) or 2-4 warps combined in shared "
+                  "memory, every load of a tile in flight at once",
+        "replaced_design": "the plain attention's upcast, head-order copies, "
+                           "f32 GEMV, softmax and P.V"}]}),
         flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
